@@ -1,0 +1,505 @@
+"""repro_torch.deploy — one declarative deployment API: MiniConvSpec ->
+served policy, on the GPU (port of ``repro.deploy``).
+
+* :class:`DeploymentConfig` — the frozen, JSON-serialisable manifest, with
+  the reference's schema and ``CONFIG_VERSION = 2``; manifests of
+  versions 1 and 2 written by ``repro.deploy`` load here unchanged.
+* :class:`Deployment` — the compiled form.  ``Deployment.build(config)``
+  resolves the config ONCE into the budget-checked PassPlan, the
+  parameter initialiser, the :class:`SplitModel`, the RL-facing
+  :class:`~repro_torch.rl.networks.Encoder`, the codec, and factories for a
+  ready ``EdgeClient`` / ``BatchingPolicyServer`` pair.
+
+Quick start::
+
+    import torch
+    from repro_torch.deploy import Deployment, DeploymentConfig
+
+    cfg = DeploymentConfig.standard(k=4, c_in=12, h=84, backend="fused")
+    dep = Deployment.build(cfg)                 # device="cuda" by default
+    params = dep.init(torch.Generator().manual_seed(0))
+    client, server = dep.serving_pair(params)
+    actions = server.serve([client.encode_fn(obs)])
+
+Run ``python -m repro_torch.deploy --verify`` to write and round-trip-
+verify a manifest.  Not ported yet (see ROADMAP.md): the fleet and real
+fleet, the scenario simulation, the tuner and ``export_best``.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core.backends import (ExecutionBackend, backend_names,
+                                       get_backend)
+from repro_torch.core.miniconv import (_ACTS, LayerSpec, MiniConvSpec,
+                                       ShaderBudget, miniconv_apply,
+                                       standard_spec)
+from repro_torch.core.passplan import HeadPlan, PassPlan, build_pass_plan
+from repro_torch.core.split import SplitModel
+from repro_torch.core.tuning import TunedPlan
+from repro_torch.core.wire import CODECS, WireCodec, get_codec
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.nn.layers import dense
+from repro_torch.rl.networks import Encoder, miniconv_encoder_init
+from repro_torch.schema import check_version
+from repro_torch.serving.client import EdgeClient
+from repro_torch.serving.server import BatchingPolicyServer
+
+# version 2 added the optional ``tuning`` block (a frozen TunedPlan);
+# version-1 manifests load unchanged with ``tuning=None``.
+CONFIG_VERSION = 2
+_READABLE_VERSIONS = (1, 2)
+
+# The fleet routing policies of repro.serving.fleet, by name.  The fleet
+# itself is not ported yet; a manifest naming another router is refused.
+ROUTERS = ("round_robin", "client_affinity", "least_loaded")
+
+
+# ---------------------------------------------------------------------------
+# The manifest
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DeploymentConfig:
+    """Declarative, serialisable description of one split-policy deployment.
+
+    The fields are the reference's (``repro.deploy.DeploymentConfig``):
+
+    spec            : the MiniConv encoder architecture (budget-checked).
+    in_h, in_w      : the concrete input size the edge device sees.
+    backend         : execution-backend name (``core.backends``).
+    interpret       : the reference's Pallas interpret switch.  Accepted so
+                      that manifests load; it means nothing to the port.
+    codec           : wire-codec name (``core.wire.CODECS``).
+    head_dim        : width of the server-side projection (paper: 512).
+    head_act        : activation of the projection.
+    head_placement  : ``"server"`` (the paper's split) or ``"fused"``
+                      (projection fused with the encoder into one call).
+    max_batch       : server micro-batching cap (B frames per launch).
+    max_wait_ms     : how long the server holds a batch open.
+    tile_h          : the reference's output-row tile; the CUDA kernel has
+                      no row tiles, so it does not change the result.
+    quantize_in_train : straight-through-quantise features in training.
+    n_servers, router : fleet shape (the fleet is not ported yet).
+    tuning          : optional frozen :class:`TunedPlan`, honoured only
+                      when the port measured it (see :meth:`Deployment.build`).
+    """
+
+    spec: MiniConvSpec
+    in_h: int
+    in_w: int
+    backend: str = "fused"
+    interpret: Optional[bool] = None
+    codec: str = "uint8"
+    head_dim: int = 512
+    head_act: str = "relu"
+    head_placement: str = "server"
+    max_batch: int = 8
+    max_wait_ms: float = 0.0
+    tile_h: int = 8
+    quantize_in_train: bool = False
+    n_servers: int = 1
+    router: str = "round_robin"
+    tuning: Optional[TunedPlan] = None
+
+    def __post_init__(self):
+        # canonicalise backend aliases (and the legacy use_kernel booleans)
+        # so equality and serialisation are name-stable
+        object.__setattr__(self, "backend", get_backend(self.backend).name)
+        if isinstance(self.tuning, dict):     # deserialised manifests
+            object.__setattr__(self, "tuning",
+                               TunedPlan.from_dict(self.tuning))
+
+    # ---- construction helpers ---------------------------------------------
+    @classmethod
+    def standard(cls, *, k: int = 4, c_in: int = 12, h: int = 84,
+                 w: Optional[int] = None, **overrides) -> "DeploymentConfig":
+        """The paper's standard encoder family, deployed at (h, w)."""
+        return cls(spec=standard_spec(c_in=c_in, k=k), in_h=h,
+                   in_w=h if w is None else w, **overrides)
+
+    @classmethod
+    def from_encoder_name(cls, name: str, *, c_in: int, h: int = 84,
+                          w: Optional[int] = None,
+                          **overrides) -> "DeploymentConfig":
+        """``miniconv<K>``."""
+        if not name.startswith("miniconv"):
+            raise ValueError(f"not a MiniConv deployment: {name!r} "
+                             f"(full_cnn has no split pipeline)")
+        k = int(name.replace("miniconv", ""))
+        return cls.standard(k=k, c_in=c_in, h=h, w=w, **overrides)
+
+    # ---- validation --------------------------------------------------------
+    def validate(self) -> None:
+        get_backend(self.backend)          # raises listing registered names
+        if self.codec not in CODECS:
+            raise ValueError(f"unknown codec {self.codec!r}; registered: "
+                             f"{', '.join(CODECS)}")
+        if self.head_placement not in ("server", "fused"):
+            raise ValueError(f"head_placement must be 'server' or 'fused', "
+                             f"got {self.head_placement!r}")
+        if self.head_act not in _ACTS:
+            raise ValueError(f"unknown head_act {self.head_act!r}; one of "
+                             f"{', '.join(_ACTS)}")
+        if self.in_h < 1 or self.in_w < 1:
+            raise ValueError(f"input size must be positive, got "
+                             f"{(self.in_h, self.in_w)}")
+        if self.head_dim < 1:
+            raise ValueError(f"head_dim must be positive: {self.head_dim}")
+        if self.max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1: {self.max_batch}")
+        if self.max_wait_ms < 0:
+            raise ValueError(f"max_wait_ms must be >= 0: {self.max_wait_ms}")
+        if self.tile_h < 1:
+            raise ValueError(f"tile_h must be >= 1: {self.tile_h}")
+        if self.n_servers < 1:
+            raise ValueError(f"n_servers must be >= 1: {self.n_servers}")
+        if self.router not in ROUTERS:
+            raise ValueError(f"unknown router {self.router!r}; registered: "
+                             f"{', '.join(ROUTERS)}")
+        if self.tuning is not None:
+            get_backend(self.tuning.backend)   # raises listing names
+            if self.tuning.tile_h < 1 or self.tuning.micro_batch < 1:
+                raise ValueError(
+                    f"tuning tile_h/micro_batch must be >= 1, got "
+                    f"{self.tuning.tile_h}/{self.tuning.micro_batch}")
+        self.spec.validate()
+
+    # ---- serialisation -----------------------------------------------------
+    def to_dict(self) -> dict:
+        """JSON-safe manifest; inverse of :meth:`from_dict`."""
+        d = dataclasses.asdict(self)
+        d["spec"] = {
+            "layers": [dataclasses.asdict(l) for l in self.spec.layers],
+            "budget": dataclasses.asdict(self.spec.budget),
+        }
+        d["tuning"] = None if self.tuning is None else self.tuning.to_dict()
+        d["version"] = CONFIG_VERSION
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "DeploymentConfig":
+        d = dict(d)
+        check_version("DeploymentConfig manifest",
+                      d.pop("version", CONFIG_VERSION), _READABLE_VERSIONS)
+        s = d.pop("spec")
+        spec = MiniConvSpec(
+            layers=tuple(LayerSpec(**l) for l in s["layers"]),
+            budget=ShaderBudget(**s.get("budget", {})))
+        return cls(spec=spec, **d)
+
+    def to_json(self, **kw) -> str:
+        return json.dumps(self.to_dict(), **kw)
+
+    @classmethod
+    def from_json(cls, s: str) -> "DeploymentConfig":
+        return cls.from_dict(json.loads(s))
+
+
+# ---------------------------------------------------------------------------
+# The compiled deployment
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Deployment:
+    """A resolved deployment: every pipeline stage, built once from config.
+
+    Construct with :meth:`build`.  Parameters stay OUTSIDE (plain dicts of
+    tensors on ``device``), so one Deployment serves several parameter
+    sets.
+    """
+
+    config: DeploymentConfig
+    backend: ExecutionBackend
+    plan: PassPlan
+    head_plan: HeadPlan
+    codec: WireCodec
+    split: SplitModel
+    encoder: Encoder
+    max_safe_batch: int
+    device: torch.device
+    tile_h: int = 8
+    build_log: tuple = ()
+
+    # ---- the compiler ------------------------------------------------------
+    @classmethod
+    def build(cls, config: DeploymentConfig,
+              device: DeviceLike = None) -> "Deployment":
+        """Resolve ``config`` into the executable pipeline on ``device``
+        (``"cuda"`` by default; ``"cpu"`` runs the kernels' plain versions).
+
+        The PassPlan is lowered and budget-checked once, up front.  A
+        manifest ``tuning`` block overrides the backend and ``tile_h`` only
+        when its ``mode`` is one the port stamps; a block measured by the
+        reference is recorded in ``build_log`` and the config's own fields
+        apply.  For the fused backends the plan decides where the kernel
+        stages layer intermediates (shared memory or a global workspace);
+        ``build_log`` records the choice.
+        """
+        config.validate()
+        dev = resolve_device(device)
+        backend = get_backend(config.backend)
+        tile_h = config.tile_h
+        tuning = config.tuning
+        log: list[str] = []
+        if tuning is not None and tuning.measured_by_port:
+            backend = get_backend(tuning.backend)
+            tile_h = tuning.tile_h
+            log.append(
+                f"tuning: manifest TunedPlan -> backend={backend.name} "
+                f"tile_h={tile_h} micro_batch={tuning.micro_batch} "
+                f"(measured {tuning.mode} on {tuning.host or 'unknown'})")
+        elif tuning is not None:
+            log.append(
+                f"tuning: block measured elsewhere ({tuning.mode} on "
+                f"{tuning.host or 'unknown'}), not by this port; ignored — "
+                f"backend={backend.name} tile_h={tile_h} from the config")
+        if backend.streamed or backend.mode == "grouped":
+            raise NotImplementedError(
+                f"backend {backend.name!r} is registered but its kernel is "
+                f"not ported yet (ROADMAP.md, 'TPU kernels to port'); use "
+                f"'fused', 'fused+head', 'reference' or 'xla'")
+        spec = config.spec
+        plan = build_pass_plan(spec, config.in_h, config.in_w)
+        head_plan = plan.head(config.head_dim, activation=config.head_act)
+        max_safe = plan.max_safe_batch()
+        if backend.mode == "fused":
+            log.append(
+                f"staging: {plan.staging} — {plan.smem_bytes} B of layer "
+                f"intermediates per frame"
+                + (" in the block's shared memory" if plan.staging == "shared"
+                   else f", global workspace of {plan.workspace_bytes(config.max_batch)} B "
+                        f"at max_batch={config.max_batch}"))
+            if config.max_batch > max_safe:
+                log.append(
+                    f"workspace: max_batch {config.max_batch} > "
+                    f"max_safe_batch {max_safe}; the intermediates of a full "
+                    f"batch exceed the L2 and run from device memory")
+        codec = get_codec(config.codec)
+        mode = backend.mode
+        head_act = config.head_act
+
+        def edge_apply(edge_params, obs):
+            return miniconv_apply(edge_params, spec, obs, use_kernel=mode,
+                                  plan=plan if mode == "fused" else None,
+                                  tile_h=tile_h)
+
+        def server_apply(server_params, feats):
+            z = dense(server_params["proj"], feats.reshape(feats.shape[0], -1))
+            return _ACTS[head_act](z)
+
+        split = SplitModel(edge_apply=edge_apply, server_apply=server_apply,
+                           codec=codec,
+                           quantize_in_train=config.quantize_in_train,
+                           plan=plan)
+
+        def init(gen):
+            return miniconv_encoder_init(gen, spec, h=config.in_h,
+                                         w=config.in_w,
+                                         feature_dim=config.head_dim,
+                                         device=dev)
+
+        def deployed_plan(obs):
+            # training tolerates other input sizes: re-lower then
+            return plan if (mode == "fused"
+                            and tuple(obs.shape[1:3]) == (plan.in_h,
+                                                          plan.in_w)) else None
+
+        if config.head_placement == "fused" or backend.fused_head:
+            def encoder_apply(params, obs):
+                # encoder + projection in one call (one kernel launch
+                # under the fused backends)
+                _, z = miniconv_apply(params["edge"], spec, obs,
+                                      use_kernel=mode, plan=deployed_plan(obs),
+                                      tile_h=tile_h,
+                                      head=params["server"]["proj"],
+                                      head_act=head_act)
+                return z
+        else:
+            def encoder_apply(params, obs):
+                feats = miniconv_apply(params["edge"], spec, obs,
+                                       use_kernel=mode,
+                                       plan=deployed_plan(obs), tile_h=tile_h)
+                return server_apply(params["server"], feats)
+
+        encoder = Encoder(name=f"miniconv{spec.k_out}", init=init,
+                          apply=encoder_apply, spec=spec)
+        return cls(config=config, backend=backend, plan=plan,
+                   head_plan=head_plan, codec=codec, split=split,
+                   encoder=encoder, max_safe_batch=max_safe, device=dev,
+                   tile_h=tile_h, build_log=tuple(log))
+
+    # ---- parameters --------------------------------------------------------
+    def init(self, gen: torch.Generator):
+        """{"edge": conv params, "server": {"proj": dense}} on
+        ``self.device`` — the dict split IS the deployment split."""
+        return self.encoder.init(gen)
+
+    # ---- accounting --------------------------------------------------------
+    @property
+    def spec(self) -> MiniConvSpec:
+        return self.config.spec
+
+    @property
+    def wire_bytes(self) -> int:
+        """Exact bytes of one request's payload on the link."""
+        return self.split.wire_bytes()
+
+    def wire_bytes_batch(self, batch: Optional[int] = None) -> int:
+        return self.split.wire_bytes(
+            batch=self.config.max_batch if batch is None else batch)
+
+    @property
+    def frame_bytes(self) -> int:
+        """Bytes of the raw observation upload the server-only baseline
+        transmits (RGBA-packed: 4 channels per texture)."""
+        c = self.spec.layers[0].c_in
+        return self.config.in_h * self.config.in_w * (-(-c // 4) * 4)
+
+    # ---- served pipeline ---------------------------------------------------
+    @staticmethod
+    def _split_params(params):
+        """Accept either the encoder split ({"edge", "server"}) or a full
+        trained parameter tree whose ``"encoder"`` entry is that split."""
+        if "edge" not in params and "encoder" in params:
+            return params["encoder"]
+        return params
+
+    def edge_fn(self, params) -> Callable:
+        """On-device half: obs -> wire payload."""
+        edge_params = self._split_params(params)["edge"]
+
+        def fn(obs):
+            with torch.inference_mode():
+                return self.split.edge_step(edge_params, obs)
+        return fn
+
+    def server_fn(self, params, head: Optional[Callable] = None) -> Callable:
+        """Remote half: payload -> features (or actions via ``head``, e.g.
+        a policy MLP applied after the projection)."""
+        server_params = self._split_params(params)["server"]
+
+        def fn(payload):
+            with torch.inference_mode():
+                z = self.split.server_step(server_params, payload)
+                return head(z) if head is not None else z
+        return fn
+
+    def server_batch_fn(self, params,
+                        head: Optional[Callable] = None) -> Callable:
+        """Micro-batched remote half: stacked payload -> actions."""
+        server_params = self._split_params(params)["server"]
+
+        def fn(payload_batch):
+            with torch.inference_mode():
+                z = self.split.server_step_batch(server_params,
+                                                 payload_batch)
+                return head(z) if head is not None else z
+        return fn
+
+    def client(self, params) -> EdgeClient:
+        """Ready :class:`EdgeClient` for these parameters."""
+        return EdgeClient(encode_fn=self.edge_fn(params),
+                          wire_bytes=self.wire_bytes)
+
+    def server(self, params,
+               head: Optional[Callable] = None) -> BatchingPolicyServer:
+        """Ready :class:`BatchingPolicyServer` under this config's
+        batching policy (``max_batch`` / ``max_wait_ms``)."""
+        return BatchingPolicyServer(
+            serve_batch_fn=self.server_batch_fn(params, head),
+            max_batch=self.config.max_batch,
+            max_wait_s=self.config.max_wait_ms / 1e3)
+
+    def serving_pair(self, params, head: Optional[Callable] = None
+                     ) -> tuple[EdgeClient, BatchingPolicyServer]:
+        """The paper's Figure-5 pipeline, ready to measure."""
+        return self.client(params), self.server(params, head)
+
+
+# ---------------------------------------------------------------------------
+# Manifest CLI: python -m repro_torch.deploy
+# ---------------------------------------------------------------------------
+
+def _verify_roundtrip(cfg: DeploymentConfig, *, device: DeviceLike = None,
+                      seed: int = 0) -> None:
+    """Raise unless a reloaded manifest gives identical encoder outputs and
+    wire payloads."""
+    cfg2 = DeploymentConfig.from_json(cfg.to_json())
+    if cfg2 != cfg:
+        raise AssertionError("manifest round-trip changed the config")
+    dep = Deployment.build(cfg, device=device)
+    dep2 = Deployment.build(cfg2, device=device)
+    params = dep.init(torch.Generator().manual_seed(seed))
+    params2 = dep2.init(torch.Generator().manual_seed(seed))
+    obs = torch.rand((1, cfg.in_h, cfg.in_w, cfg.spec.layers[0].c_in),
+                     generator=torch.Generator().manual_seed(seed + 1))
+    obs = obs.to(dep.device)
+    with torch.inference_mode():
+        if not torch.equal(dep.encoder.apply(params, obs),
+                           dep2.encoder.apply(params2, obs)):
+            raise AssertionError("reloaded manifest changed encoder outputs")
+    p1 = dep.edge_fn(params)(obs)
+    p2 = dep2.edge_fn(params2)(obs)
+    for k in p1:
+        if not torch.equal(p1[k], p2[k]):
+            raise AssertionError(f"reloaded manifest changed payload {k!r}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Build the standard deployment config, write its "
+                    "manifest, reload it and verify the round-trip.")
+    ap.add_argument("--k", type=int, default=4)
+    ap.add_argument("--c-in", type=int, default=12)
+    ap.add_argument("--x", type=int, default=84, help="input H=W")
+    ap.add_argument("--backend", default="fused",
+                    help=f"one of: {', '.join(backend_names())}")
+    ap.add_argument("--codec", default="uint8")
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--n-servers", type=int, default=1)
+    ap.add_argument("--router", default="round_robin",
+                    help=f"fleet routing policy: {', '.join(ROUTERS)}")
+    ap.add_argument("--out", default="deploy_manifest.json")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the plain versions)")
+    ap.add_argument("--verify", action="store_true",
+                    help="rebuild from the reloaded manifest and assert "
+                         "identical encoder outputs and wire payloads")
+    args = ap.parse_args(argv)
+
+    cfg = DeploymentConfig.standard(k=args.k, c_in=args.c_in, h=args.x,
+                                    backend=args.backend, codec=args.codec,
+                                    max_batch=args.max_batch,
+                                    n_servers=args.n_servers,
+                                    router=args.router)
+    dep = Deployment.build(cfg, device=args.device)
+    for line in dep.build_log:
+        print(f"  {line}")
+    with open(args.out, "w") as f:
+        f.write(cfg.to_json(indent=2))
+    print(f"  wrote {args.out}")
+    with open(args.out) as f:
+        reloaded = DeploymentConfig.from_json(f.read())
+    if reloaded != cfg:
+        raise SystemExit("manifest on disk does not round-trip")
+    print(f"  round-trip OK: backend={dep.backend.name} "
+          f"plan={dep.plan.total_passes} passes "
+          f"feature={dep.plan.feature_shape} wire={dep.wire_bytes}B "
+          f"max_safe_batch={dep.max_safe_batch} device={dep.device}")
+    if args.verify:
+        _verify_roundtrip(cfg, device=args.device)
+        print("  verified: reloaded manifest reproduces identical encoder "
+              "outputs and wire payloads")
+
+
+if __name__ == "__main__":
+    main()
+
+
+__all__ = ["CONFIG_VERSION", "Deployment", "DeploymentConfig", "ROUTERS"]

@@ -1,0 +1,110 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each source in ``csrc/`` becomes its own shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), compiled for
+Hopper (``sm_90a``) at first use into ``build/repro_torch/`` at the root of
+the checkout, a directory git ignores.  A library's file name carries a
+hash of its source and flags, so an edited source is rebuilt and a stale
+one is never loaded.  :func:`build` starts one nvcc per missing source, all
+at once.
+
+Nothing here runs at import: the module imports on a host with no nvcc
+and no GPU, and only a kernel launch needs a library.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Iterable, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = {
+    "miniconv_pass": "miniconv_pass.cu",
+    "miniconv_encoder": "miniconv_encoder.cu",
+}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc_path() -> Optional[str]:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on the
+    PATH, else the toolkit's default install."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    return next((c for c in candidates if c and os.access(c, os.X_OK)),
+                None)
+
+
+def cuda_kernels_supported() -> bool:
+    """True when the kernels can be built and run here: CUDA present, a
+    compute-capability 9.0 (Hopper) card, and nvcc.  Gates the GPU test
+    tier; it never chooses a code path."""
+    return (torch.cuda.is_available()
+            and torch.cuda.get_device_capability(0) == (9, 0)
+            and nvcc_path() is not None)
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{key[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> dict[str, dict]:
+    """Compile every named library that is not built yet, all in parallel.
+
+    Returns ``{name: {"seconds": float, "log": str}}`` for the libraries
+    compiled by this call (``log`` holds ptxas's register and
+    shared-memory report).  Raises ``RuntimeError`` with the compiler's
+    output if any build fails.
+    """
+    names = list(SOURCES if names is None else names)
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = nvcc_path()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA "
+                           "kernels are built from source at first use")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for n in todo:
+        final = library_path(n)
+        tmp = final.with_name(f"{final.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[n])]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+    out, failed = {}, []
+    for n, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{n} (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, library_path(n))  # atomic: processes may build at once
+        out[n] = {"seconds": time.perf_counter() - t0, "log": log}
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The built library ``name``, compiled first if needed."""
+    build([name])
+    return ctypes.CDLL(str(library_path(name)))
+
+
+__all__ = ["BUILD_DIR", "SOURCES", "build", "cuda_kernels_supported",
+           "library_path", "load", "nvcc_path"]

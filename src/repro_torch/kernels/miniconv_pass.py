@@ -1,0 +1,231 @@
+"""Wrappers of the port's two MiniConv CUDA kernels.
+
+* :func:`miniconv_pass` — one shader pass (``csrc/miniconv_pass.cu``), the
+  counterpart of the reference's ``miniconv_pass`` / ``_pass_kernel``.
+  ``kernels.ops.miniconv_layer`` launches it once per 4-channel output
+  group: the ``reference`` backend, the oracle of the fused tier.
+* :func:`miniconv_encoder` — a whole PassPlan, optionally with the
+  projection epilogue, in one launch (``csrc/miniconv_encoder.cu``), the
+  counterpart of ``miniconv_encoder`` / ``_encoder_kernel``: the ``fused``
+  and ``fused+head`` backends.
+
+A wrapper given CPU tensors computes with the kernel's plain PyTorch
+version (``kernels/ref.py``).  Given CUDA tensors it launches the kernel or
+raises; nothing falls back.  Each wrapper counts its launches in a plain
+integer attribute, ``miniconv_pass.launches`` and
+``miniconv_encoder.launches``, that a run may reset and read to show which
+kernels a path went through.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import miniconv_encoder_ref, miniconv_pass_ref
+
+_ACT_CODES = {"relu": 0, "sigmoid": 1, "linear": 2}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher(lib: str, symbol: str, argtypes: tuple):
+    fn = getattr(_build.load(lib), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_rc(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} CUDA launch failed: error {rc} "
+                           f"(cudaError_t)")
+
+
+def _on_one_device(*tensors) -> torch.device:
+    """The device every given tensor lies on; raises when they differ or
+    when it is neither the CPU nor CUDA."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"tensors must share one device, got {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _kernel_arg(t: torch.Tensor, what: str) -> torch.Tensor:
+    """A contiguous, 16-byte-aligned fp32 tensor for a kernel pointer."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{what} must be float32 for the CUDA kernel, got "
+                        f"{t.dtype}")
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+# ---------------------------------------------------------------------------
+# K2: one shader pass
+# ---------------------------------------------------------------------------
+
+_PASS_ARGS = (_P, _P, _P, _P) + (_I,) * 10 + (_P,)
+
+
+def miniconv_pass(x, w, b, *, stride: int = 1):
+    """One shader pass on a pre-padded input (VALID convolution).
+
+    x: (B, H_in, W_in, C_in); w: (kh, kw, C_in, 4); b: (4,).
+    Returns (B, H_out, W_out, 4) with
+    H_out = (H_in - kh)//stride + 1, W_out = (W_in - kw)//stride + 1.
+    """
+    B, h_in, w_in, c_in = x.shape
+    kh, kw, c_in_w, c_out = w.shape
+    if c_in != c_in_w or c_out != 4 or tuple(b.shape) != (4,):
+        raise ValueError(f"pass takes x (B,H,W,C), w (kh,kw,C,4), b (4,); "
+                         f"got {tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(b.shape)}")
+    if h_in < kh or w_in < kw or stride < 1:
+        raise ValueError(f"input {h_in}x{w_in} smaller than kernel "
+                         f"{kh}x{kw} or stride {stride} < 1")
+    h_out = (h_in - kh) // stride + 1
+    w_out = (w_in - kw) // stride + 1
+    dev = _on_one_device(x, w, b)
+    if dev.type == "cpu":
+        return miniconv_pass_ref(x, w, b, stride=stride)
+
+    x = _kernel_arg(x, "x")
+    w = _kernel_arg(w, "w")
+    b = _kernel_arg(b, "b")
+    y = torch.empty((B, h_out, w_out, 4), dtype=torch.float32, device=dev)
+    fn = _launcher("miniconv_pass", "miniconv_pass_launch", _PASS_ARGS)
+    rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B,
+            h_in, w_in, c_in, kh, kw, stride, h_out, w_out, dev.index or 0,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _check_rc(rc, "miniconv_pass")
+    miniconv_pass.launches += 1
+    return y
+
+
+miniconv_pass.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1: the whole encoder, optional projection epilogue
+# ---------------------------------------------------------------------------
+
+_MAX_LAYERS = 8
+_ENCODER_ARGS = ((_P,) * 5 + (_I,) + (_P,) * 4 + (_I,) * 4
+                 + (ctypes.c_longlong, _I, _I, _P))
+
+
+def _layer_desc(plan) -> list[int]:
+    """Per layer: kernel, stride, c_in, c_out, in_h, in_w, out_h, out_w,
+    pad_top, pad_left, activation code (``miniconv_encoder.cu``)."""
+    out = []
+    for l in plan.layers:
+        out += [l.kernel, l.stride, l.c_in, l.c_out, l.in_h, l.in_w,
+                l.out_h, l.out_w, l.pad_top, l.pad_left,
+                _ACT_CODES[l.activation]]
+    return out
+
+
+def prepare_fused_head(head_w, plan):
+    """Lay a (plan.flat_features, D) head weight out for the epilogue.
+
+    The CUDA epilogue reads the weight as it is — rows in the features'
+    NHWC (h, w, c) order, row-major — so this checks the shape and makes
+    it contiguous; the reference's row tiling and 128-lane padding exist
+    for the TPU and have no counterpart here.
+    """
+    if head_w.ndim != 2 or head_w.shape[0] != plan.flat_features:
+        raise ValueError(f"head weight must be ({plan.flat_features}, D), "
+                         f"got {tuple(head_w.shape)}")
+    return head_w.contiguous()
+
+
+def miniconv_encoder(x, weights, biases, plan, *, tile_h: int = 8,
+                     head_w=None, head_b=None, head_act: str = "relu"):
+    """Execute a whole :class:`~repro_torch.core.passplan.PassPlan` as ONE
+    kernel launch (one thread block per frame).
+
+    x: (B, H, W, C_in) with (H, W) == (plan.in_h, plan.in_w);
+    weights/biases: per-layer lists, HWIO kernels and (C_out,) biases.
+    Returns (B, plan.out_h, plan.out_w, plan.k_out) float32 — SAME padding,
+    fp32 accumulation, per-layer activation.
+
+    ``head_w`` ((plan.flat_features, D), optional) adds the projection
+    epilogue: the return value becomes ``(features, head_act(
+    features.reshape(B, -1) @ head_w + head_b))``, computed in the same
+    launch.  ``tile_h`` is accepted for the reference's signature and does
+    not change the result.
+    """
+    L = len(plan.layers)
+    B, h, w_sz, c_in = x.shape
+    if (h, w_sz) != (plan.in_h, plan.in_w) or c_in != plan.layers[0].c_in:
+        raise ValueError(f"input {tuple(x.shape)} does not match the plan's "
+                         f"{plan.in_h}x{plan.in_w}x{plan.layers[0].c_in}")
+    if not (len(weights) == L == len(biases)) or L > _MAX_LAYERS:
+        raise ValueError(f"need one weight and bias per layer (<= "
+                         f"{_MAX_LAYERS} layers), got {len(weights)}/"
+                         f"{len(biases)} for {L}")
+    for l, wt, bi in zip(plan.layers, weights, biases):
+        if (tuple(wt.shape) != (l.kernel, l.kernel, l.c_in, l.c_out)
+                or tuple(bi.shape) != (l.c_out,)):
+            raise ValueError(f"layer {l.index}: weight {tuple(wt.shape)} / "
+                             f"bias {tuple(bi.shape)} do not match the plan")
+    if head_w is not None:
+        head_w = prepare_fused_head(head_w, plan)
+        if head_b is not None and tuple(head_b.shape) != (head_w.shape[1],):
+            raise ValueError(f"head bias {tuple(head_b.shape)} != "
+                             f"({head_w.shape[1]},)")
+        if head_act not in _ACT_CODES:
+            raise ValueError(f"unknown head_act {head_act!r}")
+    dev = _on_one_device(x, *weights, *biases, head_w, head_b)
+    if dev.type == "cpu":
+        return miniconv_encoder_ref(x, weights, biases, plan, head_w=head_w,
+                                    head_b=head_b, head_act=head_act)
+
+    x = _kernel_arg(x, "x")
+    ws = [_kernel_arg(t, "weight") for t in weights]
+    bs = [_kernel_arg(t, "bias") for t in biases]
+    feats = torch.empty((B,) + plan.feature_shape, dtype=torch.float32,
+                        device=dev)
+    z = hw = hb = None
+    d_out = 0
+    if head_w is not None:
+        hw = _kernel_arg(head_w, "head_w")
+        hb = None if head_b is None else _kernel_arg(head_b, "head_b")
+        d_out = hw.shape[1]
+        z = torch.empty((B, d_out), dtype=torch.float32, device=dev)
+    buf0, buf1 = plan.staging_floats
+    if plan.staging == "shared":
+        workspace, ws_frame, smem = None, 0, plan.smem_bytes
+    else:
+        ws_frame, smem = buf0 + buf1, 0
+        workspace = torch.empty((B * ws_frame,), dtype=torch.float32,
+                                device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    desc = _layer_desc(plan)
+    fn = _launcher("miniconv_encoder", "miniconv_encoder_launch",
+                   _ENCODER_ARGS)
+    rc = fn(x.data_ptr(), feats.data_ptr(), ptr(z), ptr(workspace),
+            (ctypes.c_int * len(desc))(*desc), L,
+            (ctypes.c_void_p * L)(*[t.data_ptr() for t in ws]),
+            (ctypes.c_void_p * L)(*[t.data_ptr() for t in bs]),
+            ptr(hw), ptr(hb), d_out, _ACT_CODES[head_act], B, buf0,
+            ws_frame, smem, dev.index or 0,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _check_rc(rc, "miniconv_encoder")
+    miniconv_encoder.launches += 1
+    return feats if z is None else (feats, z)
+
+
+miniconv_encoder.launches = 0
+
+
+__all__ = ["miniconv_encoder", "miniconv_pass", "prepare_fused_head"]

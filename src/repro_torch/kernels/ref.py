@@ -1,0 +1,43 @@
+"""Plain PyTorch versions of the port's CUDA kernels.
+
+Each computes what its kernel computes, with ``F.pad`` + ``F.conv2d``: the
+wrappers in ``kernels/miniconv_pass.py`` use them for CPU tensors (the
+tests), and ``chip_smoke.py`` holds each kernel against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.miniconv import _ACTS
+
+
+def miniconv_pass_ref(x, w, b, *, stride: int = 1):
+    """VALID conv matching ``miniconv_pass``: x (B, H_in, W_in, C_in)
+    pre-padded, w (kh, kw, C_in, 4), b (4,) -> (B, H_out, W_out, 4)."""
+    y = F.conv2d(x.permute(0, 3, 1, 2).float(),
+                 w.permute(3, 2, 0, 1).float(), b.float(), stride=stride)
+    return y.permute(0, 2, 3, 1).contiguous().to(x.dtype)
+
+
+def miniconv_encoder_ref(x, weights, biases, plan, *, head_w=None,
+                         head_b=None, head_act: str = "relu"):
+    """Every layer of ``plan`` with explicit SAME padding (``same_pads``
+    is asymmetric when odd), then the optional projection on the NHWC
+    flattened features.  Matches ``miniconv_encoder``."""
+    y = x.permute(0, 3, 1, 2).float()
+    for l, w, b in zip(plan.layers, weights, biases):
+        y = F.pad(y, (l.pad_left, l.pad_right, l.pad_top, l.pad_bottom))
+        y = F.conv2d(y, w.permute(3, 2, 0, 1).float(), b.float(),
+                     stride=l.stride)
+        y = _ACTS[l.activation](y)
+    feats = y.permute(0, 2, 3, 1).contiguous()
+    if head_w is None:
+        return feats
+    z = feats.reshape(feats.shape[0], -1) @ head_w
+    if head_b is not None:
+        z = z + head_b
+    return feats, _ACTS[head_act](z)
+
+
+__all__ = ["miniconv_encoder_ref", "miniconv_pass_ref"]

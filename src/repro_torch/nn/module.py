@@ -1,0 +1,43 @@
+"""Parameter initialisers drawing from an explicit ``torch.Generator``.
+
+Parameters are plain nested dicts of tensors, as in the reference
+(``repro.nn.module``).  Where the reference splits a ``jax.random`` key
+per tensor (``KeyGen``), the port draws every tensor in turn from one
+generator.  Initialisers draw on the generator's device (the CPU for a
+``torch.Generator()``) so that a seed gives the same parameters whatever
+device they are moved to afterwards.  The two frameworks' generators give
+different numbers from the same seed; parity tests convert the reference's
+parameters instead (``repro_torch.convert``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+
+Initializer = Callable[[torch.Generator, tuple, torch.dtype], torch.Tensor]
+
+
+def fan_in_init(scale: float = 1.0, fan_axis: int = 0) -> Initializer:
+    """LeCun-style fan-in scaled normal (default for projection matrices)."""
+
+    def init(gen, shape, dtype=torch.float32):
+        fan_in = shape[fan_axis] if shape else 1
+        std = scale / math.sqrt(max(fan_in, 1))
+        x = torch.randn(shape, generator=gen, device=gen.device)
+        return (x * std).to(dtype)
+
+    return init
+
+
+def orthogonal_init(scale: float = 1.0) -> Initializer:
+    def init(gen, shape, dtype=torch.float32):
+        x = torch.empty(shape, device=gen.device)
+        torch.nn.init.orthogonal_(x, gain=scale, generator=gen)
+        return x.to(dtype)
+
+    return init
+
+
+__all__ = ["Initializer", "fan_in_init", "orthogonal_init"]

@@ -12,3 +12,6 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line(
+        "markers", "gpu: runs the port's CUDA kernels; needs a Hopper card "
+                   "and nvcc, and skips without them")

@@ -1,0 +1,133 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Needs a Hopper card and nvcc: the ``cuda`` fixture skips every test here
+otherwise (decided at run time, never at import).  On the machine with the
+card, from the root of a checkout::
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_kernels_gpu.py
+
+(``--noconftest``: the shared conftest imports JAX, which that machine
+does not have.)  TF32 is switched off so that the plain versions compute
+in full fp32.  Tolerances: features 1e-5 and projections 1e-4, the
+kernels summing in another order than cuDNN and cuBLAS.
+"""
+import pytest
+import torch
+
+from repro_torch.core.miniconv import (LayerSpec, MiniConvSpec,
+                                       miniconv_apply, miniconv_init,
+                                       standard_spec)
+from repro_torch.kernels import cuda_kernels_supported
+from repro_torch.kernels import miniconv_pass as kmod
+from repro_torch.kernels.ops import same_pad
+from repro_torch.kernels.ref import miniconv_encoder_ref, miniconv_pass_ref
+
+pytestmark = pytest.mark.gpu
+
+FEAT_TOL = 1e-5
+Z_TOL = 1e-4
+
+
+@pytest.fixture
+def cuda():
+    if not cuda_kernels_supported():
+        pytest.skip("needs a Hopper (sm_90) card and nvcc: the port's CUDA "
+                    "kernels build and run only there")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case(spec, B, H, W, D, dev, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    params = miniconv_init(gen, spec, device=dev)
+    ws = [params[f"layer{i}"]["kernel"] for i in range(len(spec.layers))]
+    bs = [(torch.randn(l.c_out, generator=gen) * 0.1).to(dev)
+          for l in spec.layers]
+    x = torch.rand((B, H, W, spec.layers[0].c_in), generator=gen).to(dev)
+    plan = spec.plan(H, W)
+    hw = hb = None
+    if D is not None:
+        hw = (torch.randn(plan.flat_features, D, generator=gen) * 0.05).to(dev)
+        hb = (torch.randn(D, generator=gen) * 0.1).to(dev)
+    return plan, x, ws, bs, hw, hb
+
+
+ODD = MiniConvSpec((LayerSpec(4, 2, 12, 16, "relu"),
+                    LayerSpec(3, 2, 16, 16, "sigmoid"),
+                    LayerSpec(3, 2, 16, 6, "linear")))
+
+
+@pytest.mark.parametrize("spec,B,H,W,D,staging", [
+    (standard_spec(c_in=12, k=4), 8, 84, 84, None, "shared"),
+    (standard_spec(c_in=12, k=4), 8, 84, 84, 512, "shared"),
+    (standard_spec(c_in=4, k=4), 2, 128, 128, 512, "global"),
+    (ODD, 3, 85, 83, 200, "shared"),
+    (MiniConvSpec((LayerSpec(3, 1, 8, 6, "sigmoid"),)), 2, 17, 23, 40,
+     "shared"),
+], ids=["std", "std+head", "global+head", "odd+head", "one-layer+head"])
+def test_encoder_kernel_matches_plain(cuda, spec, B, H, W, D, staging):
+    plan, x, ws, bs, hw, hb = _case(spec, B, H, W, D, cuda)
+    assert plan.staging == staging
+    before = kmod.miniconv_encoder.launches
+    got = kmod.miniconv_encoder(x, ws, bs, plan, head_w=hw, head_b=hb)
+    want = miniconv_encoder_ref(x, ws, bs, plan, head_w=hw, head_b=hb)
+    torch.cuda.synchronize()
+    assert kmod.miniconv_encoder.launches == before + 1
+    if D is None:
+        got, want = (got, None), (want, None)
+    torch.testing.assert_close(got[0], want[0], atol=FEAT_TOL, rtol=FEAT_TOL)
+    if D is not None:
+        torch.testing.assert_close(got[1], want[1], atol=Z_TOL, rtol=Z_TOL)
+    again = kmod.miniconv_encoder(x, ws, bs, plan, head_w=hw, head_b=hb)
+    again = again if D is not None else (again, None)
+    assert torch.equal(got[0], again[0])            # repeats bit for bit
+    assert D is None or torch.equal(got[1], again[1])
+
+
+def test_pass_kernel_matches_plain_on_every_standard_layer(cuda):
+    spec = standard_spec(c_in=12, k=4)
+    plan, x, ws, bs, _, _ = _case(spec, 4, 84, 84, None, cuda)
+    y = x
+    for l, w, b in zip(plan.layers, ws, bs):
+        xp = same_pad(y, l.kernel, l.stride)
+        for g in range(0, l.c_out, 4):
+            wg = torch.nn.functional.pad(w, (0, (-l.c_out) % 4))[..., g:g + 4]
+            bg = torch.nn.functional.pad(b, (0, (-l.c_out) % 4))[g:g + 4]
+            got = kmod.miniconv_pass(xp, wg, bg, stride=l.stride)
+            want = miniconv_pass_ref(xp, wg, bg, stride=l.stride)
+            torch.testing.assert_close(got, want, atol=FEAT_TOL,
+                                       rtol=FEAT_TOL)
+        y = torch.relu(miniconv_pass_ref(xp, w, b, stride=l.stride))
+
+
+def test_tiers_agree_and_count_launches(cuda):
+    spec = standard_spec(c_in=12, k=4)
+    params = miniconv_init(torch.Generator().manual_seed(1), spec,
+                           device=cuda)
+    x = torch.rand((2, 84, 84, 12), generator=torch.Generator()
+                   .manual_seed(2)).to(cuda)
+    kmod.miniconv_encoder.launches = kmod.miniconv_pass.launches = 0
+    fused = miniconv_apply(params, spec, x, use_kernel="fused")
+    per_pass = miniconv_apply(params, spec, x, use_kernel="reference")
+    xla = miniconv_apply(params, spec, x, use_kernel="xla")
+    assert kmod.miniconv_encoder.launches == 1
+    assert kmod.miniconv_pass.launches == spec.total_passes == 9
+    torch.testing.assert_close(fused, per_pass, atol=FEAT_TOL, rtol=FEAT_TOL)
+    torch.testing.assert_close(fused, xla, atol=FEAT_TOL, rtol=FEAT_TOL)
+
+
+def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    monkeypatch.setattr(kmod, "miniconv_encoder_ref", refuse)
+    monkeypatch.setattr(kmod, "miniconv_pass_ref", refuse)
+    spec = standard_spec(c_in=12, k=4)
+    plan, x, ws, bs, hw, hb = _case(spec, 1, 84, 84, 512, cuda)
+    kmod.miniconv_encoder(x, ws, bs, plan, head_w=hw, head_b=hb)
+    miniconv_apply({f"layer{i}": {"kernel": w, "bias": b}
+                    for i, (w, b) in enumerate(zip(ws, bs))}, spec, x,
+                   use_kernel="reference")
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="one device"):
+        kmod.miniconv_encoder(x.cpu(), ws, bs, plan)
