@@ -5,12 +5,17 @@ Run from the root of a checkout, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the sources in the checkout, holds
-each against its plain PyTorch version on the card at the shapes the
-served path gives it (and the fused kernel against the per-pass one),
-times each, then serves split-policy decisions from a deployment manifest
-through the port's entry points (``fused``, ``fused+head`` and
-``reference`` backends), counting kernel launches, and checks the actions
+It builds the port's CUDA kernels from the sources in the checkout (K1
+the fused encoder, K2 the per-pass kernel, K3 the grouped layer, K4 the
+streamed encoder), holds each against its plain PyTorch version on the
+card at the shapes the served paths give it (and the tiers against each
+other), times each, then drives the port's entry points: it serves
+split-policy decisions from a deployment manifest (``fused``,
+``fused+head``, ``reference`` and ``grouped`` backends), tunes the
+manifest on the card with ``python -m repro_torch.deploy --tune`` and
+serves through the tuned build, and encodes 64 frames of 400x400x4
+through ``fused+stream``.  Each path runs with every launch count set to
+0 just before it and read just after, and the actions are checked
 against the eager ``xla`` build of the same manifest.
 
 Any failure ends the run with a non-zero exit code and no result line.
@@ -83,10 +88,15 @@ def main() -> int:
                                            standard_spec)
     from repro_torch.deploy import Deployment, DeploymentConfig
     from repro_torch.kernels import _build
+    from repro_torch import deploy as deploy_cli
     from repro_torch.kernels.miniconv_pass import (miniconv_encoder,
+                                                   miniconv_encoder_stream,
+                                                   miniconv_layer_grouped,
                                                    miniconv_pass)
     from repro_torch.kernels.ops import same_pad
     from repro_torch.kernels.ref import (miniconv_encoder_ref,
+                                         miniconv_encoder_stream_ref,
+                                         miniconv_layer_grouped_ref,
                                          miniconv_pass_ref)
     from repro_torch.core.miniconv import _ACTS
     from repro_torch.rl.networks import (squashed_actor_init,
@@ -113,6 +123,17 @@ def main() -> int:
         for line in info["log"].splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+
+    wrappers = (miniconv_encoder, miniconv_pass, miniconv_layer_grouped,
+                miniconv_encoder_stream)
+
+    def reset_counts():
+        for f in wrappers:
+            f.launches = 0
+
+    def counts():
+        """Launches per kernel since the last reset, K1..K4 in order."""
+        return tuple(f.launches for f in wrappers)
 
     def gen(seed):
         return torch.Generator().manual_seed(seed)
@@ -278,6 +299,101 @@ def main() -> int:
     print(f"K2 chain (reference backend) vs K1 (fused) at (8,84,84,12): "
           f"max_abs_err {e:.3g} (tol {FEAT_TOL})")
 
+    # K3 on each layer of the standard plan: at the served shape (1 frame),
+    # at a batch of 8, and at 400x400x4; the inputs are the plain chain's
+    # layer inputs.
+    k3_rows = {}
+    for label, B, H, c_in, iters in (("served edge", 1, 84, 12, 50),
+                                     ("batch", 8, 84, 12, 50),
+                                     ("400x400", 2, 400, 4, 10)):
+        spec = standard_spec(c_in=c_in, k=4)
+        lplan = spec.plan(H)
+        _, ws3, bs3 = layer_params(spec, 200 + B)
+        y = rand((B, H, H, c_in), 201 + B)
+        launches, k3_err = [], 0.0
+        for l, w, b in zip(lplan.layers, ws3, bs3):
+            xp = same_pad(y, l.kernel, l.stride)
+            got = miniconv_layer_grouped(xp, w, b, stride=l.stride)
+            want = miniconv_layer_grouped_ref(xp, w, b, stride=l.stride)
+            torch.cuda.synchronize()
+            e = (got - want).abs().max().item()
+            check(got.shape == want.shape and torch.allclose(
+                got, want, atol=FEAT_TOL, rtol=FEAT_TOL),
+                f"K3 layer {l.index} {label}: differs by {e} (tol "
+                f"{FEAT_TOL})")
+            k3_err = max(k3_err, e)
+            launches.append((xp, w, b, l.stride, got))
+            y = _ACTS[l.activation](want)
+        lib_in = [(xp.permute(0, 3, 1, 2).contiguous(),
+                   w.permute(3, 2, 0, 1).contiguous(), b, st)
+                  for xp, w, b, st, _ in launches]
+        ms = cuda_ms(lambda: [miniconv_layer_grouped(xp, w, b, stride=st)
+                              for xp, w, b, st, _ in launches], iters=iters)
+        plain_ms = cuda_ms(lambda: [miniconv_layer_grouped_ref(
+            xp, w, b, stride=st) for xp, w, b, st, _ in launches],
+            iters=iters)
+        lib_ms = cuda_ms(lambda: [F.conv2d(xn, wn, b, stride=st)
+                                  for xn, wn, b, st in lib_in], iters=iters)
+        b_ms, b_by = bound(sum(nbytes(xp, w, b, out)
+                               for xp, w, b, _, out in launches),
+                           B * lplan.flops_per_frame)
+        print(f"K3 miniconv_layer_grouped {label}: the 3 layers at "
+              f"({B},{H},{H},{c_in}): max_abs_err {k3_err:.3g} (tol "
+              f"{FEAT_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"library {lib_ms:.4f} ms (3 F.conv2d), bound {b_ms:.5f} ms "
+              f"({b_by}) for 3 launches")
+        k3_rows[label] = dict(max_abs_err=k3_err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                              shape=[B, H, H, c_in])
+    grouped = miniconv_apply(p_std, std, xb, use_kernel="grouped")
+    torch.cuda.synchronize()
+    check(torch.equal(grouped, per_pass),
+          "grouped tier differs from the reference tier (must be bitwise)")
+    print("K3 chain (grouped backend) vs K2 chain (reference backend) at "
+          "(8,84,84,12): bitwise equal")
+
+    # K4 against K1 (bit for bit) and against the plain version, each call
+    # one K4 launch: the global branch with a ragged last round, and the
+    # shared-memory branch.
+    for label, spec, B, H, D, chunk in (
+            ("global", standard_spec(c_in=4, k=4), 33, 400, 512, 16),
+            ("shared", std, 8, 84, None, 3)):
+        splan = spec.plan(H)
+        _, ws4, bs4 = layer_params(spec, 300 + B)
+        x4 = rand((B, H, H, spec.layers[0].c_in), 301 + B)
+        hw = hb = None
+        if D is not None:
+            hw = randn((splan.flat_features, D), 302 + B, 0.05)
+            hb = randn((D,), 303 + B, 0.1)
+        reset_counts()
+        out = miniconv_encoder_stream(x4, ws4, bs4, splan, chunk_b=chunk,
+                                      head_w=hw, head_b=hb)
+        torch.cuda.synchronize()
+        check(counts() == (0, 0, 0, 1),
+              f"K4 {label}: launches K1..K4 {counts()}, expected one K4")
+        whole = miniconv_encoder(x4, ws4, bs4, splan, head_w=hw, head_b=hb)
+        ref = miniconv_encoder_stream_ref(x4, ws4, bs4, splan, head_w=hw,
+                                          head_b=hb)
+        torch.cuda.synchronize()
+        out, whole, ref = ((out, whole, ref) if D is not None
+                           else ((out, None), (whole, None), (ref, None)))
+        check(torch.equal(out[0], whole[0])
+              and (D is None or torch.equal(out[1], whole[1])),
+              f"K4 {label}: differs from K1 (must be bitwise)")
+        err = (out[0] - ref[0]).abs().max().item()
+        check(torch.allclose(out[0], ref[0], atol=FEAT_TOL, rtol=FEAT_TOL),
+              f"K4 {label}: features differ from plain by {err}")
+        zerr = None
+        if D is not None:
+            zerr = (out[1] - ref[1]).abs().max().item()
+            check(torch.allclose(out[1], ref[1], atol=Z_TOL, rtol=Z_TOL),
+                  f"K4 {label}: z differs from plain by {zerr}")
+        print(f"K4 miniconv_encoder_stream {label} x={tuple(x4.shape)} "
+              f"chunk {chunk} head={D} staging={splan.staging}: one K4 "
+              f"launch, bitwise equal to K1; vs plain max_abs_err feats "
+              f"{err:.3g} (tol {FEAT_TOL})"
+              + (f" z {zerr:.3g} (tol {Z_TOL})" if zerr is not None else ""))
+
     # ---- 3. serve: the fused main path -------------------------------------
     cfg = DeploymentConfig.standard(k=4, c_in=12, h=84, backend="fused",
                                     max_batch=8)
@@ -293,14 +409,13 @@ def main() -> int:
 
     obs = rand((8, 84, 84, 12), 2)
     client, server = dep.serving_pair(params, head)
-    miniconv_encoder.launches = miniconv_pass.launches = 0
+    reset_counts()
     payloads = [client.encode_fn(obs[i:i + 1]) for i in range(8)]
     actions = torch.stack(server.serve(payloads))
     torch.cuda.synchronize()
     fused_launches = miniconv_encoder.launches
-    check(fused_launches == 8 and miniconv_pass.launches == 0,
-          f"fused serve launched K1 {fused_launches} and K2 "
-          f"{miniconv_pass.launches} times; expected 8 and 0")
+    check(counts() == (8, 0, 0, 0), f"fused serve launched K1..K4 "
+          f"{counts()} times; expected (8, 0, 0, 0)")
     check(actions.shape == (8, 6) and torch.isfinite(actions).all(),
           f"bad actions {tuple(actions.shape)}")
     check(payloads[0]["data"].dtype == torch.uint8
@@ -334,14 +449,13 @@ def main() -> int:
 
     # ---- 4. fused+head and reference paths ---------------------------------
     dep_h = Deployment.build(dataclasses.replace(cfg, backend="fused+head"))
-    miniconv_encoder.launches = miniconv_pass.launches = 0
+    reset_counts()
     with torch.inference_mode():
         z_h = dep_h.encoder.apply(params, obs)
         torch.cuda.synchronize()
         z_x = dep_x.encoder.apply(params, obs)
-    check(miniconv_encoder.launches == 1 and miniconv_pass.launches == 0,
-          f"fused+head launched K1 {miniconv_encoder.launches} times for "
-          f"one batch; expected 1")
+    check(counts() == (1, 0, 0, 0), f"fused+head launched K1..K4 "
+          f"{counts()} times for one batch; expected (1, 0, 0, 0)")
     zerr = (z_h - z_x).abs().max().item()
     check(torch.allclose(z_h, z_x, atol=Z_TOL, rtol=Z_TOL),
           f"fused+head vs xla z differ by {zerr}")
@@ -350,22 +464,130 @@ def main() -> int:
 
     dep_r = Deployment.build(dataclasses.replace(cfg, backend="reference"))
     client_r, server_r = dep_r.serving_pair(params, head)
-    miniconv_encoder.launches = miniconv_pass.launches = 0
+    reset_counts()
     payload_r = client_r.encode_fn(obs[0:1])
     action_r = server_r.serve([payload_r])[0]
     torch.cuda.synchronize()
     ref_launches = miniconv_pass.launches
-    check(ref_launches == 9 and miniconv_encoder.launches == 0,
-          f"reference serve launched K2 {ref_launches} and K1 "
-          f"{miniconv_encoder.launches} times; expected 9 and 0")
+    check(counts() == (0, 9, 0, 0), f"reference serve launched K1..K4 "
+          f"{counts()} times; expected (0, 9, 0, 0)")
     r_err = (action_r - actions[0]).abs().max().item()
     check(r_err <= ACT_TOL, f"reference vs fused action differ by {r_err}")
     print(f"serve reference: 1 request, K2 launches {ref_launches}; action "
           f"vs fused max_abs_err {r_err:.3g} (tol {ACT_TOL})")
 
-    # ---- 5. results --------------------------------------------------------
+    # ---- 5. the grouped path -----------------------------------------------
+    dep_g = Deployment.build(dataclasses.replace(cfg, backend="grouped"))
+    client_g, server_g = dep_g.serving_pair(params, head)
+    reset_counts()
+    payloads_g = [client_g.encode_fn(obs[i:i + 1]) for i in range(8)]
+    actions_g = torch.stack(server_g.serve(payloads_g))
+    torch.cuda.synchronize()
+    grouped_launches = miniconv_layer_grouped.launches
+    check(counts() == (0, 0, 24, 0), f"grouped serve launched K1..K4 "
+          f"{counts()} times; expected (0, 0, 24, 0)")
+    g_err = (actions_g - actions_x).abs().max().item()
+    check(g_err <= ACT_TOL, f"grouped vs xla actions differ by {g_err}")
+    print(f"serve grouped: 8 requests, K3 launches {grouped_launches}; "
+          f"actions vs xla build max_abs_err {g_err:.3g} (tol {ACT_TOL})")
+
+    # ---- 6. tune the served manifest on the card, serve the tuned build --
+    manifest = ROOT / "build" / "tuned_manifest.json"
+    manifest.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    deploy_cli.main(["--k", "4", "--c-in", "12", "--x", "84",
+                     "--max-batch", "8", "--backend", "fused", "--tune",
+                     "--out", str(manifest), "--verify"])
+    tune_s = time.perf_counter() - t0
+    tuned_cfg = DeploymentConfig.from_json(manifest.read_text())
+    tp = tuned_cfg.tuning
+    check(tp is not None and tp.mode == "cuda",
+          f"tuned manifest mode {tp and tp.mode!r}, expected 'cuda'")
+    dep_t = Deployment.build(tuned_cfg)
+    check(any("manifest TunedPlan" in line for line in dep_t.build_log),
+          f"tuned build ignored its TunedPlan: {dep_t.build_log}")
+    client_t, server_t = dep_t.serving_pair(params, head)
+    reset_counts()
+    payloads_t = [client_t.encode_fn(obs[i:i + 1]) for i in range(8)]
+    actions_t = torch.stack(server_t.serve(payloads_t))
+    torch.cuda.synchronize()
+    tuned_counts = counts()
+    t_err = (actions_t - actions_x).abs().max().item()
+    check(t_err <= ACT_TOL, f"tuned vs xla actions differ by {t_err}")
+    print(f"tune: {tune_s:.2f} s, winner backend={tp.backend} "
+          f"micro_batch={tp.micro_batch} ({tp.per_frame_s * 1e6:.1f} "
+          f"us/frame, searched {tp.searched}, pruned {tp.pruned}); tuned "
+          f"build served 8 requests, launches K1..K4 {tuned_counts}, "
+          f"actions vs xla max_abs_err {t_err:.3g} (tol {ACT_TOL})")
+
+    # ---- 7. config B: 64 frames of 400x400x4 through fused+stream ----------
+    cfg_b = DeploymentConfig.standard(k=4, c_in=4, h=400,
+                                      backend="fused+stream", max_batch=64)
+    dep_b = Deployment.build(cfg_b)
+    for line in dep_b.build_log:
+        print(f"build_log B: {line}")
+    check(dep_b.plan.staging == "global" and dep_b.max_safe_batch == 16
+          and dep_b.stream_chunk == 16,
+          f"config B: staging {dep_b.plan.staging}, max_safe_batch "
+          f"{dep_b.max_safe_batch}, stream_chunk {dep_b.stream_chunk}")
+    params_b = dep_b.init(gen(5))
+    xB = rand((64, 400, 400, 4), 6)
+    reset_counts()
+    with torch.inference_mode():
+        z_b = dep_b.encoder.apply(params_b, xB)
+    torch.cuda.synchronize()
+    stream_launches = miniconv_encoder_stream.launches
+    check(counts() == (0, 0, 0, 1), f"config B launched K1..K4 "
+          f"{counts()} times; expected (0, 0, 0, 1)")
+    dep_bh = Deployment.build(dataclasses.replace(cfg_b,
+                                                  backend="fused+head"))
+    check(dep_bh.stream_chunk == 16, "fused+head at config B must stream")
+    pB = params_b["edge"]
+    wsB = [pB[f"layer{i}"]["kernel"] for i in range(3)]
+    bsB = [pB[f"layer{i}"]["bias"] for i in range(3)]
+    hwB = params_b["server"]["proj"]["kernel"]
+    hbB = params_b["server"]["proj"]["bias"]
+    planB = dep_b.plan
+    with torch.inference_mode():
+        fB, z_k1 = miniconv_encoder(xB, wsB, bsB, planB, head_w=hwB,
+                                    head_b=hbB)
+        rfB, rzB = miniconv_encoder_stream_ref(xB, wsB, bsB, planB,
+                                               head_w=hwB, head_b=hbB)
+    torch.cuda.synchronize()
+    check(torch.equal(z_b, z_k1), "config B: K4 z differs from K1's "
+          "(the fused+head kernel in one 64-block launch): must be bitwise")
+    errB = (z_b - rzB).abs().max().item()
+    check(torch.allclose(z_b, rzB, atol=Z_TOL, rtol=Z_TOL),
+          f"config B: z differs from plain by {errB}")
+    with torch.inference_mode():
+        k4_ms = cuda_ms(lambda: miniconv_encoder_stream(
+            xB, wsB, bsB, planB, chunk_b=16, head_w=hwB, head_b=hbB),
+            iters=3, warmup=1)
+        k1_ms = cuda_ms(lambda: miniconv_encoder(
+            xB, wsB, bsB, planB, head_w=hwB, head_b=hbB), iters=3, warmup=1)
+        plainB_ms = cuda_ms(lambda: miniconv_encoder_stream_ref(
+            xB, wsB, bsB, planB, head_w=hwB, head_b=hbB), iters=3, warmup=1)
+        libB_ms = cuda_ms(library_chain(xB, wsB, bsB, planB), iters=3,
+                          warmup=1)
+    flopsB = planB.flops_per_batch(64, planB.head(hwB.shape[1]))
+    bB_ms, bB_by = bound(nbytes(xB, *wsB, *bsB, hwB, hbB, fB, z_b), flopsB)
+    print(f"config B: encoder.apply on (64,400,400,4), {xB.numel() * 4} B "
+          f"of input, fused+stream chunk 16: K4 launches {stream_launches}, "
+          f"z bitwise equal to fused+head's K1 in one 64-block launch; vs "
+          f"plain "
+          f"max_abs_err z {errB:.3g} (tol {Z_TOL}); K4 {k4_ms:.4f} ms, K1 "
+          f"{k1_ms:.4f} ms, plain {plainB_ms:.4f} ms, library {libB_ms:.4f} "
+          f"ms (cuDNN chain, no head), bound {bB_ms:.5f} ms ({bB_by})")
+    print(f"peak device memory {torch.cuda.max_memory_allocated()} B")
+
+    # ---- 8. results --------------------------------------------------------
     k1 = k1_rows["served edge"]
     k2 = k2_rows[1]
+    k3 = k3_rows["served edge"]
+    k4 = dict(max_abs_err=errB, ms=k4_ms, plain_ms=plainB_ms,
+              bound_ms=bB_ms, bound_by=bB_by, library_ms=libB_ms,
+              shape=[64, 400, 400, 4], head=hwB.shape[1], chunk_b=16,
+              k1_ms=k1_ms)
     kernels = [
         dict(name="miniconv_encoder", route="cuda",
              source="src/repro_torch/kernels/csrc/miniconv_encoder.cu",
@@ -375,7 +597,17 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/miniconv_pass.cu",
              replaces="src/repro/kernels/miniconv_pass.py:91",
              launches=ref_launches, **k2),
+        dict(name="miniconv_layer_grouped", route="cuda",
+             source="src/repro_torch/kernels/csrc/miniconv_layer_grouped.cu",
+             replaces="src/repro/kernels/miniconv_pass.py:164",
+             launches=grouped_launches, **k3),
+        dict(name="miniconv_encoder_stream", route="cuda",
+             source="src/repro_torch/kernels/csrc/miniconv_encoder.cu",
+             replaces="src/repro/kernels/miniconv_pass.py:575",
+             launches=stream_launches, **k4),
     ]
+    check(all(k["launches"] > 0 for k in kernels),
+          "a kernel was launched no time on its path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,13 +14,14 @@ Registered backends
     :class:`~repro_torch.core.passplan.ShaderPass`; the shader oracle the
     fused tier is tested against.
 ``grouped``
-    One launch per layer, all output groups together.  Not ported yet.
+    One CUDA kernel launch per layer, all output groups together.
 ``fused``
     The whole PassPlan as ONE CUDA kernel launch per batch.
 ``fused+head`` (alias ``fused_head``)
     ``fused`` with the server-side projection as the kernel's epilogue.
 ``fused+stream`` (alias ``fused_stream``)
-    The fused kernel streamed over batch chunks.  Not ported yet.
+    ``fused+head`` as a persistent kernel that streams the batch through
+    ``chunk`` resident blocks (``max_safe_batch`` frames by default).
 """
 from __future__ import annotations
 
@@ -105,7 +106,7 @@ register_backend(ExecutionBackend(
     aliases=("per_pass",))
 register_backend(ExecutionBackend(
     "grouped", "grouped",
-    description="one launch per layer, all output groups (not ported)"))
+    description="one CUDA kernel launch per layer, all output groups"))
 register_backend(ExecutionBackend(
     "fused", "fused",
     description="whole PassPlan as ONE CUDA kernel launch per batch"))
@@ -115,7 +116,7 @@ register_backend(ExecutionBackend(
     aliases=("fused_head",))
 register_backend(ExecutionBackend(
     "fused+stream", "fused", fused_head=True, streamed=True,
-    description="fused+head streamed over batch chunks (not ported)"),
+    description="fused+head streamed over batch chunks"),
     aliases=("fused_stream",))
 
 

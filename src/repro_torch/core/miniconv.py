@@ -10,8 +10,9 @@ The port of ``repro.core.miniconv``.  The constraint model is the paper's
 
 :func:`miniconv_apply` runs an encoder through one of the execution tiers
 of ``repro_torch.core.backends``: eager PyTorch (``xla``, the training
-path), the per-pass CUDA kernel (``reference``) or the fused whole-encoder
-CUDA kernel (``fused``, ``fused+head``).
+path), the per-pass CUDA kernel (``reference``), the per-layer CUDA kernel
+(``grouped``) or the fused whole-encoder CUDA kernel (``fused``,
+``fused+head``, and ``fused+stream``, its persistent streamed form).
 """
 from __future__ import annotations
 
@@ -169,7 +170,7 @@ _ACTS: dict[str, Callable] = {
 
 def miniconv_apply(params, spec: MiniConvSpec, x, *, use_kernel=False,
                    tile_h: int = 8, plan=None, head=None,
-                   head_act: str = "relu"):
+                   head_act: str = "relu", stream_chunk=None):
     """x: (B, H, W, C_in) float in [0,1] -> (B, H', W', K).
 
     Execution modes (``use_kernel``, resolved by ``core.backends``):
@@ -177,11 +178,18 @@ def miniconv_apply(params, spec: MiniConvSpec, x, *, use_kernel=False,
     * ``False`` / ``"xla"``        — eager PyTorch SAME convs (training).
     * ``True`` / ``"reference"``   — one per-pass CUDA kernel launch per
       :class:`~repro_torch.core.passplan.ShaderPass` (the shader oracle).
+    * ``"grouped"``                — one CUDA kernel launch per layer, all
+      output groups together; equal to ``reference`` bit for bit.
     * ``"fused"`` / ``"fused+head"`` — the whole PassPlan as ONE CUDA
       kernel launch per batch.
 
-    ``grouped`` and ``fused+stream`` are registered names whose kernels
-    are not ported yet; they raise ``NotImplementedError``.
+    ``stream_chunk`` (fused tiers only) runs the batch through the
+    persistent streamed kernel with ``stream_chunk`` resident blocks
+    (:func:`~repro_torch.kernels.miniconv_pass.miniconv_encoder_stream`).
+    ``use_kernel="fused+stream"`` selects streaming with ``stream_chunk``
+    defaulting to the plan's ``max_safe_batch``; a batch within one chunk
+    falls through to the plain fused launch.  Results are bitwise equal
+    either way.
 
     ``head`` (``{"kernel": (F, D)[, "bias": (D,)]}`` or ``(w, b)``) appends
     the flatten + dense projection and makes the return value
@@ -194,16 +202,13 @@ def miniconv_apply(params, spec: MiniConvSpec, x, *, use_kernel=False,
     from repro_torch.core.backends import get_backend  # lazy: avoids cycle
     backend = get_backend(use_kernel)
     mode = backend.mode
-    if backend.streamed or mode == "grouped":
-        raise NotImplementedError(
-            f"backend {backend.name!r} is not ported yet (ROADMAP.md, "
-            f"'TPU kernels to port'); use 'fused', 'reference' or 'xla'")
     hw = hb = None
     if head is not None:
         hw, hb = ((head["kernel"], head.get("bias"))
                   if isinstance(head, dict) else head)
     if mode == "fused":
-        from repro_torch.kernels.miniconv_pass import miniconv_encoder
+        from repro_torch.kernels.miniconv_pass import (
+            miniconv_encoder, miniconv_encoder_stream)
         if plan is None:
             plan = spec.plan(x.shape[1], x.shape[2])
         elif (plan.in_h, plan.in_w) != (x.shape[1], x.shape[2]):
@@ -212,16 +217,24 @@ def miniconv_apply(params, spec: MiniConvSpec, x, *, use_kernel=False,
                 f"{tuple(x.shape[1:3])}; rebuild with spec.plan(h, w)")
         ws = [params[f"layer{i}"]["kernel"] for i in range(len(spec.layers))]
         bs = [params[f"layer{i}"]["bias"] for i in range(len(spec.layers))]
+        if backend.streamed and stream_chunk is None:
+            stream_chunk = plan.max_safe_batch()
+        if stream_chunk is not None:
+            return miniconv_encoder_stream(x, ws, bs, plan,
+                                           chunk_b=stream_chunk,
+                                           tile_h=tile_h, head_w=hw,
+                                           head_b=hb, head_act=head_act)
         return miniconv_encoder(x, ws, bs, plan, tile_h=tile_h, head_w=hw,
                                 head_b=hb, head_act=head_act)
-    if mode == "per_pass":
+    if mode in ("per_pass", "grouped"):
         from repro_torch.kernels.ops import miniconv_layer  # lazy: cycles
     for i, l in enumerate(spec.layers):
         p = params[f"layer{i}"]
         if mode == "xla":
             x = conv2d(p, x, stride=l.stride, padding="SAME")
         else:
-            x = miniconv_layer(x, p["kernel"], p["bias"], stride=l.stride)
+            x = miniconv_layer(x, p["kernel"], p["bias"], stride=l.stride,
+                               fused_groups=(mode == "grouped"))
         x = _ACTS[l.activation](x)
     if head is not None:
         z = x.reshape(x.shape[0], -1) @ hw

@@ -22,8 +22,10 @@ Quick start::
     actions = server.serve([client.encode_fn(obs)])
 
 Run ``python -m repro_torch.deploy --verify`` to write and round-trip-
-verify a manifest.  Not ported yet (see ROADMAP.md): the fleet and real
-fleet, the scenario simulation, the tuner and ``export_best``.
+verify a manifest, and ``--tune`` to measure every backend on the device
+(``core.tuning``) and freeze the winner into it.  Not ported yet (see
+ROADMAP.md): the fleet and real fleet, the scenario simulation and
+``export_best``.
 """
 from __future__ import annotations
 
@@ -224,6 +226,7 @@ class Deployment:
     max_safe_batch: int
     device: torch.device
     tile_h: int = 8
+    stream_chunk: Optional[int] = None
     build_log: tuple = ()
 
     # ---- the compiler ------------------------------------------------------
@@ -234,12 +237,16 @@ class Deployment:
         (``"cuda"`` by default; ``"cpu"`` runs the kernels' plain versions).
 
         The PassPlan is lowered and budget-checked once, up front.  A
-        manifest ``tuning`` block overrides the backend and ``tile_h`` only
-        when its ``mode`` is one the port stamps; a block measured by the
-        reference is recorded in ``build_log`` and the config's own fields
-        apply.  For the fused backends the plan decides where the kernel
-        stages layer intermediates (shared memory or a global workspace);
-        ``build_log`` records the choice.
+        manifest ``tuning`` block overrides the backend, ``tile_h`` and the
+        stream chunk (its ``micro_batch``) only when its ``mode`` is one
+        the port stamps; a block measured by the reference is recorded in
+        ``build_log`` and the config's own fields apply.  For the fused
+        backends the plan decides where the kernel stages layer
+        intermediates (shared memory or a global workspace), and
+        ``fused+stream``, or plain ``fused`` at a ``max_batch`` past
+        ``max_safe_batch``, streams the batch through the persistent
+        kernel in ``stream_chunk``-frame chunks; ``build_log`` records
+        both decisions.
         """
         config.validate()
         dev = resolve_device(device)
@@ -259,15 +266,12 @@ class Deployment:
                 f"tuning: block measured elsewhere ({tuning.mode} on "
                 f"{tuning.host or 'unknown'}), not by this port; ignored — "
                 f"backend={backend.name} tile_h={tile_h} from the config")
-        if backend.streamed or backend.mode == "grouped":
-            raise NotImplementedError(
-                f"backend {backend.name!r} is registered but its kernel is "
-                f"not ported yet (ROADMAP.md, 'TPU kernels to port'); use "
-                f"'fused', 'fused+head', 'reference' or 'xla'")
+            tuning = None
         spec = config.spec
         plan = build_pass_plan(spec, config.in_h, config.in_w)
         head_plan = plan.head(config.head_dim, activation=config.head_act)
         max_safe = plan.max_safe_batch()
+        stream_chunk: Optional[int] = None
         if backend.mode == "fused":
             log.append(
                 f"staging: {plan.staging} — {plan.smem_bytes} B of layer "
@@ -275,11 +279,20 @@ class Deployment:
                 + (" in the block's shared memory" if plan.staging == "shared"
                    else f", global workspace of {plan.workspace_bytes(config.max_batch)} B "
                         f"at max_batch={config.max_batch}"))
-            if config.max_batch > max_safe:
+            if backend.streamed:
+                chunk = (min(tuning.micro_batch, max_safe)
+                         if tuning is not None else max_safe)
+                stream_chunk = max(1, min(chunk, config.max_batch))
+                log.append(f"streaming: {backend.name} in {stream_chunk}-"
+                           f"frame chunks (max_safe_batch {max_safe})")
+            elif config.max_batch > max_safe:
+                stream_chunk = max_safe
                 log.append(
-                    f"workspace: max_batch {config.max_batch} > "
-                    f"max_safe_batch {max_safe}; the intermediates of a full "
-                    f"batch exceed the L2 and run from device memory")
+                    f"streaming: max_batch {config.max_batch} > "
+                    f"max_safe_batch {max_safe}; a full batch's "
+                    f"intermediates would exceed the L2, so batches past "
+                    f"{max_safe} frames stream through the persistent "
+                    f"kernel in {max_safe}-frame chunks")
         codec = get_codec(config.codec)
         mode = backend.mode
         head_act = config.head_act
@@ -287,7 +300,7 @@ class Deployment:
         def edge_apply(edge_params, obs):
             return miniconv_apply(edge_params, spec, obs, use_kernel=mode,
                                   plan=plan if mode == "fused" else None,
-                                  tile_h=tile_h)
+                                  tile_h=tile_h, stream_chunk=stream_chunk)
 
         def server_apply(server_params, feats):
             z = dense(server_params["proj"], feats.reshape(feats.shape[0], -1))
@@ -314,17 +327,21 @@ class Deployment:
             def encoder_apply(params, obs):
                 # encoder + projection in one call (one kernel launch
                 # under the fused backends)
+                p = deployed_plan(obs)
                 _, z = miniconv_apply(params["edge"], spec, obs,
-                                      use_kernel=mode, plan=deployed_plan(obs),
-                                      tile_h=tile_h,
+                                      use_kernel=mode, plan=p, tile_h=tile_h,
                                       head=params["server"]["proj"],
-                                      head_act=head_act)
+                                      head_act=head_act,
+                                      stream_chunk=stream_chunk
+                                      if p is not None else None)
                 return z
         else:
             def encoder_apply(params, obs):
+                p = deployed_plan(obs)
                 feats = miniconv_apply(params["edge"], spec, obs,
-                                       use_kernel=mode,
-                                       plan=deployed_plan(obs), tile_h=tile_h)
+                                       use_kernel=mode, plan=p, tile_h=tile_h,
+                                       stream_chunk=stream_chunk
+                                       if p is not None else None)
                 return server_apply(params["server"], feats)
 
         encoder = Encoder(name=f"miniconv{spec.k_out}", init=init,
@@ -332,7 +349,8 @@ class Deployment:
         return cls(config=config, backend=backend, plan=plan,
                    head_plan=head_plan, codec=codec, split=split,
                    encoder=encoder, max_safe_batch=max_safe, device=dev,
-                   tile_h=tile_h, build_log=tuple(log))
+                   tile_h=tile_h, stream_chunk=stream_chunk,
+                   build_log=tuple(log))
 
     # ---- parameters --------------------------------------------------------
     def init(self, gen: torch.Generator):
@@ -471,6 +489,12 @@ def main(argv=None):
     ap.add_argument("--verify", action="store_true",
                     help="rebuild from the reloaded manifest and assert "
                          "identical encoder outputs and wire payloads")
+    ap.add_argument("--tune", action="store_true",
+                    help="autotune backend/tile_h/micro-batch for this "
+                         "config on --device (core.tuning) and freeze the "
+                         "winning TunedPlan into the written manifest")
+    ap.add_argument("--tune-iters", type=int, default=5,
+                    help="timing repetitions per measured candidate")
     args = ap.parse_args(argv)
 
     cfg = DeploymentConfig.standard(k=args.k, c_in=args.c_in, h=args.x,
@@ -478,6 +502,16 @@ def main(argv=None):
                                     max_batch=args.max_batch,
                                     n_servers=args.n_servers,
                                     router=args.router)
+    if args.tune:
+        from repro_torch.core.tuning import tune
+        print(f"  tuning {args.backend} X={args.x} "
+              f"max_batch={args.max_batch} on {args.device} ...")
+        tp = tune(cfg, iters=args.tune_iters, log=print, device=args.device)
+        cfg = dataclasses.replace(cfg, tuning=tp)
+        print(f"  tuned: backend={tp.backend} tile_h={tp.tile_h} "
+              f"micro_batch={tp.micro_batch} "
+              f"({tp.per_frame_s * 1e6:.1f} us/frame, mode={tp.mode}, "
+              f"searched={tp.searched} pruned={tp.pruned})")
     dep = Deployment.build(cfg, device=args.device)
     for line in dep.build_log:
         print(f"  {line}")

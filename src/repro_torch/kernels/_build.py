@@ -29,6 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {
     "miniconv_pass": "miniconv_pass.cu",
+    "miniconv_layer_grouped": "miniconv_layer_grouped.cu",
     "miniconv_encoder": "miniconv_encoder.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

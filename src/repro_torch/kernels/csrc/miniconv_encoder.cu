@@ -43,6 +43,22 @@
 // frame over a thread-block cluster and register-blocking the output
 // channels are the next steps.
 //
+// K4, the streamed encoder (encoder_stream_kernel), replaces the TPU
+// kernel miniconv_encoder_stream -> _miniconv_encoder_pipelined (Pallas;
+// grid (n_chunks, chunk_b, out_row_tile), one chunk's input block resident
+// in VMEM at a time, the next chunk fetched while this one computes).  On
+// the card it is a persistent kernel: chunk_b resident blocks, block k
+// encoding frames k, k + chunk_b, k + 2*chunk_b, ... through workspace
+// slot k, so the global workspace holds chunk_b frames rather than the
+// batch (51 MB instead of 205 MB for 64 frames of 400x400x4).  Both
+// kernels run one frame with the same device function (encode_frame); only
+// the staging slot differs (the frame in K1, the block in K4), so K4 equals
+// K1 bit for bit at every batch, a ragged last round included.  What
+// bounds it is K1's frame time: chunk_b SMs work, so a batch of B takes
+// ceil(B / chunk_b) frame times where K1 takes ceil(B / 132).  Fetching
+// the next frame's input while this one computes (cp.async or TMA) is
+// later work.
+//
 // C interface, bound with ctypes by repro_torch/kernels/miniconv_pass.py.
 #include <cuda_runtime.h>
 
@@ -67,12 +83,13 @@ struct Params {
   const float* x;      // (B, in_h, in_w, c_in) NHWC
   float* feats;        // (B, out_h, out_w, c_out) of the last layer
   float* z;            // (B, head_dim) or null
-  float* workspace;    // (B, ws_frame) or null when staging in shared
+  float* workspace;    // (slots, ws_frame) or null when staging in shared
   const float* head_w;  // (F, head_dim), F = out_h * out_w * c_out
   const float* head_b;  // (head_dim,) or null
   int head_dim, head_act;
   int buf1_offset;      // floats from the first buffer to the second
-  long long ws_frame;   // floats of workspace per frame; 0: shared memory
+  long long ws_frame;   // floats of workspace per slot; 0: shared memory
+  long long batch;      // frames in x
 };
 
 __device__ __forceinline__ float activate(float v, int act) {
@@ -109,13 +126,11 @@ __device__ void conv_layer(const Layer& L, const float* in, float* out) {
   }
 }
 
-// __grid_constant__: layers are indexed at run time without a local copy
-// of the parameter block.
-__global__ void __launch_bounds__(kThreads)
-    encoder_kernel(const __grid_constant__ Params p) {
-  extern __shared__ float smem[];
-  const long long n = blockIdx.x;
-  float* buf0 = p.ws_frame ? p.workspace + n * p.ws_frame : smem;
+// One frame, run by the whole block: every layer, then the projection
+// epilogue.  `buf0` is the frame's staging slot: the block's shared memory,
+// or a ws_frame-float slice of the global workspace.
+__device__ __forceinline__ void encode_frame(const Params& p, long long n,
+                                             float* buf0) {
   float* buf1 = buf0 + p.buf1_offset;
   const int last = p.n_layers - 1;
   const Layer& first = p.layers[0];
@@ -145,22 +160,36 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-}  // namespace
+// K1: one block per frame, the frame's own workspace slot.
+// __grid_constant__: layers are indexed at run time without a local copy
+// of the parameter block.
+__global__ void __launch_bounds__(kThreads)
+    encoder_kernel(const __grid_constant__ Params p) {
+  extern __shared__ float smem[];
+  const long long n = blockIdx.x;
+  encode_frame(p, n, p.ws_frame ? p.workspace + n * p.ws_frame : smem);
+}
 
-// desc: n_layers x kDescInts host ints per layer, in the order (kernel,
-// stride, c_in, c_out, in_h, in_w, out_h, out_w, pad_top, pad_left, act).
-// weights, biases: host arrays of n_layers device pointers.  z, head_w and
-// head_b may be null (no epilogue; no bias).  With ws_frame > 0 the
-// intermediates go to `workspace` (batch * ws_frame floats) and smem_bytes
-// must be 0; with ws_frame == 0 they go to smem_bytes of shared memory.
-// Launches on `stream` and returns cudaGetLastError().
-extern "C" int miniconv_encoder_launch(
-    const float* x, float* feats, float* z, float* workspace,
-    const int* desc, int n_layers, const void* const* weights,
-    const void* const* biases, const float* head_w, const float* head_b,
-    int head_dim, int head_act, int batch, int buf1_offset,
-    long long ws_frame, int smem_bytes, int device, void* stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers)
+// K4: gridDim.x resident blocks walk the batch; block k owns slot k.
+__global__ void __launch_bounds__(kThreads)
+    encoder_stream_kernel(const __grid_constant__ Params p) {
+  extern __shared__ float smem[];
+  float* slot = p.ws_frame ? p.workspace + blockIdx.x * p.ws_frame : smem;
+  for (long long n = blockIdx.x; n < p.batch; n += gridDim.x) {
+    encode_frame(p, n, slot);
+    __syncthreads();  // the slot is free before the next frame writes it
+  }
+}
+
+// Fills the parameter block and launches K1 (chunk_b == 0: one block per
+// frame) or K4 (chunk_b > 0: min(chunk_b, batch) persistent blocks).
+int launch(const float* x, float* feats, float* z, float* workspace,
+           const int* desc, int n_layers, const void* const* weights,
+           const void* const* biases, const float* head_w,
+           const float* head_b, int head_dim, int head_act, int batch,
+           int chunk_b, int buf1_offset, long long ws_frame, int smem_bytes,
+           int device, void* stream) {
+  if (n_layers < 1 || n_layers > kMaxLayers || chunk_b < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   for (int l = 0; l < n_layers; ++l) {
@@ -191,17 +220,61 @@ extern "C" int miniconv_encoder_launch(
   p.head_act = head_act;
   p.buf1_offset = buf1_offset;
   p.ws_frame = ws_frame;
+  p.batch = batch;
 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0) return 0;
+  const bool stream_frames = chunk_b > 0;
+  const void* kernel =
+      stream_frames ? reinterpret_cast<const void*>(encoder_stream_kernel)
+                    : reinterpret_cast<const void*>(encoder_kernel);
   if (smem_bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(encoder_kernel,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  encoder_kernel<<<batch, kThreads, smem_bytes,
-                   static_cast<cudaStream_t>(stream)>>>(p);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int resident = chunk_b < batch ? chunk_b : batch;
+  if (stream_frames)
+    encoder_stream_kernel<<<resident, kThreads, smem_bytes, s>>>(p);
+  else
+    encoder_kernel<<<batch, kThreads, smem_bytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// desc: n_layers x kDescInts host ints per layer, in the order (kernel,
+// stride, c_in, c_out, in_h, in_w, out_h, out_w, pad_top, pad_left, act).
+// weights, biases: host arrays of n_layers device pointers.  z, head_w and
+// head_b may be null (no epilogue; no bias).  With ws_frame > 0 the
+// intermediates go to `workspace` (batch * ws_frame floats) and smem_bytes
+// must be 0; with ws_frame == 0 they go to smem_bytes of shared memory.
+// Launches K1 on `stream` and returns cudaGetLastError().
+extern "C" int miniconv_encoder_launch(
+    const float* x, float* feats, float* z, float* workspace,
+    const int* desc, int n_layers, const void* const* weights,
+    const void* const* biases, const float* head_w, const float* head_b,
+    int head_dim, int head_act, int batch, int buf1_offset,
+    long long ws_frame, int smem_bytes, int device, void* stream) {
+  return launch(x, feats, z, workspace, desc, n_layers, weights, biases,
+                head_w, head_b, head_dim, head_act, batch, 0, buf1_offset,
+                ws_frame, smem_bytes, device, stream);
+}
+
+// K4: the arguments of miniconv_encoder_launch plus chunk_b >= 1, the
+// resident blocks; `workspace` then holds min(chunk_b, batch) * ws_frame
+// floats.  Launches on `stream` and returns cudaGetLastError().
+extern "C" int miniconv_encoder_stream_launch(
+    const float* x, float* feats, float* z, float* workspace,
+    const int* desc, int n_layers, const void* const* weights,
+    const void* const* biases, const float* head_w, const float* head_b,
+    int head_dim, int head_act, int batch, int chunk_b, int buf1_offset,
+    long long ws_frame, int smem_bytes, int device, void* stream) {
+  if (chunk_b < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(x, feats, z, workspace, desc, n_layers, weights, biases,
+                head_w, head_b, head_dim, head_act, batch, chunk_b,
+                buf1_offset, ws_frame, smem_bytes, device, stream);
 }

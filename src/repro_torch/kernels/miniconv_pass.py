@@ -1,20 +1,28 @@
-"""Wrappers of the port's two MiniConv CUDA kernels.
+"""Wrappers of the port's four MiniConv CUDA kernels.
 
-* :func:`miniconv_pass` — one shader pass (``csrc/miniconv_pass.cu``), the
-  counterpart of the reference's ``miniconv_pass`` / ``_pass_kernel``.
+* :func:`miniconv_pass` (K2) — one shader pass (``csrc/miniconv_pass.cu``),
+  the counterpart of the reference's ``miniconv_pass`` / ``_pass_kernel``.
   ``kernels.ops.miniconv_layer`` launches it once per 4-channel output
   group: the ``reference`` backend, the oracle of the fused tier.
-* :func:`miniconv_encoder` — a whole PassPlan, optionally with the
+* :func:`miniconv_layer_grouped` (K3) — one layer, every output group in
+  one launch (``csrc/miniconv_layer_grouped.cu``), the counterpart of
+  ``miniconv_layer_grouped`` / ``_layer_group_kernel``: the ``grouped``
+  backend.
+* :func:`miniconv_encoder` (K1) — a whole PassPlan, optionally with the
   projection epilogue, in one launch (``csrc/miniconv_encoder.cu``), the
   counterpart of ``miniconv_encoder`` / ``_encoder_kernel``: the ``fused``
   and ``fused+head`` backends.
+* :func:`miniconv_encoder_stream` (K4) — K1 as a persistent kernel of
+  ``chunk_b`` resident blocks that walk the batch (same source), the
+  counterpart of ``miniconv_encoder_stream`` /
+  ``_miniconv_encoder_pipelined``: ``fused+stream``, and plain ``fused``
+  past ``max_safe_batch``.
 
 A wrapper given CPU tensors computes with the kernel's plain PyTorch
 version (``kernels/ref.py``).  Given CUDA tensors it launches the kernel or
 raises; nothing falls back.  Each wrapper counts its launches in a plain
-integer attribute, ``miniconv_pass.launches`` and
-``miniconv_encoder.launches``, that a run may reset and read to show which
-kernels a path went through.
+integer attribute (``miniconv_pass.launches`` and so on) that a run may
+reset and read to show which kernels a path went through.
 """
 from __future__ import annotations
 
@@ -23,8 +31,12 @@ import functools
 
 import torch
 
+from repro_torch.core.passplan import SMEM_LIMIT
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import miniconv_encoder_ref, miniconv_pass_ref
+from repro_torch.kernels.ref import (miniconv_encoder_ref,
+                                     miniconv_encoder_stream_ref,
+                                     miniconv_layer_grouped_ref,
+                                     miniconv_pass_ref)
 
 _ACT_CODES = {"relu": 0, "sigmoid": 1, "linear": 2}
 _P = ctypes.c_void_p
@@ -112,6 +124,56 @@ miniconv_pass.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K3: one layer, every output group
+# ---------------------------------------------------------------------------
+
+_GROUPED_ARGS = (_P, _P, _P, _P) + (_I,) * 11 + (_P,)
+
+
+def miniconv_layer_grouped(x, w, b, *, stride: int = 1):
+    """All output groups of one layer in a single launch (VALID conv).
+
+    x: (B, H_in, W_in, C_in) pre-padded; w: (kh, kw, C_in, C_out) with
+    C_out % 4 == 0 (callers pad; see ``kernels.ops.miniconv_layer``);
+    b: (C_out,).  Returns (B, H_out, W_out, C_out).
+    """
+    B, h_in, w_in, c_in = x.shape
+    kh, kw, c_in_w, c_out = w.shape
+    if c_in != c_in_w or c_out < 4 or c_out % 4 or tuple(b.shape) != (c_out,):
+        raise ValueError(f"grouped layer takes x (B,H,W,C), w (kh,kw,C,"
+                         f"C_out%4==0), b (C_out,); got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(b.shape)}")
+    if h_in < kh or w_in < kw or stride < 1:
+        raise ValueError(f"input {h_in}x{w_in} smaller than kernel "
+                         f"{kh}x{kw} or stride {stride} < 1")
+    if 4 * w.numel() > SMEM_LIMIT:
+        raise ValueError(f"layer weights of {4 * w.numel()} B exceed the "
+                         f"{SMEM_LIMIT} B of shared memory a block may use")
+    h_out = (h_in - kh) // stride + 1
+    w_out = (w_in - kw) // stride + 1
+    dev = _on_one_device(x, w, b)
+    if dev.type == "cpu":
+        return miniconv_layer_grouped_ref(x, w, b, stride=stride)
+
+    x = _kernel_arg(x, "x")
+    w = _kernel_arg(w, "w")
+    b = _kernel_arg(b, "b")
+    y = torch.empty((B, h_out, w_out, c_out), dtype=torch.float32,
+                    device=dev)
+    fn = _launcher("miniconv_layer_grouped", "miniconv_layer_grouped_launch",
+                   _GROUPED_ARGS)
+    rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B,
+            h_in, w_in, c_in, kh, kw, stride, h_out, w_out, c_out,
+            dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    _check_rc(rc, "miniconv_layer_grouped")
+    miniconv_layer_grouped.launches += 1
+    return y
+
+
+miniconv_layer_grouped.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K1: the whole encoder, optional projection epilogue
 # ---------------------------------------------------------------------------
 
@@ -145,24 +207,12 @@ def prepare_fused_head(head_w, plan):
     return head_w.contiguous()
 
 
-def miniconv_encoder(x, weights, biases, plan, *, tile_h: int = 8,
-                     head_w=None, head_b=None, head_act: str = "relu"):
-    """Execute a whole :class:`~repro_torch.core.passplan.PassPlan` as ONE
-    kernel launch (one thread block per frame).
-
-    x: (B, H, W, C_in) with (H, W) == (plan.in_h, plan.in_w);
-    weights/biases: per-layer lists, HWIO kernels and (C_out,) biases.
-    Returns (B, plan.out_h, plan.out_w, plan.k_out) float32 — SAME padding,
-    fp32 accumulation, per-layer activation.
-
-    ``head_w`` ((plan.flat_features, D), optional) adds the projection
-    epilogue: the return value becomes ``(features, head_act(
-    features.reshape(B, -1) @ head_w + head_b))``, computed in the same
-    launch.  ``tile_h`` is accepted for the reference's signature and does
-    not change the result.
-    """
+def _check_encoder_args(x, weights, biases, plan, head_w, head_b,
+                        head_act):
+    """Raise on inputs K1 and K4 do not take; returns the laid-out head
+    weight and the device every tensor lies on."""
     L = len(plan.layers)
-    B, h, w_sz, c_in = x.shape
+    h, w_sz, c_in = x.shape[1:]
     if (h, w_sz) != (plan.in_h, plan.in_w) or c_in != plan.layers[0].c_in:
         raise ValueError(f"input {tuple(x.shape)} does not match the plan's "
                          f"{plan.in_h}x{plan.in_w}x{plan.layers[0].c_in}")
@@ -182,11 +232,16 @@ def miniconv_encoder(x, weights, biases, plan, *, tile_h: int = 8,
                              f"({head_w.shape[1]},)")
         if head_act not in _ACT_CODES:
             raise ValueError(f"unknown head_act {head_act!r}")
-    dev = _on_one_device(x, *weights, *biases, head_w, head_b)
-    if dev.type == "cpu":
-        return miniconv_encoder_ref(x, weights, biases, plan, head_w=head_w,
-                                    head_b=head_b, head_act=head_act)
+    return head_w, _on_one_device(x, *weights, *biases, head_w, head_b)
 
+
+def _launch_encoder(x, weights, biases, plan, head_w, head_b, head_act,
+                    dev, chunk_b=None):
+    """Launch K1 (``chunk_b`` None: one block per frame) or K4
+    (``chunk_b`` resident blocks) on CUDA tensors; returns what
+    :func:`miniconv_encoder` returns."""
+    B = x.shape[0]
+    L = len(plan.layers)
     x = _kernel_arg(x, "x")
     ws = [_kernel_arg(t, "weight") for t in weights]
     bs = [_kernel_arg(t, "bias") for t in biases]
@@ -200,32 +255,109 @@ def miniconv_encoder(x, weights, biases, plan, *, tile_h: int = 8,
         d_out = hw.shape[1]
         z = torch.empty((B, d_out), dtype=torch.float32, device=dev)
     buf0, buf1 = plan.staging_floats
+    slots = B if chunk_b is None else min(chunk_b, B)
     if plan.staging == "shared":
         workspace, ws_frame, smem = None, 0, plan.smem_bytes
     else:
         ws_frame, smem = buf0 + buf1, 0
-        workspace = torch.empty((B * ws_frame,), dtype=torch.float32,
+        workspace = torch.empty((slots * ws_frame,), dtype=torch.float32,
                                 device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     desc = _layer_desc(plan)
-    fn = _launcher("miniconv_encoder", "miniconv_encoder_launch",
-                   _ENCODER_ARGS)
-    rc = fn(x.data_ptr(), feats.data_ptr(), ptr(z), ptr(workspace),
+    args = [x.data_ptr(), feats.data_ptr(), ptr(z), ptr(workspace),
             (ctypes.c_int * len(desc))(*desc), L,
             (ctypes.c_void_p * L)(*[t.data_ptr() for t in ws]),
             (ctypes.c_void_p * L)(*[t.data_ptr() for t in bs]),
-            ptr(hw), ptr(hb), d_out, _ACT_CODES[head_act], B, buf0,
-            ws_frame, smem, dev.index or 0,
+            ptr(hw), ptr(hb), d_out, _ACT_CODES[head_act], B]
+    if chunk_b is None:
+        fn = _launcher("miniconv_encoder", "miniconv_encoder_launch",
+                       _ENCODER_ARGS)
+    else:
+        fn = _launcher("miniconv_encoder", "miniconv_encoder_stream_launch",
+                       _STREAM_ARGS)
+        args.append(chunk_b)
+    rc = fn(*args, buf0, ws_frame, smem, dev.index or 0,
             torch.cuda.current_stream(dev).cuda_stream)
-    _check_rc(rc, "miniconv_encoder")
-    miniconv_encoder.launches += 1
+    _check_rc(rc, "miniconv_encoder" if chunk_b is None
+              else "miniconv_encoder_stream")
     return feats if z is None else (feats, z)
+
+
+def miniconv_encoder(x, weights, biases, plan, *, tile_h: int = 8,
+                     head_w=None, head_b=None, head_act: str = "relu"):
+    """Execute a whole :class:`~repro_torch.core.passplan.PassPlan` as ONE
+    kernel launch (one thread block per frame).
+
+    x: (B, H, W, C_in) with (H, W) == (plan.in_h, plan.in_w);
+    weights/biases: per-layer lists, HWIO kernels and (C_out,) biases.
+    Returns (B, plan.out_h, plan.out_w, plan.k_out) float32 — SAME padding,
+    fp32 accumulation, per-layer activation.
+
+    ``head_w`` ((plan.flat_features, D), optional) adds the projection
+    epilogue: the return value becomes ``(features, head_act(
+    features.reshape(B, -1) @ head_w + head_b))``, computed in the same
+    launch.  ``tile_h`` is accepted for the reference's signature and does
+    not change the result.
+    """
+    head_w, dev = _check_encoder_args(x, weights, biases, plan, head_w,
+                                      head_b, head_act)
+    if dev.type == "cpu":
+        return miniconv_encoder_ref(x, weights, biases, plan, head_w=head_w,
+                                    head_b=head_b, head_act=head_act)
+    out = _launch_encoder(x, weights, biases, plan, head_w, head_b,
+                          head_act, dev)
+    miniconv_encoder.launches += 1
+    return out
 
 
 miniconv_encoder.launches = 0
 
 
-__all__ = ["miniconv_encoder", "miniconv_pass", "prepare_fused_head"]
+# ---------------------------------------------------------------------------
+# K4: the encoder streamed through chunk_b resident blocks
+# ---------------------------------------------------------------------------
+
+_STREAM_ARGS = ((_P,) * 5 + (_I,) + (_P,) * 4 + (_I,) * 5
+                + (ctypes.c_longlong, _I, _I, _P))
+
+
+def miniconv_encoder_stream(x, weights, biases, plan, *, chunk_b: int,
+                            tile_h: int = 8, head_w=None, head_b=None,
+                            head_act: str = "relu"):
+    """The fused encoder over a batch larger than one chunk, in ONE launch
+    of ``chunk_b`` persistent blocks (K4).
+
+    Block k encodes frames k, k + chunk_b, ... through its own staging
+    slot, so a global workspace holds ``chunk_b`` frames rather than the
+    batch (``chunk_b`` should come from ``PassPlan.max_safe_batch``, the
+    frames whose workspace fits the L2).  Each frame runs K1's code, so the
+    result equals :func:`miniconv_encoder` bit for bit at every batch.  A
+    batch within one chunk falls through to K1.  Arguments and return
+    value are :func:`miniconv_encoder`'s.
+    """
+    if chunk_b < 1:
+        raise ValueError(f"chunk_b must be >= 1, got {chunk_b}")
+    if x.shape[0] <= chunk_b:             # fits one chunk: nothing to stream
+        return miniconv_encoder(x, weights, biases, plan, tile_h=tile_h,
+                                head_w=head_w, head_b=head_b,
+                                head_act=head_act)
+    head_w, dev = _check_encoder_args(x, weights, biases, plan, head_w,
+                                      head_b, head_act)
+    if dev.type == "cpu":
+        return miniconv_encoder_stream_ref(x, weights, biases, plan,
+                                           head_w=head_w, head_b=head_b,
+                                           head_act=head_act)
+    out = _launch_encoder(x, weights, biases, plan, head_w, head_b,
+                          head_act, dev, chunk_b=chunk_b)
+    miniconv_encoder_stream.launches += 1
+    return out
+
+
+miniconv_encoder_stream.launches = 0
+
+
+__all__ = ["miniconv_encoder", "miniconv_encoder_stream",
+           "miniconv_layer_grouped", "miniconv_pass", "prepare_fused_head"]

@@ -1,12 +1,14 @@
 """One MiniConv layer as per-pass kernel launches (the ``reference``
-tier), as in ``repro.kernels.ops``."""
+tier) or one grouped launch (the ``grouped`` tier), as in
+``repro.kernels.ops``."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.passplan import same_pads
-from repro_torch.kernels.miniconv_pass import miniconv_pass
+from repro_torch.kernels.miniconv_pass import (miniconv_layer_grouped,
+                                               miniconv_pass)
 
 
 def same_pad(x, kernel: int, stride: int):
@@ -33,19 +35,26 @@ def _pad_groups(kernel, bias):
     return kernel, bias, c_out
 
 
-def miniconv_layer(x, kernel, bias, *, stride: int = 1):
+def miniconv_layer(x, kernel, bias, *, stride: int = 1,
+                   fused_groups: bool = False):
     """One MiniConv layer = ceil(c_out/4) shader passes (SAME padding).
 
-    x: (B,H,W,C_in); kernel: (kh,kw,C_in,C_out); bias: (C_out,).  One
-    ``miniconv_pass`` launch per 4-channel output group.
+    x: (B,H,W,C_in); kernel: (kh,kw,C_in,C_out); bias: (C_out,).
+    ``fused_groups=True`` runs every output group in ONE
+    ``miniconv_layer_grouped`` launch; the default launches
+    ``miniconv_pass`` once per 4-channel output group (the reference path).
+    Both sum in the same order, so they agree bit for bit.
     """
     kh = kernel.shape[0]
     kernel, bias, c_out = _pad_groups(kernel, bias)
     xp = same_pad(x, kh, stride)
-    outs = [miniconv_pass(xp, kernel[..., g:g + 4], bias[g:g + 4],
-                          stride=stride)
-            for g in range(0, kernel.shape[-1], 4)]
-    out = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
+    if fused_groups:
+        out = miniconv_layer_grouped(xp, kernel, bias, stride=stride)
+    else:
+        outs = [miniconv_pass(xp, kernel[..., g:g + 4], bias[g:g + 4],
+                              stride=stride)
+                for g in range(0, kernel.shape[-1], 4)]
+        out = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
     return out[..., :c_out]
 
 

@@ -20,6 +20,13 @@ def miniconv_pass_ref(x, w, b, *, stride: int = 1):
     return y.permute(0, 2, 3, 1).contiguous().to(x.dtype)
 
 
+def miniconv_layer_grouped_ref(x, w, b, *, stride: int = 1):
+    """VALID conv matching ``miniconv_layer_grouped``: every output group
+    of the layer in one ``F.conv2d``; w (kh, kw, C_in, C_out), b (C_out,)
+    -> (B, H_out, W_out, C_out)."""
+    return miniconv_pass_ref(x, w, b, stride=stride)
+
+
 def miniconv_encoder_ref(x, weights, biases, plan, *, head_w=None,
                          head_b=None, head_act: str = "relu"):
     """Every layer of ``plan`` with explicit SAME padding (``same_pads``
@@ -40,4 +47,13 @@ def miniconv_encoder_ref(x, weights, biases, plan, *, head_w=None,
     return feats, _ACTS[head_act](z)
 
 
-__all__ = ["miniconv_encoder_ref", "miniconv_pass_ref"]
+def miniconv_encoder_stream_ref(x, weights, biases, plan, *, head_w=None,
+                                head_b=None, head_act: str = "relu"):
+    """Matches ``miniconv_encoder_stream``.  Streaming the batch in chunks
+    changes no arithmetic, so this is the encoder's plain version."""
+    return miniconv_encoder_ref(x, weights, biases, plan, head_w=head_w,
+                                head_b=head_b, head_act=head_act)
+
+
+__all__ = ["miniconv_encoder_ref", "miniconv_encoder_stream_ref",
+           "miniconv_layer_grouped_ref", "miniconv_pass_ref"]

@@ -96,11 +96,25 @@ def test_tuning_block_honoured_only_when_measured_by_the_port():
 
 
 @pytest.mark.parametrize("backend", ["grouped", "fused+stream", "fused_stream"])
-def test_unported_backends_parse_but_do_not_build(backend):
-    cfg = t_deploy.DeploymentConfig.standard(h=24, backend=backend)
+def test_grouped_and_streamed_backends_build_and_match_reference(backend):
+    """The grouped and streamed backends parse, build, and give the
+    reference's encoder output for the same manifest and parameters (the
+    reference's Pallas kernels in interpret mode, at 24x24)."""
+    cfg = t_deploy.DeploymentConfig.standard(h=24, backend=backend,
+                                             max_batch=4)
     assert t_deploy.DeploymentConfig.from_json(cfg.to_json()) == cfg
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_deploy.Deployment.build(cfg, device="cpu")
+    dep = t_deploy.Deployment.build(cfg, device="cpu")
+    assert dep.backend.name == cfg.backend
+    ref_cfg = j_deploy.DeploymentConfig.from_json(cfg.to_json())
+    j_dep = j_deploy.Deployment.build(ref_cfg)
+    jparams = j_dep.init(jax.random.PRNGKey(2))
+    obs = np.random.default_rng(2).random((5, 24, 24, 12), dtype=np.float32)
+    want = np.asarray(j_dep.encoder.apply(jparams, jnp.asarray(obs)))
+    with torch.inference_mode():
+        got = dep.encoder.apply(params_from_jax(jparams, device="cpu"),
+                                torch.from_numpy(obs))
+    assert tuple(got.shape) == want.shape == (5, 512)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):

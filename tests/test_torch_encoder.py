@@ -67,7 +67,8 @@ def _close(got, want, tol):
                                rtol=tol)
 
 
-@pytest.mark.parametrize("mode", ["xla", "fused", "reference"])
+@pytest.mark.parametrize("mode", ["xla", "fused", "reference", "grouped",
+                                  "fused+stream"])
 @pytest.mark.parametrize("name,h,w", CASES)
 def test_features_match_reference_xla(name, h, w, mode):
     js, ts, jp, tp, x, _ = _setup(name, h, w)
@@ -170,12 +171,17 @@ def test_cpu_path_launches_no_kernel():
     """The counters count kernel launches only: on CPU tensors the
     wrappers compute with the plain versions and launch nothing."""
     _, ts, _, tp, x, _ = _setup("standard", 24, 24)
-    t_kernels.miniconv_encoder.launches = t_kernels.miniconv_pass.launches = 0
-    t_miniconv.miniconv_apply(tp, ts, torch.from_numpy(x), use_kernel="fused")
+    wrappers = (t_kernels.miniconv_encoder, t_kernels.miniconv_pass,
+                t_kernels.miniconv_layer_grouped,
+                t_kernels.miniconv_encoder_stream)
+    for f in wrappers:
+        f.launches = 0
+    for mode in ("fused", "reference", "grouped"):
+        t_miniconv.miniconv_apply(tp, ts, torch.from_numpy(x),
+                                  use_kernel=mode)
     t_miniconv.miniconv_apply(tp, ts, torch.from_numpy(x),
-                              use_kernel="reference")
-    assert t_kernels.miniconv_encoder.launches == 0
-    assert t_kernels.miniconv_pass.launches == 0
+                              use_kernel="fused", stream_chunk=1)
+    assert [f.launches for f in wrappers] == [0, 0, 0, 0]
 
 
 def test_wrappers_refuse_bad_inputs():
@@ -196,6 +202,11 @@ def test_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError, match="plan was built"):
         t_miniconv.miniconv_apply(tp, ts, xt, use_kernel="fused",
                                   plan=ts.plan(32))
-    for name in ("grouped", "fused+stream"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_miniconv.miniconv_apply(tp, ts, xt, use_kernel=name)
+    with pytest.raises(ValueError, match="C_out%4==0"):
+        t_kernels.miniconv_layer_grouped(xt, torch.zeros(3, 3, 12, 6),
+                                         torch.zeros(6))
+    with pytest.raises(ValueError, match="chunk_b"):
+        t_kernels.miniconv_encoder_stream(xt, ws, bs, plan, chunk_b=0)
+    with pytest.raises(ValueError, match="does not match the plan"):
+        t_kernels.miniconv_encoder_stream(xt[:, :20], ws, bs, plan,
+                                          chunk_b=1)

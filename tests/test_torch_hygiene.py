@@ -44,10 +44,11 @@ def test_port_files_exist():
                 "kernels/miniconv_pass.py", "core/wire.py", "core/split.py",
                 "core/tuning.py", "rl/networks.py", "serving/server.py",
                 "serving/client.py", "deploy.py", "convert.py",
-                "perfstamp.py"):
+                "perfstamp.py", "benchmarks/frame_time.py"):
         assert mod in names, mod
     assert {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")} == \
-        {"miniconv_encoder.cu", "miniconv_pass.cu"}
+        {"miniconv_encoder.cu", "miniconv_layer_grouped.cu",
+         "miniconv_pass.cu"}
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)

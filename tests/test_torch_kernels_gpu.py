@@ -20,7 +20,9 @@ from repro_torch.core.miniconv import (LayerSpec, MiniConvSpec,
 from repro_torch.kernels import cuda_kernels_supported
 from repro_torch.kernels import miniconv_pass as kmod
 from repro_torch.kernels.ops import same_pad
-from repro_torch.kernels.ref import miniconv_encoder_ref, miniconv_pass_ref
+from repro_torch.kernels.ref import (miniconv_encoder_ref,
+                                     miniconv_layer_grouped_ref,
+                                     miniconv_pass_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -117,17 +119,86 @@ def test_tiers_agree_and_count_launches(cuda):
     torch.testing.assert_close(fused, xla, atol=FEAT_TOL, rtol=FEAT_TOL)
 
 
+@pytest.mark.parametrize("B,H,c_in", [(1, 84, 12), (8, 84, 12),
+                                      (2, 400, 4)])
+def test_grouped_kernel_matches_plain_on_every_standard_layer(cuda, B, H,
+                                                              c_in):
+    spec = standard_spec(c_in=c_in, k=4)
+    plan, x, ws, bs, _, _ = _case(spec, B, H, H, None, cuda)
+    y = x
+    for l, w, b in zip(plan.layers, ws, bs):
+        xp = same_pad(y, l.kernel, l.stride)
+        before = kmod.miniconv_layer_grouped.launches
+        got = kmod.miniconv_layer_grouped(xp, w, b, stride=l.stride)
+        want = miniconv_layer_grouped_ref(xp, w, b, stride=l.stride)
+        torch.cuda.synchronize()
+        assert kmod.miniconv_layer_grouped.launches == before + 1
+        torch.testing.assert_close(got, want, atol=FEAT_TOL, rtol=FEAT_TOL)
+        y = torch.relu(want)
+
+
+def test_grouped_tier_equals_reference_tier_bitwise(cuda):
+    """K3 sums in K2's order, so the two tiers agree bit for bit, a
+    c_out % 4 != 0 layer included."""
+    params = miniconv_init(torch.Generator().manual_seed(3), ODD,
+                           device=cuda)
+    x = torch.rand((8, 84, 84, 12), generator=torch.Generator()
+                   .manual_seed(4)).to(cuda)
+    kmod.miniconv_layer_grouped.launches = kmod.miniconv_pass.launches = 0
+    grouped = miniconv_apply(params, ODD, x, use_kernel="grouped")
+    reference = miniconv_apply(params, ODD, x, use_kernel="reference")
+    assert kmod.miniconv_layer_grouped.launches == 3
+    assert kmod.miniconv_pass.launches == ODD.total_passes
+    assert torch.equal(grouped, reference)
+
+
+@pytest.mark.parametrize("spec,B,H,W,D,chunk", [
+    (standard_spec(c_in=12, k=4), 8, 84, 84, None, 3),
+    (standard_spec(c_in=12, k=4), 13, 84, 84, 512, 4),
+    (standard_spec(c_in=4, k=4), 5, 128, 128, 512, 2),
+    (ODD, 7, 85, 83, 200, 3),
+], ids=["shared", "shared+head", "global+head", "odd+head"])
+def test_stream_kernel_equals_fused_kernel(cuda, spec, B, H, W, D, chunk):
+    """K4 runs K1's frame body, so it equals K1 bit for bit at every batch,
+    a ragged last round included, in one launch."""
+    plan, x, ws, bs, hw, hb = _case(spec, B, H, W, D, cuda)
+    kmod.miniconv_encoder.launches = kmod.miniconv_encoder_stream.launches = 0
+    got = kmod.miniconv_encoder_stream(x, ws, bs, plan, chunk_b=chunk,
+                                       head_w=hw, head_b=hb)
+    whole = kmod.miniconv_encoder(x, ws, bs, plan, head_w=hw, head_b=hb)
+    want = miniconv_encoder_ref(x, ws, bs, plan, head_w=hw, head_b=hb)
+    torch.cuda.synchronize()
+    assert kmod.miniconv_encoder_stream.launches == 1
+    assert kmod.miniconv_encoder.launches == 1
+    if D is None:
+        got, whole, want = (got, None), (whole, None), (want, None)
+    assert torch.equal(got[0], whole[0])
+    assert D is None or torch.equal(got[1], whole[1])
+    torch.testing.assert_close(got[0], want[0], atol=FEAT_TOL, rtol=FEAT_TOL)
+    if D is not None:
+        torch.testing.assert_close(got[1], want[1], atol=Z_TOL, rtol=Z_TOL)
+    # a batch within one chunk falls through to K1
+    kmod.miniconv_encoder.launches = kmod.miniconv_encoder_stream.launches = 0
+    kmod.miniconv_encoder_stream(x[:chunk], ws, bs, plan, chunk_b=chunk)
+    assert kmod.miniconv_encoder_stream.launches == 0
+    assert kmod.miniconv_encoder.launches == 1
+
+
 def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a CUDA tensor reached a plain version")
-    monkeypatch.setattr(kmod, "miniconv_encoder_ref", refuse)
-    monkeypatch.setattr(kmod, "miniconv_pass_ref", refuse)
+    for name in ("miniconv_encoder_ref", "miniconv_pass_ref",
+                 "miniconv_layer_grouped_ref", "miniconv_encoder_stream_ref"):
+        monkeypatch.setattr(kmod, name, refuse)
     spec = standard_spec(c_in=12, k=4)
-    plan, x, ws, bs, hw, hb = _case(spec, 1, 84, 84, 512, cuda)
+    plan, x, ws, bs, hw, hb = _case(spec, 3, 84, 84, 512, cuda)
     kmod.miniconv_encoder(x, ws, bs, plan, head_w=hw, head_b=hb)
-    miniconv_apply({f"layer{i}": {"kernel": w, "bias": b}
-                    for i, (w, b) in enumerate(zip(ws, bs))}, spec, x,
-                   use_kernel="reference")
+    kmod.miniconv_encoder_stream(x, ws, bs, plan, chunk_b=2, head_w=hw,
+                                 head_b=hb)
+    params = {f"layer{i}": {"kernel": w, "bias": b}
+              for i, (w, b) in enumerate(zip(ws, bs))}
+    for mode in ("reference", "grouped"):
+        miniconv_apply(params, spec, x, use_kernel=mode)
     torch.cuda.synchronize()
     with pytest.raises(ValueError, match="one device"):
         kmod.miniconv_encoder(x.cpu(), ws, bs, plan)
