@@ -7,16 +7,19 @@ Run from the root of a checkout, with no arguments::
 
 It builds the port's CUDA kernels from the sources in the checkout (K1
 the fused encoder, K2 the per-pass kernel, K3 the grouped layer, K4 the
-streamed encoder), holds each against its plain PyTorch version on the
-card at the shapes the served paths give it (and the tiers against each
-other), times each, then drives the port's entry points: it serves
-split-policy decisions from a deployment manifest (``fused``,
-``fused+head``, ``reference`` and ``grouped`` backends), tunes the
-manifest on the card with ``python -m repro_torch.deploy --tune`` and
-serves through the tuned build, and encodes 64 frames of 400x400x4
-through ``fused+stream``.  Each path runs with every launch count set to
-0 just before it and read just after, and the actions are checked
-against the eager ``xla`` build of the same manifest.
+streamed encoder, K5 flash attention), holds each against its plain
+PyTorch version on the card at the shapes the served paths give it (and
+the tiers against each other), times each, then drives the port's entry
+points: it serves split-policy decisions from a deployment manifest
+(``fused``, ``fused+head``, ``reference`` and ``grouped`` backends), tunes
+the manifest on the card with ``python -m repro_torch.deploy --tune`` and
+serves through the tuned build, encodes 64 frames of 400x400x4 through
+``fused+stream``, and serves one split decision of Qwen3-0.6B at full
+width (random weights from a seed) through ``repro_torch.launch.serve``.
+Each path runs with every launch count set to 0 just before it and read
+just after; the actions are checked against the eager ``xla`` build of
+the same manifest, and the LM's logits against its monolith and against
+the CPU's plain versions.
 
 Any failure ends the run with a non-zero exit code and no result line.
 On success the line before the last is ``{"kernels": [...]}`` (one entry
@@ -39,9 +42,14 @@ sys.path.insert(0, str(ROOT / "src"))
 # Published peaks of one H100 SXM (NVIDIA data sheet) for the bound.
 PEAK_BYTES_S = 3.35e12        # HBM3
 PEAK_FP32_FLOP_S = 67e12      # fp32 on the CUDA cores
+PEAK_BF16_FLOP_S = 989e12     # bf16 on the tensor cores, dense
 FEAT_TOL = 1e-5   # fp32 features: the kernel sums in another order
 Z_TOL = 1e-4      # projection: 484-term sums in another order
 ACT_TOL = 1e-3    # served actions: a uint8 code may flip by one at .5
+ATTN_TOL = {"float32": 2e-4,  # K5 in f32: sums in another order
+            "bfloat16": 1e-2}  # K5 in bf16 vs plain f32: its output rounding
+LM_SPLIT_TOL = 1e-2   # full-width bf16 split (float32 codec) vs monolith
+LM_CPU_TOL = {"reduced": 1e-4, "full width": 1e-3}  # card vs CPU, f32
 
 
 def check(cond, msg):
@@ -66,11 +74,55 @@ def cuda_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, peak_flop_s=PEAK_FP32_FLOP_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    fp32 operations over the CUDA-core rate."""
-    t_b, t_f = n_bytes / PEAK_BYTES_S, flops / PEAK_FP32_FLOP_S
+    operations over the peak rate for their type (fp32 on the CUDA cores
+    unless given)."""
+    t_b, t_f = n_bytes / PEAK_BYTES_S, flops / peak_flop_s
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def profile_decision(fn):
+    """Trace one call of ``fn`` with torch.profiler and print the device's
+    busy time (the sum of its kernels' device time), the kernels launched,
+    the busy share of the traced call's wall time (the profiler's own host
+    cost included), K5's device time a launch and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    if not kern:
+        print(f"profile: the profiler saw no device time; busy share not "
+              f"measured (traced wall {wall_ms:.4f} ms)")
+        return
+    n = sum(e.count for e in kern)
+    k5 = [e for e in kern if "flash_kernel" in e.key]
+    k5_us = (sum(e.self_device_time_total for e in k5)
+             / max(sum(e.count for e in k5), 1))
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:4]
+    print(f"profile of one split decision (edge + server): {n} kernels, "
+          f"device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms traced wall "
+          f"({100 * busy_ms / wall_ms:.2f}%); K5 {k5_us:.2f} us of device "
+          f"time a launch over {sum(e.count for e in k5)} launches; top: "
+          + "; ".join(f"{e.key[:60]} x{e.count} "
+                      f"{e.self_device_time_total / 1e3:.4f} ms"
+                      for e in top))
+
+
+def attention_pairs(S, window):
+    """(query, key) pairs a causal row set sees: min(q + 1, window) each."""
+    w = S if window is None else window
+    return sum(min(q + 1, w) for q in range(S))
 
 
 def nbytes(*ts):
@@ -89,12 +141,13 @@ def main() -> int:
     from repro_torch.deploy import Deployment, DeploymentConfig
     from repro_torch.kernels import _build
     from repro_torch import deploy as deploy_cli
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.miniconv_pass import (miniconv_encoder,
                                                    miniconv_encoder_stream,
                                                    miniconv_layer_grouped,
                                                    miniconv_pass)
     from repro_torch.kernels.ops import same_pad
-    from repro_torch.kernels.ref import (miniconv_encoder_ref,
+    from repro_torch.kernels.ref import (attention_ref, miniconv_encoder_ref,
                                          miniconv_encoder_stream_ref,
                                          miniconv_layer_grouped_ref,
                                          miniconv_pass_ref)
@@ -125,14 +178,14 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     wrappers = (miniconv_encoder, miniconv_pass, miniconv_layer_grouped,
-                miniconv_encoder_stream)
+                miniconv_encoder_stream, flash_attention)
 
     def reset_counts():
         for f in wrappers:
             f.launches = 0
 
     def counts():
-        """Launches per kernel since the last reset, K1..K4 in order."""
+        """Launches per kernel since the last reset, K1..K5 in order."""
         return tuple(f.launches for f in wrappers)
 
     def gen(seed):
@@ -369,8 +422,8 @@ def main() -> int:
         out = miniconv_encoder_stream(x4, ws4, bs4, splan, chunk_b=chunk,
                                       head_w=hw, head_b=hb)
         torch.cuda.synchronize()
-        check(counts() == (0, 0, 0, 1),
-              f"K4 {label}: launches K1..K4 {counts()}, expected one K4")
+        check(counts() == (0, 0, 0, 1, 0),
+              f"K4 {label}: launches K1..K5 {counts()}, expected one K4")
         whole = miniconv_encoder(x4, ws4, bs4, splan, head_w=hw, head_b=hb)
         ref = miniconv_encoder_stream_ref(x4, ws4, bs4, splan, head_w=hw,
                                           head_b=hb)
@@ -414,8 +467,8 @@ def main() -> int:
     actions = torch.stack(server.serve(payloads))
     torch.cuda.synchronize()
     fused_launches = miniconv_encoder.launches
-    check(counts() == (8, 0, 0, 0), f"fused serve launched K1..K4 "
-          f"{counts()} times; expected (8, 0, 0, 0)")
+    check(counts() == (8, 0, 0, 0, 0), f"fused serve launched K1..K5 "
+          f"{counts()} times; expected (8, 0, 0, 0, 0)")
     check(actions.shape == (8, 6) and torch.isfinite(actions).all(),
           f"bad actions {tuple(actions.shape)}")
     check(payloads[0]["data"].dtype == torch.uint8
@@ -454,8 +507,8 @@ def main() -> int:
         z_h = dep_h.encoder.apply(params, obs)
         torch.cuda.synchronize()
         z_x = dep_x.encoder.apply(params, obs)
-    check(counts() == (1, 0, 0, 0), f"fused+head launched K1..K4 "
-          f"{counts()} times for one batch; expected (1, 0, 0, 0)")
+    check(counts() == (1, 0, 0, 0, 0), f"fused+head launched K1..K5 "
+          f"{counts()} times for one batch; expected (1, 0, 0, 0, 0)")
     zerr = (z_h - z_x).abs().max().item()
     check(torch.allclose(z_h, z_x, atol=Z_TOL, rtol=Z_TOL),
           f"fused+head vs xla z differ by {zerr}")
@@ -469,8 +522,8 @@ def main() -> int:
     action_r = server_r.serve([payload_r])[0]
     torch.cuda.synchronize()
     ref_launches = miniconv_pass.launches
-    check(counts() == (0, 9, 0, 0), f"reference serve launched K1..K4 "
-          f"{counts()} times; expected (0, 9, 0, 0)")
+    check(counts() == (0, 9, 0, 0, 0), f"reference serve launched K1..K5 "
+          f"{counts()} times; expected (0, 9, 0, 0, 0)")
     r_err = (action_r - actions[0]).abs().max().item()
     check(r_err <= ACT_TOL, f"reference vs fused action differ by {r_err}")
     print(f"serve reference: 1 request, K2 launches {ref_launches}; action "
@@ -484,8 +537,8 @@ def main() -> int:
     actions_g = torch.stack(server_g.serve(payloads_g))
     torch.cuda.synchronize()
     grouped_launches = miniconv_layer_grouped.launches
-    check(counts() == (0, 0, 24, 0), f"grouped serve launched K1..K4 "
-          f"{counts()} times; expected (0, 0, 24, 0)")
+    check(counts() == (0, 0, 24, 0, 0), f"grouped serve launched K1..K5 "
+          f"{counts()} times; expected (0, 0, 24, 0, 0)")
     g_err = (actions_g - actions_x).abs().max().item()
     check(g_err <= ACT_TOL, f"grouped vs xla actions differ by {g_err}")
     print(f"serve grouped: 8 requests, K3 launches {grouped_launches}; "
@@ -517,7 +570,7 @@ def main() -> int:
     print(f"tune: {tune_s:.2f} s, winner backend={tp.backend} "
           f"micro_batch={tp.micro_batch} ({tp.per_frame_s * 1e6:.1f} "
           f"us/frame, searched {tp.searched}, pruned {tp.pruned}); tuned "
-          f"build served 8 requests, launches K1..K4 {tuned_counts}, "
+          f"build served 8 requests, launches K1..K5 {tuned_counts}, "
           f"actions vs xla max_abs_err {t_err:.3g} (tol {ACT_TOL})")
 
     # ---- 7. config B: 64 frames of 400x400x4 through fused+stream ----------
@@ -537,8 +590,8 @@ def main() -> int:
         z_b = dep_b.encoder.apply(params_b, xB)
     torch.cuda.synchronize()
     stream_launches = miniconv_encoder_stream.launches
-    check(counts() == (0, 0, 0, 1), f"config B launched K1..K4 "
-          f"{counts()} times; expected (0, 0, 0, 1)")
+    check(counts() == (0, 0, 0, 1, 0), f"config B launched K1..K5 "
+          f"{counts()} times; expected (0, 0, 0, 1, 0)")
     dep_bh = Deployment.build(dataclasses.replace(cfg_b,
                                                   backend="fused+head"))
     check(dep_bh.stream_chunk == 16, "fused+head at config B must stream")
@@ -578,9 +631,177 @@ def main() -> int:
           f"max_abs_err z {errB:.3g} (tol {Z_TOL}); K4 {k4_ms:.4f} ms, K1 "
           f"{k1_ms:.4f} ms, plain {plainB_ms:.4f} ms, library {libB_ms:.4f} "
           f"ms (cuDNN chain, no head), bound {bB_ms:.5f} ms ({bB_by})")
+    del xB, fB, z_b, z_k1, rfB, rzB
+
+    # ---- 8. K5 against its plain version -----------------------------------
+    k5_cases = [  # (label, B, H, S, D, dtype, window, timing iters)
+        ("served", 1, 16, 128, 128, torch.bfloat16, None, 50),
+        ("served f32", 1, 16, 128, 128, torch.float32, None, 50),
+        ("prefill", 1, 16, 4096, 128, torch.bfloat16, None, 10),
+        ("window", 1, 16, 2048, 128, torch.float32, 512, 10),
+        ("ragged", 2, 4, 100, 64, torch.float32, None, 50),
+    ]
+    k5_rows = {}
+    for idx, (label, B, H, S, D, dt, win, iters) in enumerate(k5_cases):
+        q, k, v = (randn((B, H, S, D), 500 + 3 * idx + i).to(dt)
+                   for i in range(3))
+        got = flash_attention(q, k, v, causal=True, sliding_window=win)
+        want = attention_ref(q.float(), k.float(), v.float(), causal=True,
+                             sliding_window=win)
+        again = flash_attention(q, k, v, causal=True, sliding_window=win)
+        torch.cuda.synchronize()
+        name = str(dt).removeprefix("torch.")
+        tol = ATTN_TOL[name]
+        check(got.dtype == dt and got.shape == q.shape
+              and torch.isfinite(got).all(),
+              f"K5 {label}: bad output {got.dtype} {tuple(got.shape)}")
+        err = (got.float() - want).abs().max().item()
+        check(torch.allclose(got.float(), want, atol=tol, rtol=tol),
+              f"K5 {label}: differs from plain by {err} (tol {tol})")
+        check(torch.equal(got, again),
+              f"K5 {label}: two runs differ (must repeat bit for bit)")
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True,
+                                             sliding_window=win),
+                     iters=iters)
+        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True,
+                                                 sliding_window=win),
+                           iters=iters)
+        if win is None:
+            lib_mask = None
+        else:
+            pos = torch.arange(S, device=dev)
+            lib_mask = ((pos[None, :] <= pos[:, None])
+                        & (pos[None, :] > pos[:, None] - win))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=lib_mask, is_causal=lib_mask is None),
+            iters=iters)
+        flops = 4 * D * attention_pairs(S, win) * B * H
+        b_ms, b_by = bound(nbytes(q, k, v, got), flops,
+                           PEAK_BF16_FLOP_S if dt == torch.bfloat16
+                           else PEAK_FP32_FLOP_S)
+        print(f"K5 flash_attention {label} ({B},{H},{S},{D}) {name} window "
+              f"{win}: max_abs_err {err:.3g} (tol {tol}, vs plain in f32), "
+              f"repeats bit for bit; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+              f"(scaled_dot_product_attention), bound {b_ms:.5f} ms "
+              f"({b_by}, {flops / 1e9:.4g} GFLOP)")
+        k5_rows[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b_ms, bound_by=b_by,
+                              library_ms=lib_ms, shape=[B, H, S, D],
+                              dtype=name, window=win)
+        del q, k, v, got, want, again
+
+    # ---- 9. the LM split path at Qwen3-0.6B's full width -------------------
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import DecoderModel
+    from repro_torch.nn.module import tree_map
+    from repro_torch.serving.client import EdgeClient
+    from repro_torch.serving.server import PolicyServer
+
+    t0 = time.perf_counter()
+    (lm_cfg, edge_fn, server_fn, mono_fn, _, wire_lm,
+     raw_lm) = serve_cli.build_split("qwen3-0.6b", reduced=False,
+                                     edge_segments=1, codec_name="uint8",
+                                     batch=1, seq=128)
+    build_s = time.perf_counter() - t0
+    check(lm_cfg.n_layers == 28 and lm_cfg.d_model == 1024
+          and lm_cfg.dtype == "bfloat16", f"not full width: {lm_cfg}")
+    tokens = torch.randint(3, lm_cfg.vocab, (1, 128), generator=gen(13)) \
+        .to(dev, torch.int32)
+    reset_counts()
+    payload = edge_fn(tokens)
+    logits = server_fn(payload)
+    torch.cuda.synchronize()
+    lm_launches = flash_attention.launches
+    check(counts() == (0, 0, 0, 0, 28), f"one split decision launched "
+          f"K1..K5 {counts()} times; expected (0, 0, 0, 0, 28): 1 edge "
+          f"layer + 27 server layers")
+    check(logits.shape == (1, 128, 151936) and logits.dtype == torch.bfloat16
+          and torch.isfinite(logits.float()).all(),
+          f"bad logits {logits.dtype} {tuple(logits.shape)}")
+    check(payload["data"].dtype == torch.uint8 and wire_lm == 131080
+          and raw_lm == 512, f"payload {payload['data'].dtype}, wire "
+          f"{wire_lm} B, raw {raw_lm} B")
+    reset_counts()
+    mono = mono_fn(tokens)
+    torch.cuda.synchronize()
+    check(counts() == (0, 0, 0, 0, 28), f"the monolith launched K1..K5 "
+          f"{counts()} times; expected (0, 0, 0, 0, 28)")
+    top1 = (logits.argmax(-1) == mono.argmax(-1)).float().mean().item()
+    edge_s = EdgeClient(encode_fn=edge_fn, wire_bytes=wire_lm) \
+        .measure(tokens)
+    split_s = PolicyServer(serve_fn=server_fn).measure(payload)
+    mono_s = PolicyServer(serve_fn=mono_fn).measure(tokens)
+    mono_ev_ms = cuda_ms(lambda: mono_fn(tokens), iters=5, warmup=1)
+    print(f"LM split qwen3-0.6b full width (28 layers, d 1024, 16/8 heads, "
+          f"head_dim 128, vocab 151936, bf16), 1x128 tokens, uint8 codec: "
+          f"built in {build_s:.2f} s; one decision (edge + server) launched "
+          f"K5 {lm_launches} times, the monolith 28; logits "
+          f"{tuple(logits.shape)} {logits.dtype} finite; top-1 agreement "
+          f"with the monolith {top1:.4f}")
+    print(f"qwen3-0.6b split@1 codec=uint8: edge {edge_s * 1e3:.4f}ms "
+          f"server {split_s * 1e3:.4f}ms monolith {mono_s * 1e3:.4f}ms wire "
+          f"{wire_lm}B raw {raw_lm}B (host clock around synchronize); "
+          f"monolith by CUDA events {mono_ev_ms:.4f} ms")
+    for line in serve_cli.latency_table(edge_s, split_s, mono_s, wire_lm,
+                                        raw_lm, [10.0, 25.0, 50.0, 100.0]):
+        print(line)
+    profile_decision(lambda: server_fn(edge_fn(tokens)))
+    del edge_fn, server_fn, mono_fn, payload, logits, mono
+
+    (_, edge32, server32, mono32, *_) = serve_cli.build_split(
+        "qwen3-0.6b", reduced=False, edge_segments=1, codec_name="float32",
+        batch=1, seq=128)
+    split32 = server32(edge32(tokens))
+    mono_ref = mono32(tokens)
+    torch.cuda.synchronize()
+    lm_err = (split32.float() - mono_ref.float()).abs().max().item()
+    check(torch.allclose(split32.float(), mono_ref.float(),
+                         atol=LM_SPLIT_TOL, rtol=LM_SPLIT_TOL),
+          f"float32-codec split differs from the monolith by {lm_err}")
+    print(f"LM split, float32 codec: vs monolith max_abs_err {lm_err:.3g} "
+          f"(tol {LM_SPLIT_TOL}), bitwise equal "
+          f"{torch.equal(split32, mono_ref)}")
+    del edge32, server32, mono32, split32, mono_ref
+
+    # ---- 10. the card against the CPU, same parameters ---------------------
+    lm_cpu_err = {}
+    for label, cfg_c in (
+            ("reduced", get_model("qwen3-0.6b", reduced=True)[0]),
+            ("full width", dataclasses.replace(
+                get_config("qwen3-0.6b"), n_layers=2, n_pattern=2,
+                dtype="float32"))):
+        model_c = DecoderModel(cfg_c)
+        p_cpu = model_c.init(gen(21), device="cpu")
+        p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+        tok = torch.randint(3, cfg_c.vocab, (1, 128), generator=gen(22))
+        with torch.inference_mode():
+            want, _ = model_c.forward(p_cpu, tok)
+            reset_counts()
+            got, _ = model_c.forward(p_gpu, tok.to(dev))
+            torch.cuda.synchronize()
+        check(counts() == (0, 0, 0, 0, cfg_c.n_layers),
+              f"{label}: the card's forward launched K1..K5 {counts()}")
+        err = (got.cpu() - want).abs().max().item()
+        tol = LM_CPU_TOL[label]
+        check(torch.allclose(got.cpu(), want, atol=tol, rtol=tol),
+              f"{label} qwen3 f32: card differs from CPU by {err} (tol "
+              f"{tol})")
+        lm_cpu_err[label] = err
+        print(f"LM card vs CPU, {label} qwen3 f32 ({cfg_c.n_layers} layers, "
+              f"d {cfg_c.d_model}, {cfg_c.n_heads}/{cfg_c.n_kv_heads} heads, "
+              f"head_dim {cfg_c.head_dim}) at (1,128): K5 launches "
+              f"{cfg_c.n_layers}, logits max_abs_err {err:.3g} (tol {tol})")
+        del p_cpu, p_gpu
+
+    # ---- 11. the CLI, reduced as its flag forces ---------------------------
+    check(serve_cli.main(["--bandwidths", "10,100"]) == 0,
+          "python -m repro_torch.launch.serve failed")
     print(f"peak device memory {torch.cuda.max_memory_allocated()} B")
 
-    # ---- 8. results --------------------------------------------------------
+    # ---- 12. results -------------------------------------------------------
     k1 = k1_rows["served edge"]
     k2 = k2_rows[1]
     k3 = k3_rows["served edge"]
@@ -605,6 +826,13 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/miniconv_encoder.cu",
              replaces="src/repro/kernels/miniconv_pass.py:575",
              launches=stream_launches, **k4),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:26",
+             launches=lm_launches, **k5_rows["served"],
+             prefill_ms=k5_rows["prefill"]["ms"],
+             prefill_library_ms=k5_rows["prefill"]["library_ms"],
+             prefill_bound_ms=k5_rows["prefill"]["bound_ms"]),
     ]
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was launched no time on its path")

@@ -1,4 +1,5 @@
-"""repro_torch — the MiniConv split-policy system in PyTorch and CUDA.
+"""repro_torch — the MiniConv split-policy system, and the split-served
+LLM path, in PyTorch and CUDA.
 
 A port of the JAX/Pallas package ``repro`` (which stays the reference) to
 PyTorch with kernels written by hand in CUDA C++ for Hopper (``sm_90a``).

@@ -31,6 +31,7 @@ SOURCES = {
     "miniconv_pass": "miniconv_pass.cu",
     "miniconv_layer_grouped": "miniconv_layer_grouped.cu",
     "miniconv_encoder": "miniconv_encoder.cu",
+    "flash_attention": "flash_attention.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -107,5 +108,42 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(library_path(name)))
 
 
-__all__ = ["BUILD_DIR", "SOURCES", "build", "cuda_kernels_supported",
-           "library_path", "load", "nvcc_path"]
+@functools.lru_cache(maxsize=None)
+def launcher(lib: str, symbol: str, argtypes: tuple):
+    """The C launch function ``symbol`` of library ``lib``, typed; it
+    returns a ``cudaError_t`` as an int."""
+    fn = getattr(load(lib), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_rc(rc: int, what: str) -> None:
+    """Raise when a launch function returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what} CUDA launch failed: error {rc} "
+                           f"(cudaError_t)")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as the kernels' vector loads
+    need (copied only when it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def on_one_device(*tensors) -> torch.device:
+    """The device every given tensor lies on; raises when they differ or
+    when it is neither the CPU nor CUDA."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"tensors must share one device, got {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+__all__ = ["BUILD_DIR", "SOURCES", "aligned", "build", "check_rc",
+           "cuda_kernels_supported", "launcher", "library_path", "load",
+           "nvcc_path", "on_one_device"]

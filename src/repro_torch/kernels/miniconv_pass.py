@@ -27,12 +27,12 @@ reset and read to show which kernels a path went through.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from repro_torch.core.passplan import SMEM_LIMIT
-from repro_torch.kernels import _build
+from repro_torch.kernels._build import (aligned, check_rc, launcher,
+                                        on_one_device)
 from repro_torch.kernels.ref import (miniconv_encoder_ref,
                                      miniconv_encoder_stream_ref,
                                      miniconv_layer_grouped_ref,
@@ -43,39 +43,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher(lib: str, symbol: str, argtypes: tuple):
-    fn = getattr(_build.load(lib), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _check_rc(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} CUDA launch failed: error {rc} "
-                           f"(cudaError_t)")
-
-
-def _on_one_device(*tensors) -> torch.device:
-    """The device every given tensor lies on; raises when they differ or
-    when it is neither the CPU nor CUDA."""
-    devs = {t.device for t in tensors if t is not None}
-    if len(devs) != 1:
-        raise ValueError(f"tensors must share one device, got {sorted(map(str, devs))}")
-    dev = devs.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
 def _kernel_arg(t: torch.Tensor, what: str) -> torch.Tensor:
     """A contiguous, 16-byte-aligned fp32 tensor for a kernel pointer."""
     if t.dtype != torch.float32:
         raise TypeError(f"{what} must be float32 for the CUDA kernel, got "
                         f"{t.dtype}")
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return aligned(t)
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +76,7 @@ def miniconv_pass(x, w, b, *, stride: int = 1):
                          f"{kh}x{kw} or stride {stride} < 1")
     h_out = (h_in - kh) // stride + 1
     w_out = (w_in - kw) // stride + 1
-    dev = _on_one_device(x, w, b)
+    dev = on_one_device(x, w, b)
     if dev.type == "cpu":
         return miniconv_pass_ref(x, w, b, stride=stride)
 
@@ -111,11 +84,11 @@ def miniconv_pass(x, w, b, *, stride: int = 1):
     w = _kernel_arg(w, "w")
     b = _kernel_arg(b, "b")
     y = torch.empty((B, h_out, w_out, 4), dtype=torch.float32, device=dev)
-    fn = _launcher("miniconv_pass", "miniconv_pass_launch", _PASS_ARGS)
+    fn = launcher("miniconv_pass", "miniconv_pass_launch", _PASS_ARGS)
     rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B,
             h_in, w_in, c_in, kh, kw, stride, h_out, w_out, dev.index or 0,
             torch.cuda.current_stream(dev).cuda_stream)
-    _check_rc(rc, "miniconv_pass")
+    check_rc(rc, "miniconv_pass")
     miniconv_pass.launches += 1
     return y
 
@@ -151,7 +124,7 @@ def miniconv_layer_grouped(x, w, b, *, stride: int = 1):
                          f"{SMEM_LIMIT} B of shared memory a block may use")
     h_out = (h_in - kh) // stride + 1
     w_out = (w_in - kw) // stride + 1
-    dev = _on_one_device(x, w, b)
+    dev = on_one_device(x, w, b)
     if dev.type == "cpu":
         return miniconv_layer_grouped_ref(x, w, b, stride=stride)
 
@@ -160,12 +133,12 @@ def miniconv_layer_grouped(x, w, b, *, stride: int = 1):
     b = _kernel_arg(b, "b")
     y = torch.empty((B, h_out, w_out, c_out), dtype=torch.float32,
                     device=dev)
-    fn = _launcher("miniconv_layer_grouped", "miniconv_layer_grouped_launch",
-                   _GROUPED_ARGS)
+    fn = launcher("miniconv_layer_grouped", "miniconv_layer_grouped_launch",
+                  _GROUPED_ARGS)
     rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B,
             h_in, w_in, c_in, kh, kw, stride, h_out, w_out, c_out,
             dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
-    _check_rc(rc, "miniconv_layer_grouped")
+    check_rc(rc, "miniconv_layer_grouped")
     miniconv_layer_grouped.launches += 1
     return y
 
@@ -232,7 +205,7 @@ def _check_encoder_args(x, weights, biases, plan, head_w, head_b,
                              f"({head_w.shape[1]},)")
         if head_act not in _ACT_CODES:
             raise ValueError(f"unknown head_act {head_act!r}")
-    return head_w, _on_one_device(x, *weights, *biases, head_w, head_b)
+    return head_w, on_one_device(x, *weights, *biases, head_w, head_b)
 
 
 def _launch_encoder(x, weights, biases, plan, head_w, head_b, head_act,
@@ -273,15 +246,15 @@ def _launch_encoder(x, weights, biases, plan, head_w, head_b, head_act,
             (ctypes.c_void_p * L)(*[t.data_ptr() for t in bs]),
             ptr(hw), ptr(hb), d_out, _ACT_CODES[head_act], B]
     if chunk_b is None:
-        fn = _launcher("miniconv_encoder", "miniconv_encoder_launch",
-                       _ENCODER_ARGS)
+        fn = launcher("miniconv_encoder", "miniconv_encoder_launch",
+                      _ENCODER_ARGS)
     else:
-        fn = _launcher("miniconv_encoder", "miniconv_encoder_stream_launch",
-                       _STREAM_ARGS)
+        fn = launcher("miniconv_encoder", "miniconv_encoder_stream_launch",
+                      _STREAM_ARGS)
         args.append(chunk_b)
     rc = fn(*args, buf0, ws_frame, smem, dev.index or 0,
             torch.cuda.current_stream(dev).cuda_stream)
-    _check_rc(rc, "miniconv_encoder" if chunk_b is None
+    check_rc(rc, "miniconv_encoder" if chunk_b is None
               else "miniconv_encoder_stream")
     return feats if z is None else (feats, z)
 

@@ -1,12 +1,15 @@
 """One MiniConv layer as per-pass kernel launches (the ``reference``
-tier) or one grouped launch (the ``grouped`` tier), as in
-``repro.kernels.ops``."""
+tier) or one grouped launch (the ``grouped`` tier), and causal attention
+through K5, as in ``repro.kernels.ops``."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.passplan import same_pads
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.miniconv_pass import (miniconv_layer_grouped,
                                                miniconv_pass)
 
@@ -58,4 +61,13 @@ def miniconv_layer(x, kernel, bias, *, stride: int = 1,
     return out[..., :c_out]
 
 
-__all__ = ["miniconv_layer", "same_pad"]
+def causal_attention(q, k, v, *, sliding_window: Optional[int] = None,
+                     block_q: int = 128, block_k: int = 128):
+    """(B, H, S, D) causal flash attention: K5 on CUDA tensors, its plain
+    version on CPU tensors."""
+    return flash_attention(q, k, v, causal=True,
+                           sliding_window=sliding_window,
+                           block_q=block_q, block_k=block_k)
+
+
+__all__ = ["causal_attention", "miniconv_layer", "same_pad"]

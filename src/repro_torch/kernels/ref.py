@@ -1,10 +1,14 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
-Each computes what its kernel computes, with ``F.pad`` + ``F.conv2d``: the
-wrappers in ``kernels/miniconv_pass.py`` use them for CPU tensors (the
-tests), and ``chip_smoke.py`` holds each kernel against them on the card.
+Each computes what its kernel computes, the MiniConv ones with ``F.pad`` +
+``F.conv2d`` and attention with two einsums and a softmax: the wrappers in
+``kernels/miniconv_pass.py`` and ``kernels/flash_attention.py`` use them
+for CPU tensors (the tests), and ``chip_smoke.py`` holds each kernel
+against them on the card.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -55,5 +59,26 @@ def miniconv_encoder_stream_ref(x, weights, biases, plan, *, head_w=None,
                                 head_b=head_b, head_act=head_act)
 
 
-__all__ = ["miniconv_encoder_ref", "miniconv_encoder_stream_ref",
-           "miniconv_layer_grouped_ref", "miniconv_pass_ref"]
+def attention_ref(q, k, v, *, causal: bool = True,
+                  sliding_window: Optional[int] = None, scale=None):
+    """Matches ``flash_attention`` (a copy of the reference's oracle).
+    q, k, v: (B, H, S, D) -> (B, H, S, D) in v's dtype."""
+    B, H, S, D = q.shape
+    scale = scale if scale is not None else D ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    k_pos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if sliding_window is not None:
+        mask &= k_pos > q_pos - sliding_window
+    logits = torch.where(mask[None, None], logits,
+                         torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
+
+
+__all__ = ["attention_ref", "miniconv_encoder_ref",
+           "miniconv_encoder_stream_ref", "miniconv_layer_grouped_ref",
+           "miniconv_pass_ref"]

@@ -1,0 +1,220 @@
+"""Architecture and input-shape configuration (port of
+``repro.models.config``).
+
+Every assigned architecture is an :class:`ArchConfig`; the four assigned
+input shapes are :class:`ShapeConfig` entries in ``SHAPES``.  A config is
+pure data — models are built from it by ``repro_torch.models.registry``.
+``dtype`` stays a string; :attr:`ArchConfig.torch_dtype` resolves it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Architectures
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MoEArch:
+    n_experts: int
+    top_k: int
+    n_shared_experts: int = 0
+    shared_expert_gate: bool = False
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMArch:
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    n_groups: int = 1
+    conv_width: int = 4
+    chunk: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    arch_id: str
+    family: str                  # dense | moe | ssm | hybrid | audio | vlm
+    source: str                  # citation (paper/model card)
+
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+
+    # block composition: ``pattern`` repeats ``n_pattern`` times, then
+    # ``remainder``.  Block ids: attn | swa (sliding-window attn) | rec
+    # (RG-LRU) | ssm (Mamba-2).  attn/swa blocks carry the MLP (or MoE).
+    pattern: tuple = ("attn",)
+    n_pattern: int = 0
+    remainder: tuple = ()
+
+    # attention details
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    sliding_window: Optional[int] = None    # window for "swa" blocks
+    # long-context decode variant: dense archs run long_500k with this
+    # window applied to ALL attn blocks (DESIGN.md §5)
+    long_context_window: int = 4096
+
+    # mlp
+    mlp: str = "swiglu"          # swiglu | gelu | relu2 | geglu
+    norm: str = "rmsnorm"        # rmsnorm | layernorm
+    tie_embeddings: bool = True
+    logit_softcap: Optional[float] = None
+
+    moe: Optional[MoEArch] = None
+    ssm: Optional[SSMArch] = None
+    rnn_width: int = 0           # RG-LRU width (hybrid)
+
+    # modality frontend stubs
+    n_frontend_tokens: int = 0   # vlm: patch tokens; audio: encoder frames
+    n_encoder_layers: int = 0    # audio enc-dec: encoder depth
+
+    dtype: str = "bfloat16"
+
+    # ------- performance knobs (not architecture) --------------------------
+    # Kept field for field so that a config equals the reference's.  The
+    # port reads attn_block_q/k and attn_skip_masked_blocks (the chunked
+    # attention path); the sharding, MoE and decode knobs wait for the
+    # modules that read them.
+    attn_block_q: int = 512
+    attn_block_k: int = 512
+    attn_skip_masked_blocks: bool = False   # static causal/window skipping
+    windowed_decode_gather: bool = False    # gather-window decode for swa
+    remat: bool = True                      # checkpoint each super-block
+    moe_group_size: int = 512               # capacity group (tokens)
+    moe_pad_experts: bool = False           # pad E to divide the data axis
+    moe_expert_parallel: bool = False       # E over "data" (all-to-all)
+    moe_dispatch_bf16: bool = False         # dispatch einsums in bf16
+    # where() cache write + sequence-sharded decode scores (the
+    # reference's default for a sequence-sharded KV cache)
+    masked_cache_update: bool = True
+
+    # ---------------- derived -------------------------------------------
+    def blocks(self) -> list[str]:
+        seq = list(self.pattern) * self.n_pattern + list(self.remainder)
+        if len(seq) != self.n_layers:
+            raise ValueError(f"{self.arch_id}: pattern gives {len(seq)} "
+                             f"blocks, n_layers is {self.n_layers}")
+        return seq
+
+    @property
+    def attention_free(self) -> bool:
+        return all(b == "ssm" for b in self.blocks())
+
+    @property
+    def subquadratic(self) -> bool:
+        """True if no block needs O(S) KV state growth at decode beyond a
+        bounded window (SSM/rec states are O(1); swa windows are bounded)."""
+        return all(b in ("ssm", "rec", "swa") for b in self.blocks())
+
+    def param_count(self) -> int:
+        """Analytic parameter count (total, incl. all experts)."""
+        D, F, V = self.d_model, self.d_ff, self.vocab
+        qk = self.n_heads * self.head_dim
+        kv = self.n_kv_heads * self.head_dim
+        attn = D * qk + 2 * D * kv + qk * D
+        mlp_mult = 3 if self.mlp in ("swiglu", "geglu") else 2
+        mlp = mlp_mult * D * F
+        total = V * D  # embedding (tied)
+        if not self.tie_embeddings:
+            total += V * D
+        for b in self.blocks():
+            if b in ("attn", "swa"):
+                total += attn
+                if self.moe is not None:
+                    e = self.moe
+                    total += e.n_experts * mlp_mult * D * F + D * e.n_experts
+                    if e.n_shared_experts:
+                        total += mlp_mult * D * F * e.n_shared_experts
+                else:
+                    total += mlp
+            elif b == "rec":
+                W = self.rnn_width or D
+                total += 2 * D * W + 2 * W * W + W * D + mlp
+            elif b == "ssm":
+                s = self.ssm or SSMArch()
+                d_in = s.expand * D
+                total += D * (2 * d_in + 2 * s.n_groups * s.d_state
+                              + d_in // s.head_dim) + d_in * D
+        if self.n_encoder_layers:  # whisper encoder (attn + mlp, layernorm)
+            total += self.n_encoder_layers * (attn + mlp)
+        return total
+
+    def active_param_count(self) -> int:
+        """Params active per token (MoE: top_k + shared experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        e = self.moe
+        D, F = self.d_model, self.d_ff
+        mlp_mult = 3 if self.mlp in ("swiglu", "geglu") else 2
+        inactive = (e.n_experts - e.top_k) * mlp_mult * D * F
+        n_moe_layers = sum(1 for b in self.blocks() if b in ("attn", "swa"))
+        return self.param_count() - n_moe_layers * inactive
+
+    def reduced(self) -> "ArchConfig":
+        """2-layer, d_model<=512, <=4-expert variant for CPU smoke tests."""
+        d = min(self.d_model, 256)
+        hd = 32
+        heads = max(min(self.n_heads, 4), 1)
+        kv = max(min(self.n_kv_heads, heads), 1)
+        pat = tuple(self.pattern)
+        if len(pat) <= 2:
+            reps, rem = 2 // len(pat), tuple(pat[: 2 % len(pat)])
+        else:  # keep one block of each distinct kind (e.g. rec + swa)
+            kinds = list(dict.fromkeys(pat))
+            reps, rem = 0, tuple(kinds[:2])
+        n_layers = reps * len(pat) + len(rem)
+        moe = None
+        if self.moe:
+            moe = dataclasses.replace(self.moe, n_experts=4,
+                                      top_k=min(self.moe.top_k, 2),
+                                      n_shared_experts=min(
+                                          self.moe.n_shared_experts, 1))
+        ssm = dataclasses.replace(self.ssm, d_state=32, head_dim=16,
+                                  chunk=8) if self.ssm else None
+        return dataclasses.replace(
+            self, n_layers=n_layers, d_model=d, n_heads=heads,
+            n_kv_heads=kv, head_dim=hd, d_ff=min(self.d_ff, 512),
+            vocab=min(self.vocab, 1024), pattern=pat, n_pattern=reps,
+            remainder=rem, moe=moe, ssm=ssm,
+            rnn_width=min(self.rnn_width, d) if self.rnn_width else 0,
+            sliding_window=min(self.sliding_window, 8)
+            if self.sliding_window else None,
+            n_frontend_tokens=min(self.n_frontend_tokens, 16),
+            n_encoder_layers=min(self.n_encoder_layers, 2),
+            dtype="float32")
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return {"bfloat16": torch.bfloat16, "float32": torch.float32}[self.dtype]

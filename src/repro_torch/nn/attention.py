@@ -1,0 +1,237 @@
+"""Multi-head self-attention with GQA, qk-norm, optional bias and sliding
+windows, as in ``repro.nn.attention``: the full-sequence (training /
+prefill) path.
+
+Shapes follow the (B, S, H, D) convention internally; the public API takes
+(B, S, d_model).  The core goes through K5 (``kernels.ops.
+causal_attention``) where :func:`flash_eligible` says so, and through the
+reference's two eager branches (``_scores_to_out``, ``chunked_attention``)
+otherwise.  The reference's sharding annotations have no counterpart: one
+card, no mesh.  Cross-attention and the decode path wait for the modules
+that use them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.device import DeviceLike
+from repro_torch.kernels.ops import causal_attention
+from repro_torch.nn.layers import dense, dense_init, rmsnorm, rmsnorm_init
+from repro_torch.nn.rotary import apply_rope
+
+FLASH_BLOCK = 128   # K5's public tile: S must be a multiple of min(128, S)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False          # qwen2.5 style
+    qk_norm: bool = False           # qwen3 style (RMSNorm over head_dim)
+    rope_theta: float = 10000.0
+    use_rope: bool = True
+    sliding_window: Optional[int] = None  # None => full causal
+    causal: bool = True             # False for encoder self-attention
+    attn_logit_softcap: Optional[float] = None
+    # implementation knobs (not architecture):
+    chunked_threshold: int = 2048   # S above which the online-softmax
+                                    # chunked path replaces naive S^2 scores
+    block_q: int = 512
+    block_k: int = 512
+    # decode knobs, kept so a config equals the reference's; the decode
+    # path waits
+    windowed_decode_gather: bool = False
+    # skip fully-masked KV chunks in the chunked path (causal upper
+    # triangle / outside the sliding-window band)
+    skip_masked_blocks: bool = False
+    masked_cache_update: bool = False
+
+
+def attention_init(gen: torch.Generator, cfg: AttentionConfig, *,
+                   dtype=torch.float32, device: DeviceLike = None):
+    def proj(i, o, bias):
+        return dense_init(gen, i, o, use_bias=bias, dtype=dtype,
+                          device=device)
+
+    qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    p = {"wq": proj(cfg.d_model, qd, cfg.qkv_bias),
+         "wk": proj(cfg.d_model, kvd, cfg.qkv_bias),
+         "wv": proj(cfg.d_model, kvd, cfg.qkv_bias),
+         "wo": proj(qd, cfg.d_model, False)}
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(cfg.head_dim, dtype, device)
+        p["k_norm"] = rmsnorm_init(cfg.head_dim, dtype, device)
+    return p
+
+
+def _project_qkv(params, cfg: AttentionConfig, x, positions):
+    B, S, _ = x.shape
+    q = dense(params["wq"], x).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = dense(params["wk"], x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = dense(params["wv"], x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q)
+        k = rmsnorm(params["k_norm"], k)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, theta=cfg.rope_theta)
+        k = apply_rope(k, positions, theta=cfg.rope_theta)
+    return q, k, v
+
+
+def _repeat_kv(x, n_rep: int):
+    if n_rep == 1:
+        return x
+    B, S, KV, D = x.shape
+    return x[:, :, :, None, :].expand(B, S, KV, n_rep, D).reshape(
+        B, S, KV * n_rep, D)
+
+
+def _scores_to_out(cfg, q, k, v, mask):
+    """q: (B,Sq,H,D); k,v: (B,Skv,H,D); mask broadcastable to (B,H,Sq,Skv)."""
+    scale = cfg.head_dim ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if cfg.attn_logit_softcap is not None:
+        c = cfg.attn_logit_softcap
+        logits = c * torch.tanh(logits / c)
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    probs = (p / p.sum(dim=-1, keepdim=True)).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def make_attention_mask(cfg: AttentionConfig, q_len: int, kv_len: int,
+                        q_offset: int = 0, device=None) -> torch.Tensor:
+    """(1,1,q_len,kv_len) boolean mask: True = attend."""
+    q_pos = q_offset + torch.arange(q_len, device=device)[:, None]
+    kv_pos = torch.arange(kv_len, device=device)[None, :]
+    mask = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
+    if cfg.causal:
+        mask &= kv_pos <= q_pos
+    if cfg.sliding_window is not None:
+        mask &= kv_pos > q_pos - cfg.sliding_window
+    return mask[None, None]
+
+
+def flash_eligible(cfg: AttentionConfig, S: int, mask) -> bool:
+    """Whether the core goes through K5: causal, no logit softcap, no
+    caller mask, and S tiled by K5's public block.  A rule on the config
+    and the shape; the kernel itself takes any S."""
+    return (cfg.causal and cfg.attn_logit_softcap is None and mask is None
+            and S % min(FLASH_BLOCK, S) == 0)
+
+
+def attention(params, cfg: AttentionConfig, x, *, positions=None,
+              mask=None):
+    """Full-sequence self-attention (training / prefill)."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    k = _repeat_kv(k, cfg.n_heads // cfg.n_kv_heads)
+    v = _repeat_kv(v, cfg.n_heads // cfg.n_kv_heads)
+    if flash_eligible(cfg, S, mask):
+        # K5 takes (B, H, S, D): these copies go once the kernel reads
+        # strides and maps GQA heads itself
+        out = causal_attention(q.transpose(1, 2).contiguous(),
+                               k.transpose(1, 2).contiguous(),
+                               v.transpose(1, 2).contiguous(),
+                               sliding_window=cfg.sliding_window)
+        out = out.transpose(1, 2)
+    elif S > cfg.chunked_threshold and mask is None:
+        out = chunked_attention(cfg, q, k, v)
+    else:
+        if mask is None:
+            mask = make_attention_mask(cfg, S, S, device=x.device)
+        out = _scores_to_out(cfg, q, k, v, mask)
+    return dense(params["wo"], out.reshape(B, S, -1))
+
+
+# ---------------------------------------------------------------------------
+# Chunked online-softmax attention (eager "flash"): never materialises the
+# (S, S) score matrix.  The reference's path above ``chunked_threshold``;
+# K5 computes the same function where ``flash_eligible`` holds.
+# ---------------------------------------------------------------------------
+
+_NEG = -0.5 * float(torch.finfo(torch.float32).max)
+
+
+def _chunk_q_block(cfg: AttentionConfig, q_blk, k, v, q_lo: int,
+                   kv_lo: int = 0):
+    """One q-chunk against the given KV range with an online softmax.
+
+    q_blk: (B, bq, H, D); k, v: (B, Skv', H, D) (a slice starting at global
+    position ``kv_lo``); q_lo: first query position.
+    """
+    B, bq, H, D = q_blk.shape
+    Skv = k.shape[1]
+    bk = min(cfg.block_k, Skv)
+    n_k = Skv // bk
+    scale = cfg.head_dim ** -0.5
+    qf = q_blk.float() * scale
+    q_pos = q_lo + torch.arange(bq, device=q_blk.device)
+    m = torch.full((B, H, bq), _NEG, dtype=torch.float32,
+                   device=q_blk.device)
+    l = torch.zeros((B, H, bq), dtype=torch.float32, device=q_blk.device)
+    acc = torch.zeros((B, H, bq, D), dtype=torch.float32,
+                      device=q_blk.device)
+    for ik in range(n_k):
+        k_blk = k[:, ik * bk:(ik + 1) * bk]
+        v_blk = v[:, ik * bk:(ik + 1) * bk]
+        logits = torch.einsum("bqhd,bkhd->bhqk", qf, k_blk.float())
+        if cfg.attn_logit_softcap is not None:
+            c = cfg.attn_logit_softcap
+            logits = c * torch.tanh(logits / c)
+        kv_pos = kv_lo + ik * bk + torch.arange(bk, device=q_blk.device)
+        msk = torch.ones((bq, bk), dtype=torch.bool, device=q_blk.device)
+        if cfg.causal:
+            msk &= kv_pos[None, :] <= q_pos[:, None]
+        if cfg.sliding_window is not None:
+            msk &= kv_pos[None, :] > q_pos[:, None] - cfg.sliding_window
+        logits = torch.where(msk[None, None], logits, _NEG)
+        new_m = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - new_m[..., None]) * msk[None, None]
+        alpha = torch.exp(m - new_m)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p, v_blk.float())
+        m = new_m
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2)                 # (B, bq, H, D)
+
+
+def chunked_attention(cfg: AttentionConfig, q, k, v):
+    """q, k, v: (B, S, H, D) (kv already GQA-repeated) -> (B, S, H, D).
+
+    Every q-chunk visits every KV chunk (the mask kills the upper
+    triangle); with ``cfg.skip_masked_blocks`` each q-chunk visits only
+    the KV chunks its causal / sliding-window band reaches.
+    """
+    B, S, H, D = q.shape
+    bq = min(cfg.block_q, S)
+    bk = min(cfg.block_k, S)
+    if S % bq or S % bk:
+        raise ValueError(f"S={S} not tiled by block_q={bq} / block_k={bk}")
+    outs = []
+    for iq in range(S // bq):
+        q_lo = iq * bq
+        lo, hi = 0, S // bk
+        if cfg.skip_masked_blocks:
+            if cfg.sliding_window is not None:
+                lo = max(q_lo - cfg.sliding_window + 1, 0) // bk
+            if cfg.causal:
+                hi = min((q_lo + bq - 1) // bk + 1, S // bk)
+        outs.append(_chunk_q_block(cfg, q[:, q_lo:q_lo + bq],
+                                   k[:, lo * bk:hi * bk],
+                                   v[:, lo * bk:hi * bk], q_lo, lo * bk))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+__all__ = ["AttentionConfig", "attention", "attention_init",
+           "chunked_attention", "flash_eligible", "make_attention_mask"]

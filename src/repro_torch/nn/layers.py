@@ -1,12 +1,17 @@
-"""Dense and conv2d layers (NHWC activations, HWIO kernels), as in
-``repro.nn.layers``."""
+"""Dense, embedding, norms, conv2d (NHWC activations, HWIO kernels) and
+MLP blocks, as in ``repro.nn.layers``.
+
+Every initialiser draws each tensor from the given generator and moves it
+to ``device`` at once, so a full-width model never sits whole on the host.
+Norms compute in float32 and cast back to the input's dtype.
+"""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.nn.module import fan_in_init
+from repro_torch.nn.module import fan_in_init, normal_init
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
@@ -26,6 +31,64 @@ def dense(params, x):
         y = y + params["bias"]
     return y
 
+
+# ---------------------------------------------------------------------------
+# Embedding
+# ---------------------------------------------------------------------------
+
+def embedding_init(gen: torch.Generator, vocab: int, dim: int, *,
+                   dtype=torch.float32, stddev: float = 0.02,
+                   device: DeviceLike = None):
+    dev = resolve_device(device)
+    return {"embedding": normal_init(stddev)(gen, (vocab, dim), dtype)
+            .to(dev)}
+
+
+def embed(params, ids):
+    return F.embedding(ids, params["embedding"])
+
+
+def unembed(params, x):
+    """Tied logits projection."""
+    return x @ params["embedding"].T
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm_init(dim: int, dtype=torch.float32, device: DeviceLike = None):
+    return {"scale": torch.ones((dim,), dtype=dtype,
+                                device=resolve_device(device))}
+
+
+def rmsnorm(params, x, *, eps: float = 1e-6):
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(dtype)
+
+
+def layernorm_init(dim: int, dtype=torch.float32, device: DeviceLike = None):
+    dev = resolve_device(device)
+    return {"scale": torch.ones((dim,), dtype=dtype, device=dev),
+            "bias": torch.zeros((dim,), dtype=dtype, device=dev)}
+
+
+def layernorm(params, x, *, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mean = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Conv2D (NHWC, HWIO kernel) — used by the MiniConv / Full-CNN encoders
+# ---------------------------------------------------------------------------
 
 def conv2d_init(gen: torch.Generator, kh: int, kw: int, c_in: int,
                 c_out: int, *, use_bias: bool = True, dtype=torch.float32,
@@ -62,4 +125,45 @@ def conv2d(params, x, *, stride: int = 1, padding: str = "SAME"):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-__all__ = ["conv2d", "conv2d_init", "dense", "dense_init"]
+# ---------------------------------------------------------------------------
+# Gated MLP (SwiGLU) and classic MLP
+# ---------------------------------------------------------------------------
+
+def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int, *,
+                dtype=torch.float32, device: DeviceLike = None):
+    return {
+        "gate": dense_init(gen, d_model, d_ff, dtype=dtype, device=device),
+        "up": dense_init(gen, d_model, d_ff, dtype=dtype, device=device),
+        "down": dense_init(gen, d_ff, d_model, dtype=dtype, device=device),
+    }
+
+
+def swiglu(params, x):
+    g = F.silu(dense(params["gate"], x))
+    return dense(params["down"], g * dense(params["up"], x))
+
+
+def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
+                  use_bias: bool = True, dtype=torch.float32,
+                  device: DeviceLike = None):
+    return {
+        "up": dense_init(gen, d_model, d_ff, use_bias=use_bias, dtype=dtype,
+                         device=device),
+        "down": dense_init(gen, d_ff, d_model, use_bias=use_bias,
+                           dtype=dtype, device=device),
+    }
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def gelu_mlp(params, x):
+    return dense(params["down"], gelu(dense(params["up"], x)))
+
+
+__all__ = ["conv2d", "conv2d_init", "dense", "dense_init", "embed",
+           "embedding_init", "gelu", "gelu_mlp", "gelu_mlp_init",
+           "layernorm", "layernorm_init", "rmsnorm", "rmsnorm_init",
+           "swiglu", "swiglu_init", "unembed"]

@@ -19,6 +19,16 @@ import torch
 Initializer = Callable[[torch.Generator, tuple, torch.dtype], torch.Tensor]
 
 
+def normal_init(stddev: float = 0.02) -> Initializer:
+    """Normal with a fixed standard deviation (the embedding's)."""
+
+    def init(gen, shape, dtype=torch.float32):
+        x = torch.randn(shape, generator=gen, device=gen.device)
+        return (x * stddev).to(dtype)
+
+    return init
+
+
 def fan_in_init(scale: float = 1.0, fan_axis: int = 0) -> Initializer:
     """LeCun-style fan-in scaled normal (default for projection matrices)."""
 
@@ -40,4 +50,12 @@ def orthogonal_init(scale: float = 1.0) -> Initializer:
     return init
 
 
-__all__ = ["Initializer", "fan_in_init", "orthogonal_init"]
+def tree_map(fn: Callable, tree):
+    """Apply ``fn`` to every leaf of a nested dict of tensors."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+__all__ = ["Initializer", "fan_in_init", "normal_init", "orthogonal_init",
+           "tree_map"]

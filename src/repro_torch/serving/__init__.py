@@ -1,2 +1,2 @@
-"""Edge client and micro-batching policy server of the port
-(``repro.serving.server`` / ``client`` counterparts)."""
+"""Edge client, decision loop, shaped link and micro-batching policy
+server of the port (``repro.serving`` counterparts)."""

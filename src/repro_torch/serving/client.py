@@ -1,9 +1,11 @@
-"""Edge-client execution (port of ``repro.serving.client.EdgeClient``).
+"""Edge-client execution and the end-to-end decision loop (port of
+``repro.serving.client``).
 
 Each client encodes and transmits ONE frame per decision; micro-batching
 happens server-side across clients.  The batched encode path
 (:meth:`EdgeClient.measure_batch`) runs B frames through one launch of the
-fused encoder kernel.
+fused encoder kernel.  :class:`DecisionLoop` composes client, link and
+server into the paper's Figure-5 pipeline from supplied stage times.
 """
 from __future__ import annotations
 
@@ -11,6 +13,9 @@ import dataclasses
 import time
 from typing import Callable, Optional
 
+import numpy as np
+
+from repro_torch.serving.netsim import ShapedLink
 from repro_torch.serving.server import _block
 
 
@@ -58,4 +63,42 @@ class EdgeClient:
         return (time.perf_counter() - t0) / (iters * batch)
 
 
-__all__ = ["EdgeClient"]
+@dataclasses.dataclass
+class DecisionLoop:
+    """One client against one server over a shaped link.
+
+    ``split=True``  : obs -> edge encode -> tx(features) -> server head
+    ``split=False`` : obs -> tx(raw frame) -> server (encoder + head)
+    """
+
+    link: ShapedLink
+    server_time_s: float
+    split: bool
+    edge_time_s: float = 0.0
+    payload_bytes: int = 0
+    action_bytes: int = 64
+
+    def decision_latency(self) -> float:
+        t = 0.0
+        if self.split:
+            t += self.edge_time_s
+        tr = self.link.send(t, self.payload_bytes)
+        t = tr.arrival + self.server_time_s
+        t += self.link.tx_time(self.action_bytes) + self.link.propagation_s
+        return t
+
+    def run(self, n_decisions: int = 1000) -> np.ndarray:
+        """Sequential closed-loop decisions (the RL setting: the next
+        observation exists only after the action returns)."""
+        self.link.reset()
+        lats = []
+        for _ in range(n_decisions):
+            lats.append(self.decision_latency())
+            self.link.reset()   # closed loop: link idle between decisions
+        return np.asarray(lats)
+
+    def median_latency(self, n_decisions: int = 1000) -> float:
+        return float(np.median(self.run(n_decisions)))
+
+
+__all__ = ["DecisionLoop", "EdgeClient"]

@@ -1,0 +1,235 @@
+"""The port's attention stack against the reference on the CPU: K5's plain
+version against the reference's Pallas ``flash_attention`` (interpret
+mode), ``attention()`` on each of its branches, and the layers under it.
+
+Inputs come from numpy with a seed and go unchanged to both packages;
+parameters are the reference's own init, converted with
+``params_from_jax``.  Tolerances: the Pallas comparison keeps the
+reference test's own (f32 2e-4; bf16 3e-2, compared in f32);
+``attention()`` 1e-5 in f32 (the two frameworks sum in other orders);
+rope and the norms 1e-6; the MLPs 1e-5.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.kernels.ops import causal_attention as j_causal
+from repro.models.blocks import attn_config as j_attn_config
+from repro.nn import attention as j_attn
+from repro.nn import layers as j_layers
+from repro.nn.rotary import apply_rope as j_apply_rope
+from repro.nn.module import KeyGen
+
+from repro_torch.configs import ARCHS
+from repro_torch.convert import params_from_jax
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ops import causal_attention
+from repro_torch.models.blocks import attn_config
+from repro_torch.nn import attention as t_attn
+from repro_torch.nn import layers as t_layers
+from repro_torch.nn.rotary import apply_rope
+
+
+def _rand(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape)
+            * scale).astype(np.float32)
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t, np.float32)
+
+
+# ---------------------------------------------------------------------------
+# K5's plain version against the Pallas kernel
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s", [128, 256])
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("blocks", [(64, 64), (128, 64)])
+def test_flash_plain_matches_pallas(s, window, blocks):
+    bq, bk = blocks
+    q, k, v = (_rand((1, 2, s, 32), s + i) for i in range(3))
+    before = flash_attention.launches
+    got = flash_attention(_t(q), _t(k), _t(v), causal=True,
+                          sliding_window=window, block_q=bq, block_k=bk)
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   causal=True, sliding_window=window, block_q=bq,
+                   block_k=bk, interpret=True)
+    assert flash_attention.launches == before      # CPU: no kernel launch
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_attention_dtypes_match_pallas(dtype):
+    q, k, v = (_rand((1, 2, 128, 32), 7 + i) for i in range(3))
+    tdt = getattr(torch, dtype)
+    jdt = getattr(jnp, dtype)
+    got = causal_attention(_t(q, tdt), _t(k, tdt), _t(v, tdt), block_q=64,
+                           block_k=64)
+    want = j_causal(*(jnp.asarray(a).astype(jdt) for a in (q, k, v)),
+                    block_q=64, block_k=64, interpret=True)
+    assert got.dtype == tdt
+    tol = 2e-4 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
+    x = torch.zeros((1, 2, 64, 32))
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(x[..., :12], x[..., :12], x[..., :12])
+    with pytest.raises(ValueError, match="not tiled"):
+        flash_attention(x[:, :, :48], x[:, :, :48], x[:, :, :48],
+                        block_q=32)
+    with pytest.raises(ValueError, match="sliding_window"):
+        flash_attention(x, x, x, sliding_window=0)
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        flash_attention(x, x.bfloat16(), x)
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention(x, x[:, :1], x)
+
+
+# ---------------------------------------------------------------------------
+# attention() on each branch
+# ---------------------------------------------------------------------------
+
+ACFG = dict(d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, qk_norm=True,
+            use_rope=True)
+
+
+def _attn_pair(seed=0, **over):
+    jcfg = j_attn.AttentionConfig(**ACFG, **over)
+    tcfg = t_attn.AttentionConfig(**ACFG, **over)
+    jp = j_attn.attention_init(jax.random.PRNGKey(seed), jcfg)
+    # non-unit norm scales, so qk-norm's scale path is exercised
+    for name in ("q_norm", "k_norm"):
+        jp[name]["scale"] = jnp.asarray(
+            1.0 + 0.1 * _rand((16,), seed + len(name)))
+    return jcfg, tcfg, jp, params_from_jax(jp, device="cpu")
+
+
+def _check_attention(S, mask=False, seed=0, **over):
+    jcfg, tcfg, jp, tp = _attn_pair(seed, **over)
+    x = _rand((2, S, 64), seed + 1)
+    jm = tm = None
+    if mask:
+        jm = j_attn.make_attention_mask(jcfg, S, S)
+        tm = t_attn.make_attention_mask(tcfg, S, S)
+        np.testing.assert_array_equal(np.asarray(jm), tm.numpy())
+    assert t_attn.flash_eligible(tcfg, S, tm) == (
+        not mask and over.get("attn_logit_softcap") is None)
+    got = t_attn.attention(tp, tcfg, _t(x), mask=tm)
+    want = j_attn.attention(jp, jcfg, jnp.asarray(x), mask=jm)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_attention_scores_branch_with_a_mask(window):
+    _check_attention(64, mask=True, sliding_window=window)
+
+
+@pytest.mark.parametrize("skip", [False, True])
+def test_attention_chunked_branch(skip):
+    """A softcap takes the core off K5; above the threshold the
+    reference's chunked path runs."""
+    _check_attention(64, attn_logit_softcap=30.0, chunked_threshold=16,
+                     block_q=16, block_k=16, skip_masked_blocks=skip,
+                     sliding_window=8)
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_attention_flash_branch(window):
+    """Eligible: the core is K5's plain version on the CPU, held against
+    the reference's ``_scores_to_out``."""
+    _check_attention(64, sliding_window=window)
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("window", [None, 8])
+def test_chunked_attention_matches(skip, window):
+    over = dict(chunked_threshold=16, block_q=16, block_k=16,
+                skip_masked_blocks=skip, sliding_window=window)
+    jcfg = j_attn.AttentionConfig(**ACFG, **over)
+    tcfg = t_attn.AttentionConfig(**ACFG, **over)
+    q, k, v = (_rand((2, 64, 4, 16), 30 + i) for i in range(3))
+    got = t_attn.chunked_attention(tcfg, _t(q), _t(k), _t(v))
+    want = j_attn.chunked_attention(jcfg, *(jnp.asarray(a)
+                                            for a in (q, k, v)))
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+
+
+# which configurations' attention layers take K5 at a served length
+K5_ARCHS = {
+    "qwen3-0.6b": True, "qwen2.5-14b": True, "llama3-8b": True,
+    "llama4-scout-17b-a16e": True, "minitron-8b": True,
+    "qwen2-moe-a2.7b": True, "llava-next-mistral-7b": True,
+    "whisper-medium": True,
+    "recurrentgemma-9b": False,      # logit softcap on its swa blocks
+    "mamba2-130m": None,             # attention-free
+}
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_which_configs_take_k5(reduced):
+    got = {}
+    for arch, cfg in ARCHS.items():
+        cfg = cfg.reduced() if reduced else cfg
+        kinds = {b for b in cfg.blocks() if b in ("attn", "swa")}
+        got[arch] = (None if not kinds else
+                     all(t_attn.flash_eligible(attn_config(cfg, kd), 128,
+                                               None) for kd in kinds))
+    assert got == K5_ARCHS
+
+
+def test_attn_config_matches_reference():
+    from repro.configs import ARCHS as J_ARCHS
+    for arch, cfg in ARCHS.items():
+        for kind in ("attn", "swa"):
+            for long_ctx in (False, True):
+                assert dataclasses.asdict(attn_config(
+                    cfg, kind, long_ctx=long_ctx)) == dataclasses.asdict(
+                    j_attn_config(J_ARCHS[arch], kind, long_ctx=long_ctx))
+
+
+# ---------------------------------------------------------------------------
+# the layers under attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("theta", [1e4, 1e6])
+def test_apply_rope(theta):
+    x = _rand((2, 24, 3, 32), 1)
+    pos = np.random.default_rng(2).integers(0, 200, (2, 24))
+    got = apply_rope(_t(x), torch.from_numpy(pos), theta=theta)
+    want = j_apply_rope(jnp.asarray(x), jnp.asarray(pos), theta=theta)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])
+def test_norms(norm):
+    x = _rand((2, 5, 48), 3, scale=3.0) + 0.5
+    p = {"scale": _rand((48,), 4) + 1.0, "bias": _rand((48,), 5)}
+    if norm == "rmsnorm":
+        p.pop("bias")
+    got = getattr(t_layers, norm)({k: _t(v) for k, v in p.items()}, _t(x))
+    want = getattr(j_layers, norm)({k: jnp.asarray(v) for k, v in p.items()},
+                                   jnp.asarray(x))
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("mlp", ["swiglu", "gelu_mlp"])
+def test_mlps(mlp):
+    jp = getattr(j_layers, mlp + "_init")(KeyGen(jax.random.PRNGKey(9))(),
+                                          32, 96)
+    x = _rand((2, 7, 32), 6)
+    got = getattr(t_layers, mlp)(params_from_jax(jp, device="cpu"), _t(x))
+    want = getattr(j_layers, mlp)(jp, jnp.asarray(x))
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)

@@ -44,11 +44,17 @@ def test_port_files_exist():
                 "kernels/miniconv_pass.py", "core/wire.py", "core/split.py",
                 "core/tuning.py", "rl/networks.py", "serving/server.py",
                 "serving/client.py", "deploy.py", "convert.py",
-                "perfstamp.py", "benchmarks/frame_time.py"):
+                "perfstamp.py", "benchmarks/frame_time.py",
+                "models/config.py", "configs/__init__.py",
+                "configs/qwen3_0_6b.py", "nn/rotary.py", "nn/attention.py",
+                "kernels/flash_attention.py", "models/blocks.py",
+                "models/transformer.py", "models/registry.py",
+                "serving/netsim.py", "launch/serve.py"):
         assert mod in names, mod
+    assert len([n for n in names if n.startswith("configs/")]) == 11
     assert {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")} == \
         {"miniconv_encoder.cu", "miniconv_layer_grouped.cu",
-         "miniconv_pass.cu"}
+         "miniconv_pass.cu", "flash_attention.cu"}
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)

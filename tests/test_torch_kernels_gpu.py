@@ -9,7 +9,9 @@ card, from the root of a checkout::
 (``--noconftest``: the shared conftest imports JAX, which that machine
 does not have.)  TF32 is switched off so that the plain versions compute
 in full fp32.  Tolerances: features 1e-5 and projections 1e-4, the
-kernels summing in another order than cuDNN and cuBLAS.
+kernels summing in another order than cuDNN and cuBLAS; K5 2e-4 in f32,
+and 1e-2 in bf16 against the plain version in f32 on the upcast inputs
+(the kernel's only rounding is its bf16 output).
 """
 import pytest
 import torch
@@ -18,11 +20,13 @@ from repro_torch.core.miniconv import (LayerSpec, MiniConvSpec,
                                        miniconv_apply, miniconv_init,
                                        standard_spec)
 from repro_torch.kernels import cuda_kernels_supported
+from repro_torch.kernels import flash_attention as fmod
 from repro_torch.kernels import miniconv_pass as kmod
 from repro_torch.kernels.ops import same_pad
-from repro_torch.kernels.ref import (miniconv_encoder_ref,
+from repro_torch.kernels.ref import (attention_ref, miniconv_encoder_ref,
                                      miniconv_layer_grouped_ref,
                                      miniconv_pass_ref)
+from repro_torch.nn import attention as t_attn
 
 pytestmark = pytest.mark.gpu
 
@@ -202,3 +206,41 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     torch.cuda.synchronize()
     with pytest.raises(ValueError, match="one device"):
         kmod.miniconv_encoder(x.cpu(), ws, bs, plan)
+
+
+@pytest.mark.parametrize("S", [100, 128, 512])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_matches_plain(cuda, S, D, window, dtype):
+    gen = torch.Generator().manual_seed(S + D)
+    q, k, v = (torch.randn((2, 3, S, D), generator=gen).to(cuda, dtype)
+               for _ in range(3))
+    before = fmod.flash_attention.launches
+    got = fmod.flash_attention(q, k, v, causal=True, sliding_window=window)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=True,
+                         sliding_window=window)
+    torch.cuda.synchronize()
+    assert fmod.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+    again = fmod.flash_attention(q, k, v, causal=True, sliding_window=window)
+    assert torch.equal(got, again)                  # repeats bit for bit
+
+
+def test_attention_on_cuda_launches_k5_once(cuda, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(fmod, "attention_ref", refuse)
+    cfg = t_attn.AttentionConfig(d_model=256, n_heads=4, n_kv_heads=2,
+                                 head_dim=64, qk_norm=True)
+    gen = torch.Generator().manual_seed(5)
+    params = t_attn.attention_init(gen, cfg, device=cuda)
+    x = torch.randn((2, 128, 256), generator=gen).to(cuda)
+    fmod.flash_attention.launches = 0
+    out = t_attn.attention(params, cfg, x)
+    torch.cuda.synchronize()
+    assert fmod.flash_attention.launches == 1
+    assert out.shape == x.shape and torch.isfinite(out).all()
