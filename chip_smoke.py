@@ -119,6 +119,29 @@ def profile_decision(fn):
                       for e in top))
 
 
+def kernel_device_us(fn, name, calls=20):
+    """Device time of one launch of the kernel whose name holds ``name``,
+    from a torch.profiler trace of ``calls`` calls of ``fn`` (None when
+    the profiler sees no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key
+            and e.self_device_time_total]
+    if not hits:
+        return None
+    return (sum(e.self_device_time_total for e in hits)
+            / sum(e.count for e in hits))
+
+
 def attention_pairs(S, window):
     """(query, key) pairs a causal row set sees: min(q + 1, window) each."""
     w = S if window is None else window
@@ -206,9 +229,12 @@ def main() -> int:
         bs = [p[f"layer{i}"]["bias"] for i in range(len(spec.layers))]
         return p, ws, bs
 
-    def library_chain(x, ws, bs, plan):
-        """The cuDNN F.conv2d chain on NCHW inputs prepared beforehand: a
-        yardstick only, never called by the port."""
+    def library_chain(x, ws, bs, plan, head_w=None, head_b=None,
+                      head_act="relu"):
+        """The same function through library calls, a yardstick only, never
+        called by the port: the cuDNN F.conv2d chain on NCHW inputs
+        prepared beforehand and, with a head, the projection by
+        torch.matmul on the NHWC flatten."""
         xn = x.permute(0, 3, 1, 2).contiguous()
         wn = [w.permute(3, 2, 0, 1).contiguous() for w in ws]
 
@@ -218,7 +244,11 @@ def main() -> int:
                 y = F.pad(y, (l.pad_left, l.pad_right, l.pad_top,
                               l.pad_bottom))
                 y = _ACTS[l.activation](F.conv2d(y, w, b, stride=l.stride))
-            return y
+            if head_w is None:
+                return y
+            flat = y.permute(0, 2, 3, 1).reshape(y.shape[0], -1)
+            z = torch.matmul(flat, head_w)
+            return y, _ACTS[head_act](z if head_b is None else z + head_b)
         return run
 
     # ---- 2. kernels against their plain versions ---------------------------
@@ -230,8 +260,8 @@ def main() -> int:
         ("served edge", std, 1, 84, 84, None, "relu"),
         ("batch", std, 8, 84, 84, None, "relu"),
         ("batch+head", std, 8, 84, 84, 512, "relu"),
-        ("global workspace", standard_spec(c_in=4, k=4), 2, 400, 400,
-         None, "relu"),
+        ("400x400", standard_spec(c_in=4, k=4), 2, 400, 400, None,
+         "relu"),
         ("odd", odd, 3, 85, 83, 200, "sigmoid"),
     ]
     k1_rows = {}
@@ -275,22 +305,31 @@ def main() -> int:
             return miniconv_encoder_ref(x, ws, bs, plan, head_w=hw,
                                         head_b=hb, head_act=act)
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
-        lib_ms = cuda_ms(library_chain(x, ws, bs, plan))
+        lib_ms = cuda_ms(library_chain(x, ws, bs, plan, hw, hb, act))
+        dev_us = kernel_device_us(kern, "encoder_kernel")
         flops = plan.flops_per_batch(B, plan.head(D) if D else None)
         b_ms, b_by = bound(nbytes(x, *ws, *bs, hw, hb, feats, z), flops)
+        tp = plan.tile_plan(B)
         print(f"K1 miniconv_encoder {label} x={tuple(x.shape)} head={D} "
-              f"staging={plan.staging} ({plan.smem_bytes} B/frame): "
-              f"max_abs_err feats {err:.3g} (tol {FEAT_TOL})"
+              f"tiles {tp.tile_h}x{tp.tile_w}, {tp.n_tiles} a frame, "
+              f"{B * tp.n_tiles} blocks of {tp.smem_bytes} B shared memory "
+              f"(recompute {tp.recompute(plan):.2f}x): max_abs_err feats "
+              f"{err:.3g} (tol {FEAT_TOL})"
               + (f" z {zerr:.3g} (tol {Z_TOL})" if zerr is not None else "")
-              + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+              + f"; kernel {ms:.4f} ms (device "
+              + ("not measured" if dev_us is None else f"{dev_us:.2f} us")
+              + f" a launch, traced), plain {plain_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms (cuDNN chain"
+              + (" + matmul head" if D else "") + f"), bound {b_ms:.5f} ms "
+              f"({b_by})")
         k1_rows[label] = dict(max_abs_err=max(err, zerr or 0.0), ms=ms,
-                              plain_ms=plain_ms, bound_ms=b_ms,
-                              bound_by=b_by, library_ms=lib_ms,
-                              shape=list(x.shape), head=D)
-    check({cases[3][0]} == {l for l, s, B, H, W, *_ in cases
-                            if s.plan(H, W).staging == "global"},
-          "exactly the 400x400 case must use the global workspace")
+                              device_us=dev_us, plain_ms=plain_ms,
+                              bound_ms=b_ms, bound_by=b_by,
+                              library_ms=lib_ms, shape=list(x.shape), head=D,
+                              tile=[tp.tile_h, tp.tile_w],
+                              tiles=tp.n_tiles)
+    check(k1_rows["served edge"]["tiles"] >= 36,
+          "the served 84x84 frame must spread over at least 36 blocks")
 
     # K2 on each layer of the standard plan, at the served shape (1 frame)
     # and at a batch of 8; the inputs are the plain chain's layer inputs.
@@ -406,12 +445,13 @@ def main() -> int:
           "(8,84,84,12): bitwise equal")
 
     # K4 against K1 (bit for bit) and against the plain version, each call
-    # one K4 launch: the global branch with a ragged last round, and the
-    # shared-memory branch.
+    # one K4 launch: 33 frames of 400x400 with the plan's chunk (a ragged
+    # last round of tiles), and 8 frames of 84x84 in chunks of 3.
     for label, spec, B, H, D, chunk in (
-            ("global", standard_spec(c_in=4, k=4), 33, 400, 512, 16),
-            ("shared", std, 8, 84, None, 3)):
+            ("400x400", standard_spec(c_in=4, k=4), 33, 400, 512, None),
+            ("84x84", std, 8, 84, None, 3)):
         splan = spec.plan(H)
+        chunk = chunk or splan.max_safe_batch()
         _, ws4, bs4 = layer_params(spec, 300 + B)
         x4 = rand((B, H, H, spec.layers[0].c_in), 301 + B)
         hw = hb = None
@@ -441,9 +481,12 @@ def main() -> int:
             zerr = (out[1] - ref[1]).abs().max().item()
             check(torch.allclose(out[1], ref[1], atol=Z_TOL, rtol=Z_TOL),
                   f"K4 {label}: z differs from plain by {zerr}")
+        tp4 = splan.tile_plan(B, streamed=True)
         print(f"K4 miniconv_encoder_stream {label} x={tuple(x4.shape)} "
-              f"chunk {chunk} head={D} staging={splan.staging}: one K4 "
-              f"launch, bitwise equal to K1; vs plain max_abs_err feats "
+              f"chunk {chunk} head={D}, {B * tp4.n_tiles} tiles of "
+              f"{tp4.tile_h}x{tp4.tile_w} over "
+              f"{tp4.stream_blocks(B, chunk)} blocks: one "
+              f"K4 launch, bitwise equal to K1; vs plain max_abs_err feats "
               f"{err:.3g} (tol {FEAT_TOL})"
               + (f" z {zerr:.3g} (tol {Z_TOL})" if zerr is not None else ""))
 
@@ -579,10 +622,10 @@ def main() -> int:
     dep_b = Deployment.build(cfg_b)
     for line in dep_b.build_log:
         print(f"build_log B: {line}")
-    check(dep_b.plan.staging == "global" and dep_b.max_safe_batch == 16
-          and dep_b.stream_chunk == 16,
-          f"config B: staging {dep_b.plan.staging}, max_safe_batch "
-          f"{dep_b.max_safe_batch}, stream_chunk {dep_b.stream_chunk}")
+    chunkB = dep_b.stream_chunk
+    check(chunkB == dep_b.max_safe_batch < 64,
+          f"config B: max_safe_batch {dep_b.max_safe_batch}, stream_chunk "
+          f"{chunkB}: 64 frames must stream")
     params_b = dep_b.init(gen(5))
     xB = rand((64, 400, 400, 4), 6)
     reset_counts()
@@ -594,7 +637,8 @@ def main() -> int:
           f"{counts()} times; expected (0, 0, 0, 1, 0)")
     dep_bh = Deployment.build(dataclasses.replace(cfg_b,
                                                   backend="fused+head"))
-    check(dep_bh.stream_chunk == 16, "fused+head at config B must stream")
+    check(dep_bh.stream_chunk == chunkB,
+          "fused+head at config B must stream")
     pB = params_b["edge"]
     wsB = [pB[f"layer{i}"]["kernel"] for i in range(3)]
     bsB = [pB[f"layer{i}"]["bias"] for i in range(3)]
@@ -614,23 +658,31 @@ def main() -> int:
           f"config B: z differs from plain by {errB}")
     with torch.inference_mode():
         k4_ms = cuda_ms(lambda: miniconv_encoder_stream(
-            xB, wsB, bsB, planB, chunk_b=16, head_w=hwB, head_b=hbB),
-            iters=3, warmup=1)
+            xB, wsB, bsB, planB, chunk_b=chunkB, head_w=hwB, head_b=hbB),
+            iters=10, warmup=2)
         k1_ms = cuda_ms(lambda: miniconv_encoder(
-            xB, wsB, bsB, planB, head_w=hwB, head_b=hbB), iters=3, warmup=1)
+            xB, wsB, bsB, planB, head_w=hwB, head_b=hbB), iters=10,
+            warmup=2)
         plainB_ms = cuda_ms(lambda: miniconv_encoder_stream_ref(
             xB, wsB, bsB, planB, head_w=hwB, head_b=hbB), iters=3, warmup=1)
-        libB_ms = cuda_ms(library_chain(xB, wsB, bsB, planB), iters=3,
-                          warmup=1)
+        libB_ms = cuda_ms(library_chain(xB, wsB, bsB, planB, hwB, hbB),
+                          iters=10, warmup=2)
+        k4_us = kernel_device_us(lambda: miniconv_encoder_stream(
+            xB, wsB, bsB, planB, chunk_b=chunkB, head_w=hwB, head_b=hbB),
+            "encoder_stream_kernel", calls=5)
     flopsB = planB.flops_per_batch(64, planB.head(hwB.shape[1]))
     bB_ms, bB_by = bound(nbytes(xB, *wsB, *bsB, hwB, hbB, fB, z_b), flopsB)
+    tpB = planB.tile_plan(64, streamed=True)
     print(f"config B: encoder.apply on (64,400,400,4), {xB.numel() * 4} B "
-          f"of input, fused+stream chunk 16: K4 launches {stream_launches}, "
-          f"z bitwise equal to fused+head's K1 in one 64-block launch; vs "
-          f"plain "
-          f"max_abs_err z {errB:.3g} (tol {Z_TOL}); K4 {k4_ms:.4f} ms, K1 "
-          f"{k1_ms:.4f} ms, plain {plainB_ms:.4f} ms, library {libB_ms:.4f} "
-          f"ms (cuDNN chain, no head), bound {bB_ms:.5f} ms ({bB_by})")
+          f"of input, fused+stream chunk {chunkB}: K4 launches "
+          f"{stream_launches} ({64 * tpB.n_tiles} tiles of {tpB.tile_h}x"
+          f"{tpB.tile_w} over {tpB.stream_blocks(64, chunkB)} blocks), z "
+          f"bitwise equal to fused+head's K1 launch; vs plain "
+          f"max_abs_err z {errB:.3g} (tol {Z_TOL}); K4 {k4_ms:.4f} ms (device "
+          + ("not measured" if k4_us is None else f"{k4_us / 1e3:.4f} ms")
+          + f", traced), K1 {k1_ms:.4f} ms, plain {plainB_ms:.4f} ms, "
+          f"library {libB_ms:.4f} ms (cuDNN chain + matmul head), bound "
+          f"{bB_ms:.5f} ms ({bB_by}); {flopsB / k4_ms / 1e9:.2f} TFLOP/s")
     del xB, fB, z_b, z_k1, rfB, rzB
 
     # ---- 8. K5 against its plain version -----------------------------------
@@ -807,13 +859,16 @@ def main() -> int:
     k3 = k3_rows["served edge"]
     k4 = dict(max_abs_err=errB, ms=k4_ms, plain_ms=plainB_ms,
               bound_ms=bB_ms, bound_by=bB_by, library_ms=libB_ms,
-              shape=[64, 400, 400, 4], head=hwB.shape[1], chunk_b=16,
-              k1_ms=k1_ms)
+              shape=[64, 400, 400, 4], head=hwB.shape[1], chunk_b=chunkB,
+              k1_ms=k1_ms, device_ms=None if k4_us is None else k4_us / 1e3)
     kernels = [
         dict(name="miniconv_encoder", route="cuda",
              source="src/repro_torch/kernels/csrc/miniconv_encoder.cu",
              replaces="src/repro/kernels/miniconv_pass.py:267",
-             launches=fused_launches, **k1),
+             launches=fused_launches, **k1,
+             batch_head={k: k1_rows["batch+head"][k] for k in (
+                 "ms", "device_us", "plain_ms", "library_ms", "bound_ms",
+                 "max_abs_err", "shape", "head", "tiles")}),
         dict(name="miniconv_pass", route="cuda",
              source="src/repro_torch/kernels/csrc/miniconv_pass.cu",
              replaces="src/repro/kernels/miniconv_pass.py:91",

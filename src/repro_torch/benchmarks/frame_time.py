@@ -176,7 +176,8 @@ def run_tune(sizes=(48,), *, k: int = 4, n: int = 8, max_batch: int = 4,
     """Autotune each size and time the tuned against the default build.
 
     For every size one :class:`DeploymentConfig` (default ``fused``
-    backend) goes to :func:`repro_torch.core.tuning.tune`; the winning
+    backend) goes to :func:`repro_torch.core.tuning.tune`, which prints
+    every measured candidate; the winning
     :class:`TunedPlan` is frozen into the config and both builds encode
     the same ``max_batch`` frames.  When the winner IS the default cell
     the default time is reused, so timer noise cannot give a zero delta a
@@ -189,7 +190,9 @@ def run_tune(sizes=(48,), *, k: int = 4, n: int = 8, max_batch: int = 4,
     for x_size in sizes:
         cfg = DeploymentConfig.standard(k=k, c_in=C_IN, h=x_size,
                                         max_batch=max_batch)
-        tp = tune(cfg, iters=iters, device=device)
+        print(f"  x={x_size}: candidates (launch time -> us a frame at "
+              f"max_batch={max_batch})")
+        tp = tune(cfg, iters=iters, device=device, log=print)
         dep_def = Deployment.build(cfg, device=device)
         dep_tun = Deployment.build(dataclasses.replace(cfg, tuning=tp),
                                    device=device)

@@ -20,8 +20,9 @@ Registered backends
 ``fused+head`` (alias ``fused_head``)
     ``fused`` with the server-side projection as the kernel's epilogue.
 ``fused+stream`` (alias ``fused_stream``)
-    ``fused+head`` as a persistent kernel that streams the batch through
-    ``chunk`` resident blocks (``max_safe_batch`` frames by default).
+    ``fused+head`` as a persistent kernel that streams the batch's halo
+    tiles with ``chunk`` frames in flight (``max_safe_batch`` by
+    default).
 """
 from __future__ import annotations
 

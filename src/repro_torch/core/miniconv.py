@@ -184,7 +184,7 @@ def miniconv_apply(params, spec: MiniConvSpec, x, *, use_kernel=False,
       kernel launch per batch.
 
     ``stream_chunk`` (fused tiers only) runs the batch through the
-    persistent streamed kernel with ``stream_chunk`` resident blocks
+    persistent streamed kernel with ``stream_chunk`` frames in flight
     (:func:`~repro_torch.kernels.miniconv_pass.miniconv_encoder_stream`).
     ``use_kernel="fused+stream"`` selects streaming with ``stream_chunk``
     defaulting to the plan's ``max_safe_batch``; a batch within one chunk
@@ -196,8 +196,8 @@ def miniconv_apply(params, spec: MiniConvSpec, x, *, use_kernel=False,
     ``(features, head_act(flat @ w + b))``.  In ``fused`` mode the
     projection is the kernel's epilogue.  ``tile_h`` is accepted for the
     reference's signature and does not change the result: the CUDA kernel
-    has no row tiles.  On CPU tensors every tier computes with the plain
-    PyTorch versions of its kernels.
+    picks its own halo tiles (``PassPlan.tile_plan``).  On CPU tensors
+    every tier computes with the plain PyTorch versions of its kernels.
     """
     from repro_torch.core.backends import get_backend  # lazy: avoids cycle
     backend = get_backend(use_kernel)

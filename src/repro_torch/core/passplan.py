@@ -19,15 +19,18 @@ time.  The shape, budget, FLOP and byte arithmetic is the reference's, bit
 for bit.
 
 What differs is the residency model.  The reference models the TPU
-kernel's 16 MiB VMEM; the port models its own CUDA kernel
-(``kernels/csrc/miniconv_encoder.cu``): one thread block per frame, whose
-layer intermediates are staged in the block's shared memory when they fit
-(:attr:`PassPlan.staging` is ``"shared"``) and otherwise in a per-frame
-global workspace that stays resident in the card's L2 (``"global"``).
+kernel's 16 MiB VMEM; the port models its own CUDA kernels
+(``kernels/csrc/miniconv_encoder.cu``), which cut a launch into halo
+tiles: one block computes one tile of the last layer's output and every
+earlier layer's region under it, all in its shared memory.
+:meth:`PassPlan.tile_plan` (:class:`TilePlan`) picks the tile size and
+lays out each region, its origin and its buffer; the kernels read that
+plan as it is, so the CPU tests reach all of the tile arithmetic.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Iterable, Optional
 
 from repro_torch.core.miniconv import MiniConvSpec, ShaderBudget, PI_ZERO_BUDGET
@@ -64,16 +67,36 @@ def _round4(c: int) -> int:
     return -(-c // 4) * 4
 
 
-# Residency model of the fused CUDA kernel on an H100.
+# Launch model of the fused CUDA kernels (K1, K4) on an H100 SXM.
 # Dynamic shared memory one thread block may use (after raising
 # cudaFuncAttributeMaxDynamicSharedMemorySize).
 SMEM_LIMIT = 232_448
-# The card's L2.  Global-workspace staging keeps the intermediates of this
-# many bytes of frames L2-resident; more frames still run correctly, from
-# device memory.
-WORKSPACE_LIMIT = 50 * 1024 * 1024
-# Frames one launch can take: one block per frame on the grid's x axis.
-MAX_GRID_FRAMES = 2 ** 31 - 1
+# Shared memory of one SM, which its resident blocks share, and what the
+# runtime reserves of it for each block.
+SMEM_PER_SM = 233_472
+SMEM_RESERVED = 1024
+# Streaming multiprocessors of the card.
+N_SMS = 132
+# Threads of one encoder block, and the blocks an SM keeps resident at
+# most: ``__launch_bounds__(256, 2)`` in ``miniconv_encoder.cu`` caps the
+# kernel at 128 registers a thread so that two blocks fit.
+ENCODER_THREADS = 256
+MAX_BLOCKS_PER_SM = 2
+# Static shared memory of the encoder kernels: an int a frame of an item,
+# and the projection's run sums (4 floats a thread).
+SMEM_STATIC = 16 + 4 * 4 * ENCODER_THREADS
+# (pixels a thread owns, output channels it accumulates): the shapes of a
+# thread's register tile that the kernel is compiled for.
+TASK_SHAPES = ((2, 8), (1, 16), (1, 8), (2, 4), (1, 4))
+# Frames one K4 item carries through the projection: the item's tile of
+# each frame is computed in turn, then their partial projections read
+# each row of W once for all of them.
+FRAMES_PER_ITEM = 4
+# Warps an SM needs resident to hide its load and FMA latencies.
+_WARPS_TO_FILL_SM = 16
+# Instructions of one thread to stage one input value (index arithmetic
+# and a 4-byte cp.async), against one FMA, for the tile-size model.
+_LOAD_COST = 8
 
 
 # ---------------------------------------------------------------------------
@@ -257,41 +280,23 @@ class PassPlan:
     def max_pass_samples(self) -> int:
         return max(p.samples for p in self.passes)
 
-    # ---- residency of the fused CUDA kernel --------------------------------
-    @property
-    def staging_floats(self) -> tuple[int, int]:
-        """Floats of the two ping-pong buffers that hold one frame's layer
-        intermediates: layers 0, 2, 4, ... write the first, layers 1, 3,
-        ... the second, and the last layer writes the output.  Each is
-        rounded up to 4 floats so both start 16-byte aligned."""
-        sizes = [0, 0]
-        for l in self.layers[:-1]:
-            sizes[l.index % 2] = max(sizes[l.index % 2], _round4(l.out_elems))
-        return sizes[0], sizes[1]
-
-    @property
-    def smem_bytes(self) -> int:
-        """Bytes of one frame's staged intermediates."""
-        return 4 * sum(self.staging_floats)
-
-    @property
-    def staging(self) -> str:
-        """Where the fused kernel stages intermediates: ``"shared"`` when
-        one frame's fit one block's shared memory, else ``"global"``."""
-        return "shared" if self.smem_bytes <= SMEM_LIMIT else "global"
-
-    def workspace_bytes(self, batch: int = 1) -> int:
-        """Global workspace of one fused launch over ``batch`` frames."""
-        return 0 if self.staging == "shared" else batch * self.smem_bytes
+    # ---- launch plan of the fused CUDA kernels -----------------------------
+    def tile_plan(self, batch: Optional[int] = 1, *,
+                  streamed: bool = False) -> "TilePlan":
+        """How K1 (``streamed=False``) or K4 (``streamed=True``) cuts a
+        ``batch``-frame launch into halo tiles (:func:`plan_tiles`).
+        ``batch=None`` plans for a batch large enough that only the card's
+        throughput counts."""
+        return plan_tiles(self, batch, streamed=streamed)
 
     def max_safe_batch(self) -> int:
-        """Frames per fused launch as limited by the workspace: the grid's
-        limit when intermediates stay in shared memory, else the frames
-        whose workspace fits the L2 (at least 1: more still run, from
-        device memory)."""
-        if self.staging == "shared":
-            return MAX_GRID_FRAMES
-        return max(1, WORKSPACE_LIMIT // self.smem_bytes)
+        """Frames whose tile items fill one wave of the streamed kernel's
+        resident blocks (each item carries ``group`` frames): the batch
+        the card holds at once.  Larger batches stream through K4, which
+        fetches each block's next tile while it computes the current
+        one."""
+        tp = self.tile_plan(None, streamed=True)
+        return tp.group * -(-tp.resident_blocks // tp.n_tiles)
 
     def validate(self) -> None:
         errs: list[str] = []
@@ -342,6 +347,257 @@ def build_pass_plan(spec: MiniConvSpec, h: int, w: Optional[int] = None, *,
     return plan
 
 
-__all__ = ["HeadPlan", "LayerPlan", "MAX_GRID_FRAMES", "PassPlan",
-           "SMEM_LIMIT", "ShaderPass", "WORKSPACE_LIMIT", "build_pass_plan",
-           "count_passes", "out_size", "out_spatial_chain", "same_pads"]
+# ---------------------------------------------------------------------------
+# Halo tiles of the fused CUDA kernels
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LayerTile:
+    """One layer's share of a halo tile: the region of the layer's output
+    that one tile item computes, where it starts, each thread's register
+    tile, and the layer's buffers in the block's shared memory (offsets in
+    floats)."""
+
+    ext_h: int                  # rows of the output region
+    ext_w: int                  # columns of the output region
+    row: int                    # floats of one region row in shared memory
+    next_stride: int            # stride of the layer that reads it; 0: last
+    org_h: tuple[int, int]      # first row: ty * org_h[0] - org_h[1]
+    org_w: tuple[int, int]      # first column: tx * org_w[0] - org_w[1]
+    pix: int                    # output pixels a thread owns
+    co_block: int               # output channels a thread accumulates
+    co_pad: int                 # c_out rounded up to co_block
+    w_off: int                  # weights (kh, kw, c_in, co_pad); -1: unstaged
+    b_off: int                  # bias, (co_pad,)
+    out_off: int                # output region (see TilePlan)
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """How a fused launch cuts its frames into halo tiles.
+
+    A tile item is one ``tile_h`` x ``tile_w`` block of the last layer's
+    output of ``group`` frames (1 in K1).  Its block stages the input
+    region the item needs (``in_ext_h`` x ``in_ext_w``, zero outside the
+    frame) and computes each earlier layer over the region the next one
+    reads; positions of a region outside that layer's output are staged
+    as zero, the next layer's SAME padding.  A region is CHW, each row's
+    columns split by phase modulo the reading layer's stride (column x at
+    ``(x % s) * (row / s) + x // s``), so neighbouring threads of a
+    stride-s layer read neighbouring floats.  The last layer's region is
+    the tile itself, HWC, one slot per frame of the item.  K4 keeps two
+    input buffers (``in_offs``) to fetch its next frame's tile while it
+    computes this one.
+    """
+
+    tile_h: int
+    tile_w: int
+    tiles_y: int
+    tiles_x: int
+    group: int
+    in_ext_h: int
+    in_ext_w: int
+    in_row: int
+    in_org_h: tuple[int, int]
+    in_org_w: tuple[int, int]
+    in_offs: tuple[int, ...]
+    layers: tuple[LayerTile, ...]
+    smem_floats: int
+    work: float                 # SM cycles of one frame's tile (model)
+    chain: float                # instructions of its busiest thread (model)
+
+    @property
+    def n_tiles(self) -> int:
+        """Tiles of one frame."""
+        return self.tiles_y * self.tiles_x
+
+    def n_items(self, batch: int) -> int:
+        """Items of a ``batch``-frame launch."""
+        return -(-batch // self.group) * self.n_tiles
+
+    def stream_blocks(self, batch: int, chunk_b: int) -> int:
+        """Persistent blocks of a K4 launch over ``batch`` frames with
+        about ``chunk_b`` frames in flight: ``ceil(chunk_b / group)``
+        frame groups' tiles, at most one block per item and the blocks
+        the card keeps resident."""
+        return min(self.n_items(batch), self.resident_blocks,
+                   -(-chunk_b // self.group) * self.n_tiles)
+
+    @property
+    def smem_bytes(self) -> int:
+        return 4 * self.smem_floats
+
+    @property
+    def blocks_per_sm(self) -> int:
+        return min(MAX_BLOCKS_PER_SM, SMEM_PER_SM // (
+            self.smem_bytes + SMEM_STATIC + SMEM_RESERVED))
+
+    @property
+    def resident_blocks(self) -> int:
+        return N_SMS * self.blocks_per_sm
+
+    def recompute(self, plan: "PassPlan") -> float:
+        """Outputs the tiles compute over those the frame needs, summed
+        over the layers (edge positions outside a layer count too)."""
+        done = sum(lt.ext_h * lt.ext_w * l.c_out
+                   for lt, l in zip(self.layers, plan.layers))
+        need = sum(l.out_h * l.out_w * l.c_out for l in plan.layers)
+        return self.n_tiles * done / need
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def layer_cycles(n_pix: int, l: "LayerPlan", shape: tuple[int, int]
+                 ) -> tuple[float, int]:
+    """(SM cycles, busiest thread's instructions) of one tile's layer
+    region of ``n_pix`` outputs, a thread owning ``shape`` = (pixels,
+    channels).  Per (tap, input channel) a task issues P x CB FMAs, P
+    input loads (neighbouring lanes on neighbouring floats, one
+    wavefront) and CB / 4 16-byte weight loads (one address across the
+    warp).  An SM issues 4 warp FMAs a cycle and serves one shared-memory
+    wavefront a cycle."""
+    p, cb = shape
+    taps = l.kernel * l.kernel * l.c_in
+    tasks = _cdiv(n_pix, p) * _cdiv(l.c_out, cb)
+    sm = _cdiv(tasks, 32) * taps * max(p * cb / 4, p + cb / 4)
+    chain = _cdiv(tasks, ENCODER_THREADS) * taps * (p * cb + p + cb // 4)
+    return sm, chain
+
+
+def task_shape(n_pix: int, l: "LayerPlan") -> tuple[int, int]:
+    """(pixels, channels) of each thread's register tile for a layer
+    region of ``n_pix`` outputs: the shape whose region takes the fewest
+    cycles by :func:`layer_cycles` on an SM of its own, then the one that
+    uses the SM least."""
+    def key(shape):
+        sm, chain = layer_cycles(n_pix, l, shape)
+        return (max(sm, chain), sm)
+    return min(TASK_SHAPES, key=key)
+
+
+def _split_row(width: int, stride: int) -> int:
+    """Floats of a region row of ``width`` columns split by phase modulo
+    ``stride``: ``stride`` phases of ``ceil(width / stride)`` each."""
+    return stride * _cdiv(width, stride)
+
+
+def tile_layout(plan: "PassPlan", th: int, tw: int, streamed: bool = False,
+                staged_weights: bool = True) -> TilePlan:
+    """The tile plan for ``th`` x ``tw`` output tiles: each layer's
+    region, walked back from the tile through every layer's stride,
+    kernel and SAME padding, and one block's shared memory, laid out as
+    weights (unless ``staged_weights`` is False: the kernel then reads
+    them, padded to ``co_pad`` columns, from device memory; ``w_off`` is
+    -1) and biases, then the input buffers (two if ``streamed``), then the
+    regions, each 16-byte aligned.  A streamed item carries
+    ``FRAMES_PER_ITEM`` frames."""
+    group = FRAMES_PER_ITEM if streamed else 1
+    regions = []                # per layer, last first: (eh, ew, org_h, org_w)
+    eh, ew, mh, ah, mw, aw = th, tw, th, 0, tw, 0
+    for l in reversed(plan.layers):
+        regions.append((eh, ew, (mh, ah), (mw, aw)))
+        eh, ew = (eh - 1) * l.stride + l.kernel, (ew - 1) * l.stride + l.kernel
+        mh, ah = mh * l.stride, ah * l.stride + l.pad_top
+        mw, aw = mw * l.stride, aw * l.stride + l.pad_left
+    regions.reverse()
+    off = 0
+
+    def alloc(n):
+        nonlocal off
+        start, off = off, off + _round4(n)
+        return start
+
+    shapes, wb = [], []
+    work = chain = 0.0
+    for l, (reh, rew, _, _) in zip(plan.layers, regions):
+        p, cb = task_shape(reh * rew, l)
+        co_pad = _cdiv(l.c_out, cb) * cb
+        shapes.append((p, cb, co_pad))
+        n_w = l.kernel * l.kernel * l.c_in * co_pad
+        wb.append((alloc(n_w) if staged_weights else -1, alloc(co_pad)))
+        sm, ch = layer_cycles(reh * rew, l, (p, cb))
+        work, chain = work + sm, chain + ch
+    first = plan.layers[0]
+    in_row = _split_row(ew, first.stride)
+    in_elems = eh * in_row * first.c_in
+    work += _cdiv(eh * ew * first.c_in, 32) * _LOAD_COST / 4
+    chain += _cdiv(eh * ew * first.c_in, ENCODER_THREADS) * _LOAD_COST
+    in_offs = tuple(alloc(in_elems) for _ in range(2 if streamed else 1))
+    layers = []
+    n = len(plan.layers)
+    for i, (l, (reh, rew, oh, ow), (p, cb, co_pad), (w_off, b_off)) in \
+            enumerate(zip(plan.layers, regions, shapes, wb)):
+        if i == n - 1:
+            nxt, row = 0, rew
+            out_off = alloc(group * reh * rew * l.c_out)
+        else:
+            nxt = plan.layers[i + 1].stride
+            row = _split_row(rew, nxt)
+            out_off = alloc(reh * row * l.c_out)
+        layers.append(LayerTile(ext_h=reh, ext_w=rew, row=row,
+                                next_stride=nxt, org_h=oh, org_w=ow, pix=p,
+                                co_block=cb, co_pad=co_pad, w_off=w_off,
+                                b_off=b_off, out_off=out_off))
+    return TilePlan(tile_h=th, tile_w=tw, tiles_y=_cdiv(plan.out_h, th),
+                    tiles_x=_cdiv(plan.out_w, tw), group=group, in_ext_h=eh,
+                    in_ext_w=ew, in_row=in_row, in_org_h=(mh, ah),
+                    in_org_w=(mw, aw), in_offs=in_offs, layers=tuple(layers),
+                    smem_floats=off, work=work, chain=chain)
+
+
+def tile_cost(tp: TilePlan, batch: Optional[int]) -> float:
+    """Modelled cycles of a ``batch``-frame launch: the larger of every
+    frame's tiles' SM cycles spread over the card's SMs, slowed where the
+    resident blocks hold fewer warps than an SM needs to hide its
+    latencies, and the waves of resident blocks times one tile on an SM
+    of its own.  ``batch=None`` counts throughput alone, per frame."""
+    fill = min(1.0, tp.blocks_per_sm * ENCODER_THREADS / 32
+               / _WARPS_TO_FILL_SM)
+    if batch is None:
+        return tp.n_tiles * tp.work / (N_SMS * fill)
+    tiles = batch * tp.n_tiles
+    return max(tiles * tp.work / (N_SMS * fill),
+               _cdiv(tiles, tp.resident_blocks) * max(tp.work, tp.chain))
+
+
+@functools.lru_cache(maxsize=512)
+def plan_tiles(plan: "PassPlan", batch: Optional[int] = 1, *,
+               streamed: bool = False) -> TilePlan:
+    """The tile plan of a fused launch over ``batch`` frames.
+
+    The tile size is the one :func:`tile_cost` finds cheapest among the
+    square tiles (cut to the output's sides) whose K4 layout, two input
+    buffers included, fits one block's shared memory; ties go to the
+    larger tile.  The layers' weights are staged in shared memory unless
+    no tile fits with them.  K1 and K4 take the same tile size at the same
+    batch, and sum each frame's projection in the same order.  Raises
+    ``ValueError`` when not even a 1x1 tile fits.
+    """
+    if batch is not None and batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    for staged in (True, False):
+        best = None
+        for t in range(1, max(plan.out_h, plan.out_w) + 1):
+            th, tw = min(t, plan.out_h), min(t, plan.out_w)
+            tp = tile_layout(plan, th, tw, True, staged)
+            if tp.smem_bytes + SMEM_STATIC > SMEM_LIMIT:
+                break           # larger tiles only need more
+            key = (tile_cost(tp, batch), -t)
+            if best is None or key < best[0]:
+                best = (key, tp)
+        if best is not None:
+            tp = best[1]
+            return (tp if streamed else
+                    tile_layout(plan, tp.tile_h, tp.tile_w, False, staged))
+    raise ValueError(f"no halo tile of {plan.in_h}x{plan.in_w} input fits "
+                     f"the {SMEM_LIMIT} B of shared memory a block may use")
+
+
+__all__ = ["ENCODER_THREADS", "FRAMES_PER_ITEM", "HeadPlan", "LayerPlan",
+           "LayerTile", "MAX_BLOCKS_PER_SM", "N_SMS", "PassPlan", "SMEM_LIMIT",
+           "SMEM_PER_SM", "SMEM_STATIC", "ShaderPass", "TASK_SHAPES",
+           "TilePlan", "build_pass_plan", "count_passes", "layer_cycles",
+           "out_size", "out_spatial_chain", "plan_tiles", "same_pads",
+           "task_shape", "tile_cost", "tile_layout"]

@@ -6,8 +6,8 @@ winner (port of ``repro.core.tuning``).
    size — for the manifest's serving shape.
 2. :func:`prune_candidates` cuts the grid with a cost model re-derived from
    the port's own measurements on an H100 (launch overhead of a kernel
-   wrapper, K1's frame time on one SM), so only plausible candidates are
-   measured.
+   wrapper, the fused kernels' time per modelled tile cycle, the layer
+   kernels' FLOP rate), so only plausible candidates are measured.
 3. :func:`tune` measures the survivors through the real pipeline
    (``Deployment.build`` + ``encoder.apply``) on the deployment's device
    and returns the winning :class:`TunedPlan`, stamped with the execution
@@ -30,7 +30,7 @@ from typing import Callable, Iterable, Optional, Sequence
 import torch
 
 from repro_torch.core.backends import backend_names, get_backend
-from repro_torch.core.passplan import SMEM_LIMIT
+from repro_torch.core.passplan import SMEM_LIMIT, tile_cost
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.schema import check_version
 from repro_torch.serving.server import _block
@@ -47,11 +47,15 @@ PORT_MODES = ("eager", "cuda")
 # Host time of one kernel wrapper call (ctypes launch): K2's 9 launches
 # took 0.2300 ms at B=1.
 _LAUNCH_OVERHEAD_S = 25e-6
-# fp32 FLOP/s of one SM running K1 (one block per frame): the 13.0 MFLOP
-# of an 84x84x12 frame in 0.8532 ms.
-_SM_FLOP_RATE = 15.2e9
-# SMs of an H100 SXM; K1 runs one frame on each.
-_N_SMS = 132
+# Seconds per cycle of the fused kernels' tile model
+# (``passplan.tile_cost``): K4 on 64 frames of 400x400x4 with the
+# 512-wide head took 1.6696 ms of device time for 520,479 modelled cycles.
+# (K1 on one 84x84 frame takes 5.2e-9 a cycle: the model leaves out a
+# launch's fixed costs, which the launch overhead below carries.)
+_TILE_CYCLE_S = 3.2e-9
+# fp32 FLOP/s of the layer kernels (K2, K3) over the whole card: K3's three
+# launches on 2 frames of 400x400x4 (262 MFLOP) took 0.1023 ms.
+_LAYER_FLOP_RATE = 2.56e12
 # Device memory rate of an H100 SXM (NVIDIA data sheet, HBM3).
 _BYTES_RATE = 3.35e12
 # Host-side calls of one layer on the eager path: pad, conv, activation.
@@ -123,33 +127,31 @@ def estimated_cost_s(config, cand: Candidate) -> float:
 
     A launch group costs the host time of its kernel calls, plus the
     device time of its frames, plus their bytes at the memory rate.  The
-    fused tiers run one frame per SM at K1's rate: a group of ``micro``
-    frames takes ``ceil(micro / lanes)`` frame times, where ``lanes`` is
-    the SM count, or the resident blocks of a streamed launch.  The
-    per-pass, grouped and eager tiers spread every frame's pixels over all
-    SMs.
+    fused tiers run the tile plan of the launch (K4's, with its resident
+    blocks, when a streamed backend streams) at the measured time per
+    modelled cycle.  The per-pass, grouped and eager tiers spread every
+    frame's pixels over the card at the layer kernels' rate.
     """
     backend = get_backend(cand.backend)
     plan, head_plan = _plan_and_head(config)
     micro = max(1, min(cand.micro_batch, config.max_batch))
     n_launch_groups = math.ceil(config.max_batch / micro)
 
-    frame_s = (plan.flops_per_frame + head_plan.flops) / _SM_FLOP_RATE
     first = plan.layers[0]
     in_bytes = first.in_h * first.in_w * first.c_in * 4
     out_bytes = plan.feature_bytes * 4 + head_plan.out_dim * 4
     bytes_s = micro * (in_bytes + out_bytes) / _BYTES_RATE
     if backend.mode == "fused":
-        launches, lanes = 1, _N_SMS
-        max_safe = plan.max_safe_batch()
-        if backend.streamed and micro > max_safe:
-            lanes = min(lanes, max_safe)      # chunk_b resident blocks
-        device_s = math.ceil(micro / lanes) * frame_s
+        launches = 1
+        streamed = backend.streamed and micro > plan.max_safe_batch()
+        tp = plan.tile_plan(micro, streamed=streamed)
+        device_s = tile_cost(tp, micro) * _TILE_CYCLE_S
     else:
         launches = {"xla": _EAGER_OPS_PER_LAYER * len(plan.layers),
                     "per_pass": plan.total_passes,
                     "grouped": len(plan.layers)}[backend.mode]
-        device_s = micro * frame_s / _N_SMS
+        device_s = (micro * (plan.flops_per_frame + head_plan.flops)
+                    / _LAYER_FLOP_RATE)
     t_launch = launches * _LAUNCH_OVERHEAD_S + device_s + bytes_s
     return n_launch_groups * t_launch / config.max_batch
 
@@ -157,13 +159,21 @@ def estimated_cost_s(config, cand: Candidate) -> float:
 def launch_feasible(config, cand: Candidate) -> bool:
     """Can ``cand`` launch at all?  The counterpart of the reference's
     ``vmem_feasible``.  The card has no VMEM budget: K1 and K4 take any
-    batch (a frame's intermediates go to a global workspace when they miss
-    shared memory), and K2 stages at most 4 KB of taps.  What can refuse a
-    launch is K3, which stages a whole layer's weights in shared memory:
+    batch, one halo tile at a time, and read a layer's weights from
+    device memory when no tile fits them in shared memory; they refuse
+    only a spec of which not even a 1x1 tile fits.  K2 stages at most 4 KB
+    of taps.  K3 stages a whole layer's weights in shared memory:
     ``grouped`` is feasible when every layer's fit."""
-    if get_backend(cand.backend).mode != "grouped":
-        return True
+    mode = get_backend(cand.backend).mode
     plan, _ = _plan_and_head(config)
+    if mode == "fused":
+        try:
+            plan.tile_plan(1, streamed=True)
+        except ValueError:
+            return False
+        return True
+    if mode != "grouped":
+        return True
     return all(4 * l.kernel * l.kernel * l.c_in * l.c_out_pad <= SMEM_LIMIT
                for l in plan.layers)
 
@@ -235,9 +245,9 @@ def prune_candidates(config, candidates: Iterable[Candidate], *,
     its modelled cost is within ``keep_ratio`` of the cheapest feasible
     candidate.  The manifest's own baseline point always survives, so
     tuning never regresses below "measure what you already had".  So does
-    the cheapest point of every backend: the model holds two measured
-    rates, K1's and a wrapper launch's, and may choose which point of a
-    backend to measure but not rule a backend out unmeasured.
+    the cheapest point of every backend: the model holds a few measured
+    rates and may choose which point of a backend to measure but not rule
+    a backend out unmeasured.
     """
     cands = list(candidates)
     base = baseline_candidate(config)

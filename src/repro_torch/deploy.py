@@ -241,12 +241,12 @@ class Deployment:
         stream chunk (its ``micro_batch``) only when its ``mode`` is one
         the port stamps; a block measured by the reference is recorded in
         ``build_log`` and the config's own fields apply.  For the fused
-        backends the plan decides where the kernel stages layer
-        intermediates (shared memory or a global workspace), and
-        ``fused+stream``, or plain ``fused`` at a ``max_batch`` past
-        ``max_safe_batch``, streams the batch through the persistent
-        kernel in ``stream_chunk``-frame chunks; ``build_log`` records
-        both decisions.
+        backends the plan decides how the kernels cut a batch into halo
+        tiles (every intermediate in shared memory), and ``fused+stream``,
+        or plain ``fused`` at a ``max_batch`` past ``max_safe_batch``,
+        streams the batch through the persistent kernel with
+        ``stream_chunk`` frames in flight; ``build_log`` records both
+        decisions.
         """
         config.validate()
         dev = resolve_device(device)
@@ -273,12 +273,14 @@ class Deployment:
         max_safe = plan.max_safe_batch()
         stream_chunk: Optional[int] = None
         if backend.mode == "fused":
+            tiles = plan.tile_plan(config.max_batch)
             log.append(
-                f"staging: {plan.staging} — {plan.smem_bytes} B of layer "
-                f"intermediates per frame"
-                + (" in the block's shared memory" if plan.staging == "shared"
-                   else f", global workspace of {plan.workspace_bytes(config.max_batch)} B "
-                        f"at max_batch={config.max_batch}"))
+                f"staging: halo tiles of {tiles.tile_h}x{tiles.tile_w} "
+                f"outputs, {tiles.n_tiles} a frame at max_batch="
+                f"{config.max_batch}; every layer's region in the block's "
+                f"shared memory ({tiles.smem_bytes} B a block, "
+                f"{plan.tile_plan(config.max_batch, streamed=True).smem_bytes}"
+                f" B streamed); no intermediate reaches device memory")
             if backend.streamed:
                 chunk = (min(tuning.micro_batch, max_safe)
                          if tuning is not None else max_safe)
@@ -289,10 +291,11 @@ class Deployment:
                 stream_chunk = max_safe
                 log.append(
                     f"streaming: max_batch {config.max_batch} > "
-                    f"max_safe_batch {max_safe}; a full batch's "
-                    f"intermediates would exceed the L2, so batches past "
-                    f"{max_safe} frames stream through the persistent "
-                    f"kernel in {max_safe}-frame chunks")
+                    f"max_safe_batch {max_safe}, the frames that fill one "
+                    f"wave of resident blocks; batches past {max_safe} "
+                    f"frames stream through the persistent kernel, which "
+                    f"fetches each block's next tile while it computes, "
+                    f"{max_safe} frames in flight")
         codec = get_codec(config.codec)
         mode = backend.mode
         head_act = config.head_act

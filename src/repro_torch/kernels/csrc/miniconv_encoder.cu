@@ -1,63 +1,63 @@
 // The whole MiniConv encoder (every layer of a PassPlan) in one launch,
 // with an optional projection epilogue z = act(flatten_NHWC(feats) @ W + b).
 //
-// Replaces the TPU kernel src/repro/kernels/miniconv_pass.py:
-// miniconv_encoder -> _miniconv_encoder -> _encoder_kernel (Pallas; grid
-// (batch, out_row_tile), layers chained through VMEM, the head carried
-// across row tiles in a VMEM scratch).
+// K1 (encoder_kernel) replaces the TPU kernel
+// src/repro/kernels/miniconv_pass.py: miniconv_encoder -> _miniconv_encoder
+// -> _encoder_kernel (Pallas; grid (batch, out_row_tile), layers chained
+// through VMEM, the head carried across row tiles in a VMEM scratch).
+// K4 (encoder_stream_kernel) replaces miniconv_encoder_stream ->
+// _miniconv_encoder_pipelined (Pallas; one chunk's input block resident in
+// VMEM at a time, the next chunk fetched while this one computes).
 //
-// What bounds it on an H100.  Per 84x84x12 frame the encoder does 13.0
-// MFLOP of fp32 multiply-adds and reads 339 KB of input: by the card's
-// peaks (67 TFLOP/s fp32 on the CUDA cores, 3.35 TB/s) both take well
-// under a microsecond, so neither bounds a serving batch of 1 to 8
-// frames.  What does is the layers' sequential dependence inside a frame
-// and the traffic of the intermediates between layers.  The design keeps
-// that traffic on the SM:
+// What bounds them on an H100.  The encoder is fp32 multiply-adds on the
+// CUDA cores (TF32 would break the 1e-5 feature tolerance): 141 MFLOP a
+// 400x400x4 frame with the 512-wide head, 13 MFLOP an 84x84x12 frame.  At
+// 67 TFLOP/s a batch of 64 400x400 frames takes 0.135 ms and reads 164 MB
+// of input (0.049 ms at 3.35 TB/s): operations bound it.  A frame of
+// 84x84 is a few microseconds of work, so a served frame is bound by how
+// many SMs share it and by the latency of its layer chain.
 //
-// * One thread block per frame.  The blocks of the grid run in no order,
-//   so nothing crosses frames: a frame's layers run one after another in
-//   its block, separated by __syncthreads(), and its projection is summed
-//   by the same block.
-// * Layer intermediates live in two ping-pong buffers (layers 0, 2, ...
-//   write the first, layers 1, 3, ... the second; the last layer writes
-//   the output).  The wrapper places them from the plan: in the block's
-//   dynamic shared memory when one frame's fit (84x84: 42x42x16 + 21x21x16
-//   fp32 = 138 KB of the 227 KB a block may use), else in a per-frame
-//   global workspace that stays resident in the 50 MB L2 (400x400: 3.2 MB
-//   a frame).  Both go through one generic pointer, so both branches run
-//   the same code.
-// * SAME padding is never materialised: a tap outside the input is
-//   skipped, which adds what the padded zero would have.  The layer input
-//   is read unpadded, so the TPU kernel's RGBA channel padding, 8-row
-//   output tiles and 128-lane head padding have no counterpart here; any
-//   c_out and any D are taken directly.
-// * Within a layer, thread t computes output element t of the (h, w, c)
-//   order, then t + blockDim.x, ...: neighbouring threads share an input
-//   pixel (a broadcast) and read neighbouring weights (coalesced).
-// * The epilogue gives each thread one or more columns d of W and sums
-//   the flat features in ascending order.  No float atomics: a run
-//   repeats bit for bit.
+// The design:
 //
-// Known cost of this simple form: a batch of B frames occupies B of the
-// card's 132 SMs, and every multiply-add issues two loads.  Spreading a
-// frame over a thread-block cluster and register-blocking the output
-// channels are the next steps.
-//
-// K4, the streamed encoder (encoder_stream_kernel), replaces the TPU
-// kernel miniconv_encoder_stream -> _miniconv_encoder_pipelined (Pallas;
-// grid (n_chunks, chunk_b, out_row_tile), one chunk's input block resident
-// in VMEM at a time, the next chunk fetched while this one computes).  On
-// the card it is a persistent kernel: chunk_b resident blocks, block k
-// encoding frames k, k + chunk_b, k + 2*chunk_b, ... through workspace
-// slot k, so the global workspace holds chunk_b frames rather than the
-// batch (51 MB instead of 205 MB for 64 frames of 400x400x4).  Both
-// kernels run one frame with the same device function (encode_frame); only
-// the staging slot differs (the frame in K1, the block in K4), so K4 equals
-// K1 bit for bit at every batch, a ragged last round included.  What
-// bounds it is K1's frame time: chunk_b SMs work, so a batch of B takes
-// ceil(B / chunk_b) frame times where K1 takes ceil(B / 132).  Fetching
-// the next frame's input while this one computes (cp.async or TMA) is
-// later work.
+// * Halo tiles, not frames, are the unit of work.  An item is one
+//   tile_h x tile_w block of the last layer's output of one frame.  Its
+//   block stages the input region the item needs (zero outside the frame:
+//   the first layer's SAME padding), then computes every earlier layer
+//   over the region the next one reads, recomputing the overlap of
+//   neighbouring tiles (1.5x with the 4x4 tiles of 400x400).  A region's
+//   positions outside its layer's output are stored as zero, the next
+//   layer's padding, and never computed: bias plus activation is not
+//   zero.  All regions stay in shared memory, so no intermediate reaches
+//   device memory; a batch of B frames spreads over B x tiles blocks
+//   instead of B.  PassPlan.tile_plan (core/passplan.py) picks the tile
+//   size, the regions, their origins and every shared-memory offset on
+//   the host, and passes them in `desc`.
+// * Registers hold a pixel's output channels.  A thread owns P output
+//   pixels and CB of their channels (P x CB accumulators, the shape chosen
+//   per layer on the host).  Regions are CHW in shared memory, each row's
+//   columns split by phase modulo the reading layer's stride, so
+//   neighbouring threads of a stride-2 layer read neighbouring floats (no
+//   bank conflict); the layer's weights, staged once per block as (tap,
+//   c_in, co_pad), are read as 16-byte vectors at one address across the
+//   warp.  Per (tap, input channel) a thread issues P + CB/4 loads for
+//   P x CB FMAs.
+// * Each output's sum runs bias, then (i, j, c) in order, whatever the
+//   tile size: features repeat bit for bit, and K4 equals K1.
+// * K4 is persistent: its blocks walk the items, each one tile of up to
+//   four consecutive frames, and fetch the next frame's input region with
+//   cp.async into a second buffer while they compute the current one.
+//   K1 runs the same frame body, one block per tile of one frame, with no
+//   prefetch.
+// * The projection needs all of a frame's tiles, and uses no float
+//   atomics.  Each item multiplies its frames' features by their rows of
+//   W, in ascending feature order, into a partial sum per (frame, tile,
+//   column), reading each row of W once for all the item's frames (W is
+//   20 MB at 400x400: read once a frame it would cost more than the
+//   convolutions); an int counter per frame (atomicAdd after
+//   __threadfence()) picks the block that finishes the frame's last tile,
+//   and that block sums the bias and the partials in a fixed order.  K1 and
+//   K4 take the same tile size at the same batch and sum each frame alike,
+//   so their z agree bit for bit too.
 //
 // C interface, bound with ctypes by repro_torch/kernels/miniconv_pass.py.
 #include <cuda_runtime.h>
@@ -65,32 +65,68 @@
 namespace {
 
 constexpr int kMaxLayers = 8;
-constexpr int kThreads = 512;
-constexpr int kDescInts = 11;  // ints per layer in the host descriptor
+constexpr int kMaxGroup = 4;       // PassPlan: FRAMES_PER_ITEM
+constexpr int kThreads = 256;      // PassPlan: ENCODER_THREADS
+constexpr int kMinBlocks = 2;      // PassPlan: MAX_BLOCKS_PER_SM
+constexpr int kHeaderInts = 15;    // tile header ints in the descriptor
+constexpr int kLayerInts = 25;     // ints per layer in the descriptor
 
 enum Act { kRelu = 0, kSigmoid = 1, kLinear = 2 };
 
 struct Layer {
-  int kernel, stride, c_in, c_out, in_h, in_w, out_h, out_w, pad_top,
-      pad_left, act;
-  const float* w;  // (kernel, kernel, c_in, c_out) HWIO
-  const float* b;  // (c_out,)
+  // geometry of the whole frame
+  int kernel, stride, c_in, c_out, in_h, in_w, out_h, out_w, act;
+  // one tile's output region: ext_h x ext_w from
+  // (ty * mul_h - add_h, tx * mul_w - add_w); `row` floats a region row,
+  // its columns split by phase modulo next_stride (0: the last layer,
+  // whose region is the tile, HWC, one slot per frame of the item)
+  int ext_h, ext_w, row, next_stride, mul_h, add_h, mul_w, add_w;
+  int pix, co_block, co_pad;  // register tile: pix x co_block accumulators
+  int w_off, b_off, out_off;  // shared-memory offsets, floats
+  // (kernel, kernel, c_in, c_out) HWIO, staged at w_off; with w_off < 0
+  // read in place, padded by the caller to (kernel, kernel, c_in, co_pad)
+  const float* w;
+  const float* b;             // (c_out,)
 };
 
 struct Params {
   Layer layers[kMaxLayers];
   int n_layers;
-  const float* x;      // (B, in_h, in_w, c_in) NHWC
-  float* feats;        // (B, out_h, out_w, c_out) of the last layer
-  float* z;            // (B, head_dim) or null
-  float* workspace;    // (slots, ws_frame) or null when staging in shared
-  const float* head_w;  // (F, head_dim), F = out_h * out_w * c_out
-  const float* head_b;  // (head_dim,) or null
+  int tile_h, tile_w, tiles_y, tiles_x, group;
+  int in_ext_h, in_ext_w, in_row, in_mul_h, in_add_h, in_mul_w, in_add_w;
+  int in_off[2];              // input buffers (K1 uses the first)
+  const float* x;             // (B, in_h, in_w, c_in) NHWC
+  float* feats;               // (B, out_h, out_w, c_out) of the last layer
+  float* z;                   // (B, head_dim) or null
+  float* partial;             // (B, n_tiles, head_parts, head_dim) with z
+  int* done;                  // zeros: (B,) frame counts when z is set,
+                              // then K4's item counter
+  const float* head_w;        // (F, head_dim), F = out_h * out_w * c_out
+  const float* head_b;        // (head_dim,) or null
   int head_dim, head_act;
-  int buf1_offset;      // floats from the first buffer to the second
-  long long ws_frame;   // floats of workspace per slot; 0: shared memory
-  long long batch;      // frames in x
+  int head_parts;             // runs of a tile's features the head splits
+  long long batch;
+  long long n_items;          // ceil(batch / group) * tiles_y * tiles_x
 };
+
+// An item: one tile of `nf` consecutive frames from n0.
+struct Item {
+  long long n0;
+  int nf, t, ty, tx;
+};
+
+__device__ __forceinline__ Item item_of(const Params& p, long long s) {
+  const int n_tiles = p.tiles_y * p.tiles_x;
+  const long long g = s / n_tiles;
+  Item it;
+  it.t = static_cast<int>(s - g * n_tiles);
+  it.ty = it.t / p.tiles_x;
+  it.tx = it.t - it.ty * p.tiles_x;
+  it.n0 = g * p.group;
+  const long long left = p.batch - it.n0;
+  it.nf = left < p.group ? static_cast<int>(left) : p.group;
+  return it;
+}
 
 __device__ __forceinline__ float activate(float v, int act) {
   if (act == kRelu) return fmaxf(v, 0.0f);
@@ -98,102 +134,473 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v;
 }
 
-// One SAME conv layer of one frame.  `in` and `out` may point to shared or
-// global memory, so they are read and written through generic pointers.
-__device__ void conv_layer(const Layer& L, const float* in, float* out) {
-  const int n_out = L.out_h * L.out_w * L.c_out;
-  for (int idx = threadIdx.x; idx < n_out; idx += blockDim.x) {
-    const int co = idx % L.c_out;
-    const int pix = idx / L.c_out;
-    const int ox = pix % L.out_w;
-    const int oy = pix / L.out_w;
-    const int iy0 = oy * L.stride - L.pad_top;
-    const int ix0 = ox * L.stride - L.pad_left;
-    float acc = __ldg(L.b + co);
-    for (int i = 0; i < L.kernel; ++i) {
-      const int iy = iy0 + i;
-      if (iy < 0 || iy >= L.in_h) continue;
-      for (int j = 0; j < L.kernel; ++j) {
-        const int ix = ix0 + j;
-        if (ix < 0 || ix >= L.in_w) continue;
-        const float* px = in + (iy * L.in_w + ix) * L.c_in;
-        const float* pw = L.w + (i * L.kernel + j) * L.c_in * L.c_out + co;
-        for (int c = 0; c < L.c_in; ++c)
-          acc = fmaf(px[c], __ldg(pw + c * L.c_out), acc);
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  // src-size 0 fills the 4 bytes with zeros and reads nothing.
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+// Issues the cp.async copies of every layer's weights (zero past c_out;
+// unless they are read in place) and bias into shared memory: 16 bytes at
+// a time where the staged rows are the device rows (co_pad == c_out).
+// The caller commits and waits.
+__device__ void stage_weights(const Params& p, float* smem) {
+  for (int l = 0; l < p.n_layers; ++l) {
+    const Layer& L = p.layers[l];
+    if (L.w_off >= 0) {
+      const int n = L.kernel * L.kernel * L.c_in * L.co_pad;
+      if (L.co_pad == L.c_out) {
+        for (int idx = 4 * threadIdx.x; idx < n; idx += 4 * kThreads)
+          cp_async16(smem + L.w_off + idx, L.w + idx);
+      } else {
+        for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+          const int co = idx % L.co_pad;
+          const int tc = idx / L.co_pad;  // (tap, c_in) row
+          const bool ok = co < L.c_out;
+          cp_async4(smem + L.w_off + idx, L.w + (ok ? tc * L.c_out + co : 0),
+                    ok);
+        }
       }
     }
-    out[idx] = activate(acc, L.act);
+    for (int co = threadIdx.x; co < L.co_pad; co += kThreads)
+      cp_async4(smem + L.b_off + co, L.b + (co < L.c_out ? co : 0),
+                co < L.c_out);
   }
 }
 
-// One frame, run by the whole block: every layer, then the projection
-// epilogue.  `buf0` is the frame's staging slot: the block's shared memory,
-// or a ws_frame-float slice of the global workspace.
-__device__ __forceinline__ void encode_frame(const Params& p, long long n,
-                                             float* buf0) {
-  float* buf1 = buf0 + p.buf1_offset;
+// Issues the cp.async copies of frame n's input region under tile
+// (ty, tx) into `dst` (CHW, rows split by phase modulo the first layer's
+// stride), zeros outside the frame.  Warp w copies rows w, w + 8, ...,
+// its lanes neighbouring columns, so no copy divides.  The caller commits
+// and waits.
+__device__ void fetch_input(const Params& p, long long n, int ty, int tx,
+                            float* dst) {
+  const Layer& L = p.layers[0];
+  const int C = L.c_in, S = L.stride, Eh = p.in_ext_h, Ew = p.in_ext_w;
+  const int iy0 = ty * p.in_mul_h - p.in_add_h;
+  const int ix0 = tx * p.in_mul_w - p.in_add_w;
+  const float* frame = p.x + n * L.in_h * L.in_w * static_cast<long long>(C);
+  const int plane = Eh * p.in_row, half = p.in_row / S;
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < Eh; r += kThreads / 32) {
+    const int gy = iy0 + r;
+    const bool row_ok = gy >= 0 && gy < L.in_h;
+    const float* src_row = frame + static_cast<long long>(gy) * L.in_w * C;
+    float* dst_row = dst + r * p.in_row;
+    for (int col = lane; col < Ew; col += 32) {
+      const int gx = ix0 + col;
+      const bool ok = row_ok && gx >= 0 && gx < L.in_w;
+      const float* src = ok ? src_row + gx * C : frame;
+      float* d = dst_row + (col % S) * half + col / S;
+      for (int c = 0; c < C; ++c)
+        cp_async4(d + c * plane, src + (ok ? c : 0), ok);
+    }
+  }
+}
+
+// One layer over one tile's output region.  `in` is the previous region
+// (CHW, in_row floats a row split by phase modulo this layer's stride);
+// `smem` holds the staged bias and weights; (oy0, ox0) is the region's first
+// output position in the layer's output.  An intermediate layer writes its
+// region to `out` (CHW, split for the next layer), zero where it lies
+// outside the layer's output.  The last layer (feats != null) writes the
+// tile's positions inside the frame to `feats` (the frame's NHWC
+// features) and to `out`, the frame's HWC slot (zero outside), for the
+// head.
+template <int P, int CB, bool kStaged>
+__device__ void conv_region(const Layer& L, const float* in, int in_row,
+                            int in_plane, const float* smem, int oy0,
+                            int ox0, float* out, float* feats) {
+  // weights staged in shared memory, or read in place from device memory:
+  // two instantiations, so that the hot loop's loads are of one kind
+  const float* ws = kStaged ? smem + L.w_off : L.w;
+  const float* bs = smem + L.b_off;
+  // the layer's fields in registers: the loops below read no parameter
+  const int K = L.kernel, S = L.stride, C = L.c_in, c_out = L.c_out;
+  const int ext_h = L.ext_h, ext_w = L.ext_w, out_h = L.out_h;
+  const int out_w = L.out_w, co_pad = L.co_pad, act = L.act;
+  const int row = L.row, NS = L.next_stride;
+  const int n_pix = ext_h * ext_w;
+  const int groups = (n_pix + P - 1) / P;
+  const int tasks = groups * (co_pad / CB);
+  const int in_half = in_row / S;
+  for (int task = threadIdx.x; task < tasks; task += kThreads) {
+    const int cb = task / groups;
+    const int g = task - cb * groups;
+    int base[P], pix[P];
+    bool live[P];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const int px = g + k * groups;  // pixels groups apart: lanes adjacent
+      pix[k] = px < n_pix ? px : -1;
+      const int py = px < n_pix ? px / ext_w : 0;
+      const int pxx = px < n_pix ? px - py * ext_w : 0;
+      const int gy = oy0 + py, gx = ox0 + pxx;
+      live[k] = pix[k] >= 0 && gy >= 0 && gy < out_h && gx >= 0 &&
+                gx < out_w;
+      any |= live[k];
+      // input column pxx * S + j sits at phase j % S, index pxx + j / S
+      base[k] = py * S * in_row + pxx;
+    }
+    float acc[P][CB];
+    if (any) {
+#pragma unroll
+      for (int k = 0; k < P; ++k)
+#pragma unroll
+        for (int q = 0; q < CB; ++q) acc[k][q] = bs[cb * CB + q];
+      for (int i = 0; i < K; ++i) {
+        for (int j = 0; j < K; ++j) {
+          const float* wt = ws + (i * K + j) * C * co_pad + cb * CB;
+          const float* src = in + i * in_row + (j % S) * in_half + j / S;
+#pragma unroll 4
+          for (int c = 0; c < C; ++c) {
+            float v[P];
+#pragma unroll
+            for (int k = 0; k < P; ++k) v[k] = src[c * in_plane + base[k]];
+            float wv[CB];
+#pragma unroll
+            for (int q = 0; q < CB; q += 4) {
+              const float4 w4 =
+                  *reinterpret_cast<const float4*>(wt + c * co_pad + q);
+              wv[q] = w4.x;
+              wv[q + 1] = w4.y;
+              wv[q + 2] = w4.z;
+              wv[q + 3] = w4.w;
+            }
+#pragma unroll
+            for (int k = 0; k < P; ++k)
+#pragma unroll
+              for (int q = 0; q < CB; ++q)
+                acc[k][q] = fmaf(v[k], wv[q], acc[k][q]);
+          }
+        }
+      }
+    }
+    const int out_plane = ext_h * row;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      if (pix[k] < 0) continue;
+      const int py = pix[k] / ext_w;
+      const int pxx = pix[k] - py * ext_w;
+      const int at = NS ? py * row + (pxx % NS) * (row / NS) + pxx / NS : 0;
+#pragma unroll
+      for (int q = 0; q < CB; ++q) {
+        const int co = cb * CB + q;
+        if (co >= c_out) continue;
+        const float v = live[k] ? activate(acc[k][q], act) : 0.0f;
+        if (feats == nullptr) {
+          out[co * out_plane + at] = v;
+        } else {
+          out[pix[k] * c_out + co] = v;
+          if (live[k])
+            feats[((oy0 + py) * out_w + ox0 + pxx) * c_out + co] = v;
+        }
+      }
+    }
+  }
+}
+
+template <int P, int CB>
+__device__ void conv_layer(const Layer& L, const float* in, int in_row,
+                           int in_plane, const float* smem, int oy0, int ox0,
+                           float* out, float* feats) {
+  if (L.w_off >= 0)
+    conv_region<P, CB, true>(L, in, in_row, in_plane, smem, oy0, ox0, out,
+                             feats);
+  else
+    conv_region<P, CB, false>(L, in, in_row, in_plane, smem, oy0, ox0, out,
+                              feats);
+}
+
+__device__ void run_layer(const Layer& L, const float* in, int in_row,
+                          int in_plane, const float* smem, int oy0, int ox0,
+                          float* out, float* feats) {
+  switch (L.pix * 100 + L.co_block) {  // PassPlan: TASK_SHAPES
+    case 208:
+      conv_layer<2, 8>(L, in, in_row, in_plane, smem, oy0, ox0, out, feats);
+      break;
+    case 116:
+      conv_layer<1, 16>(L, in, in_row, in_plane, smem, oy0, ox0, out, feats);
+      break;
+    case 108:
+      conv_layer<1, 8>(L, in, in_row, in_plane, smem, oy0, ox0, out, feats);
+      break;
+    case 204:
+      conv_layer<2, 4>(L, in, in_row, in_plane, smem, oy0, ox0, out, feats);
+      break;
+    default:  // 104; the launcher refuses any other shape
+      conv_layer<1, 4>(L, in, in_row, in_plane, smem, oy0, ox0, out, feats);
+      break;
+  }
+}
+
+// Frame j of item `it`: every layer over its regions, from the staged input
+// region `in`; the last layer's tile lands in the frame's slot.  All
+// threads of the block call this, and it ends with them in step.
+__device__ void encode_frame(const Params& p, float* smem, const float* in,
+                             const Item& it, int j) {
   const int last = p.n_layers - 1;
-  const Layer& first = p.layers[0];
   const Layer& fin = p.layers[last];
-  const long long n_feats =
-      static_cast<long long>(fin.out_h) * fin.out_w * fin.c_out;
-  const float* in =
-      p.x + n * first.in_h * first.in_w * static_cast<long long>(first.c_in);
-  float* feats = p.feats + n * n_feats;
-
+  const long long n = it.n0 + j;
+  float* feats = p.feats + n * fin.out_h * fin.out_w *
+                               static_cast<long long>(fin.c_out);
+  int in_row = p.in_row, in_plane = p.in_ext_h * p.in_row;
   for (int l = 0; l < p.n_layers; ++l) {
-    float* out = l == last ? feats : ((l & 1) ? buf1 : buf0);
-    conv_layer(p.layers[l], in, out);
-    __syncthreads();  // the layer's output is the next layer's input
+    const Layer& L = p.layers[l];
+    float* out = smem + L.out_off;
+    if (l == last) out += j * p.tile_h * p.tile_w * L.c_out;
+    run_layer(L, in, in_row, in_plane, smem, it.ty * L.mul_h - L.add_h,
+              it.tx * L.mul_w - L.add_w, out, l == last ? feats : nullptr);
+    __syncthreads();  // the region is the next layer's input
     in = out;
-  }
-
-  if (p.z == nullptr) return;
-  // Projection epilogue: the features this block just wrote are visible to
-  // all its threads after the barrier above.
-  for (int d = threadIdx.x; d < p.head_dim; d += blockDim.x) {
-    float acc = p.head_b ? __ldg(p.head_b + d) : 0.0f;
-    const float* wd = p.head_w + d;
-    for (long long f = 0; f < n_feats; ++f)
-      acc = fmaf(feats[f], __ldg(wd + f * p.head_dim), acc);
-    p.z[n * p.head_dim + d] = activate(acc, p.head_act);
+    in_row = L.row;
+    in_plane = L.ext_h * L.row;
   }
 }
 
-// K1: one block per frame, the frame's own workspace slot.
-// __grid_constant__: layers are indexed at run time without a local copy
-// of the parameter block.
-__global__ void __launch_bounds__(kThreads)
+// The projection's share of item `it`, once all its frames' tiles sit in
+// their slots.  The tile's features split into head_parts consecutive
+// runs; thread (part, lane) multiplies its run of each frame's features
+// by their rows of W, 4 columns a lane (16-byte loads) where D allows, in
+// ascending feature order, each W element read once for all the item's
+// frames, and stores one partial per (frame, tile, part).  The block that
+// completes a frame's last tile then sums the bias and the frame's
+// partials in (tile, part) order.
+__device__ void head_item(const Params& p, const float* smem, const Item& it) {
+  __shared__ int last_of[kMaxGroup];
+  __shared__ __align__(16) float red[4 * kThreads];  // run sums, chunk x D
+  const int n_tiles = p.tiles_y * p.tiles_x;
+  const Layer& fin = p.layers[p.n_layers - 1];
+  const int D = p.head_dim, C = fin.c_out, parts = p.head_parts;
+  const int gy0 = it.ty * p.tile_h, gx0 = it.tx * p.tile_w;
+  const int vh = min(p.tile_h, fin.out_h - gy0);
+  const int run = min(p.tile_w, fin.out_w - gx0) * C;
+  const int slot = p.tile_h * p.tile_w * C;
+  const float* tiles = smem + fin.out_off;
+  const bool vec = (D & 3) == 0;
+  const int lanes = vec ? D >> 2 : D;
+  const int n_feat = vh * run;
+  for (int u = threadIdx.x; u < lanes * parts; u += kThreads) {
+    const int part = u / lanes;
+    const int ln = u - part * lanes;
+    const int col = vec ? ln << 2 : ln;
+    const int e0 = part * n_feat / parts, e1 = (part + 1) * n_feat / parts;
+    float4 acc[kMaxGroup];
+#pragma unroll
+    for (int j = 0; j < kMaxGroup; ++j) acc[j] = make_float4(0, 0, 0, 0);
+    int py = e0 / run, e = e0 - py * run;
+    const float* w = p.head_w + col;
+    for (int k = e0; k < e1; ++k) {
+      const long long f =
+          (static_cast<long long>(gy0 + py) * fin.out_w + gx0) * C + e;
+      const float* fv = tiles + py * p.tile_w * C + e;
+      if (vec) {
+        const float4 w4 = __ldg(reinterpret_cast<const float4*>(w + f * D));
+#pragma unroll
+        for (int j = 0; j < kMaxGroup; ++j) {
+          if (j < it.nf) {
+            const float a = fv[j * slot];
+            acc[j].x = fmaf(a, w4.x, acc[j].x);
+            acc[j].y = fmaf(a, w4.y, acc[j].y);
+            acc[j].z = fmaf(a, w4.z, acc[j].z);
+            acc[j].w = fmaf(a, w4.w, acc[j].w);
+          }
+        }
+      } else {
+        const float w1 = __ldg(w + f * D);
+#pragma unroll
+        for (int j = 0; j < kMaxGroup; ++j)
+          if (j < it.nf) acc[j].x = fmaf(fv[j * slot], w1, acc[j].x);
+      }
+      if (++e == run) {
+        e = 0;
+        ++py;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kMaxGroup; ++j) {
+      if (j >= it.nf) continue;
+      float* dst = p.partial +
+                   (((it.n0 + j) * n_tiles + it.t) * parts + part) * D + col;
+      if (vec)
+        *reinterpret_cast<float4*>(dst) = acc[j];
+      else
+        *dst = acc[j].x;
+    }
+  }
+  __threadfence();  // the partials are visible before the counts say so
+  __syncthreads();
+  if (threadIdx.x < it.nf)
+    last_of[threadIdx.x] =
+        atomicAdd(p.done + it.n0 + threadIdx.x, 1) == n_tiles - 1;
+  __syncthreads();
+  // The frame's partials in (tile, part) order, cut into `chunks`
+  // consecutive runs, one per group of `lanes` threads when more than one
+  // group fits the block; each run summed in order, then the runs in order
+  // onto the bias.
+  const int n_parts = n_tiles * parts;
+  const int chunks = 2 * lanes > kThreads ? 1 : kThreads / lanes;
+  for (int j = 0; j < it.nf; ++j) {
+    if (!last_of[j]) continue;
+    __threadfence();
+    const long long n = it.n0 + j;
+    const float* src = p.partial + n * n_parts * static_cast<long long>(D);
+    if (chunks == 1) {
+      for (int d = threadIdx.x; d < D; d += kThreads) {
+        float acc = p.head_b ? __ldg(p.head_b + d) : 0.0f;
+#pragma unroll 16
+        for (int k = 0; k < n_parts; ++k) acc += __ldcg(src + k * D + d);
+        p.z[n * D + d] = activate(acc, p.head_act);
+      }
+      continue;
+    }
+    for (int u = threadIdx.x; u < lanes * chunks; u += kThreads) {
+      const int ch = u / lanes;
+      const int ln = u - ch * lanes;
+      const int k0 = ch * n_parts / chunks, k1 = (ch + 1) * n_parts / chunks;
+      if (vec) {
+        const int col = ln << 2;
+        float4 acc = make_float4(0, 0, 0, 0);
+#pragma unroll 16
+        for (int k = k0; k < k1; ++k) {
+          const float4 v =
+              __ldcg(reinterpret_cast<const float4*>(src + k * D + col));
+          acc.x += v.x;
+          acc.y += v.y;
+          acc.z += v.z;
+          acc.w += v.w;
+        }
+        *reinterpret_cast<float4*>(red + ch * D + col) = acc;
+      } else {
+        float acc = 0.0f;
+#pragma unroll 16
+        for (int k = k0; k < k1; ++k) acc += __ldcg(src + k * D + ln);
+        red[ch * D + ln] = acc;
+      }
+    }
+    __syncthreads();
+    for (int d = threadIdx.x; d < D; d += kThreads) {
+      float acc = p.head_b ? __ldg(p.head_b + d) : 0.0f;
+      for (int ch = 0; ch < chunks; ++ch) acc += red[ch * D + d];
+      p.z[n * D + d] = activate(acc, p.head_act);
+    }
+    __syncthreads();  // `red` is free for the next frame
+  }
+}
+
+// K1: one block per item (group 1: one tile of one frame).
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     encoder_kernel(const __grid_constant__ Params p) {
-  extern __shared__ float smem[];
-  const long long n = blockIdx.x;
-  encode_frame(p, n, p.ws_frame ? p.workspace + n * p.ws_frame : smem);
+  extern __shared__ __align__(16) float smem[];
+  const Item it = item_of(p, blockIdx.x);
+  fetch_input(p, it.n0, it.ty, it.tx, smem + p.in_off[0]);
+  stage_weights(p, smem);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  encode_frame(p, smem, smem + p.in_off[0], it, 0);
+  if (p.z != nullptr) head_item(p, smem, it);
 }
 
-// K4: gridDim.x resident blocks walk the batch; block k owns slot k.
-__global__ void __launch_bounds__(kThreads)
+// K4: gridDim.x resident blocks walk the items: block k starts with item
+// k, and each block that finishes an item takes the next one nobody has
+// taken (an int counter after the frames' `done` counts), so a block that
+// reduces a frame's projection delays no other block's items.  Each
+// item's frames run in turn; the next frame's input region (of this item
+// or the next) lands in the other buffer while this one computes.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     encoder_stream_kernel(const __grid_constant__ Params p) {
-  extern __shared__ float smem[];
-  float* slot = p.ws_frame ? p.workspace + blockIdx.x * p.ws_frame : smem;
-  for (long long n = blockIdx.x; n < p.batch; n += gridDim.x) {
-    encode_frame(p, n, slot);
-    __syncthreads();  // the slot is free before the next frame writes it
+  extern __shared__ __align__(16) float smem[];
+  __shared__ long long next_item;
+  long long s = blockIdx.x;
+  int j = 0;
+  Item it = item_of(p, s < p.n_items ? s : 0);
+  if (s < p.n_items) fetch_input(p, it.n0, it.ty, it.tx, smem + p.in_off[0]);
+  stage_weights(p, smem);
+  cp_async_commit();
+  int cur = 0;
+  while (s < p.n_items) {
+    long long s2 = s;
+    int j2 = j + 1;
+    if (j2 == it.nf) {
+      if (threadIdx.x == 0)
+        next_item = gridDim.x + atomicAdd(p.done + p.batch, 1);
+      __syncthreads();
+      s2 = next_item;
+      j2 = 0;
+    }
+    const Item it2 = item_of(p, s2 < p.n_items ? s2 : s);
+    if (s2 < p.n_items)
+      fetch_input(p, it2.n0 + j2, it2.ty, it2.tx, smem + p.in_off[cur ^ 1]);
+    cp_async_commit();
+    cp_async_wait<1>();  // this frame's region has landed
+    __syncthreads();
+    encode_frame(p, smem, smem + p.in_off[cur], it, j);
+    if (j == it.nf - 1 && p.z != nullptr) head_item(p, smem, it);
+    __syncthreads();  // its buffer is free before the next fetch fills it
+    cur ^= 1;
+    s = s2;
+    j = j2;
+    it = it2;
   }
+  cp_async_wait<0>();
 }
 
-// Fills the parameter block and launches K1 (chunk_b == 0: one block per
-// frame) or K4 (chunk_b > 0: min(chunk_b, batch) persistent blocks).
-int launch(const float* x, float* feats, float* z, float* workspace,
-           const int* desc, int n_layers, const void* const* weights,
-           const void* const* biases, const float* head_w,
-           const float* head_b, int head_dim, int head_act, int batch,
-           int chunk_b, int buf1_offset, long long ws_frame, int smem_bytes,
-           int device, void* stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers || chunk_b < 0)
+bool valid_shape(int pix, int co_block) {
+  return (pix == 1 && (co_block == 4 || co_block == 8 || co_block == 16)) ||
+         (pix == 2 && (co_block == 4 || co_block == 8));
+}
+
+// Fills the parameter block and launches K1 (blocks == 0: one block per
+// item) or K4 (blocks > 0 persistent blocks).
+int launch(const float* x, float* feats, float* z, float* partial,
+           int* done, const int* desc, int n_layers,
+           const void* const* weights, const void* const* biases,
+           const float* head_w, const float* head_b, int head_dim,
+           int head_act, int head_parts, long long batch, int blocks,
+           int smem_bytes, int device, void* stream) {
+  if (n_layers < 1 || n_layers > kMaxLayers || blocks < 0 || batch < 0 ||
+      head_parts < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
+  const int* h = desc;
+  p.tile_h = h[0];
+  p.tile_w = h[1];
+  p.tiles_y = h[2];
+  p.tiles_x = h[3];
+  p.group = h[4];
+  p.in_ext_h = h[5];
+  p.in_ext_w = h[6];
+  p.in_row = h[7];
+  p.in_mul_h = h[8];
+  p.in_add_h = h[9];
+  p.in_mul_w = h[10];
+  p.in_add_w = h[11];
+  p.in_off[0] = h[12];
+  p.in_off[1] = h[13];
+  if (h[14] * 4 != smem_bytes || p.group < 1 || p.group > kMaxGroup ||
+      (blocks == 0 && p.group != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   for (int l = 0; l < n_layers; ++l) {
-    const int* d = desc + l * kDescInts;
+    const int* d = desc + kHeaderInts + l * kLayerInts;
     Layer& L = p.layers[l];
     L.kernel = d[0];
     L.stride = d[1];
@@ -203,32 +610,54 @@ int launch(const float* x, float* feats, float* z, float* workspace,
     L.in_w = d[5];
     L.out_h = d[6];
     L.out_w = d[7];
-    L.pad_top = d[8];
-    L.pad_left = d[9];
+    // d[8], d[9]: pad_top, pad_left, folded into the region origins
     L.act = d[10];
+    L.ext_h = d[11];
+    L.ext_w = d[12];
+    L.row = d[13];
+    L.next_stride = d[14];
+    L.mul_h = d[15];
+    L.add_h = d[16];
+    L.mul_w = d[17];
+    L.add_w = d[18];
+    L.pix = d[19];
+    L.co_block = d[20];
+    L.co_pad = d[21];
+    L.w_off = d[22];
+    L.b_off = d[23];
+    L.out_off = d[24];
     L.w = static_cast<const float*>(weights[l]);
     L.b = static_cast<const float*>(biases[l]);
+    if (!valid_shape(L.pix, L.co_block) || L.co_pad % L.co_block ||
+        (L.w_off >= 0 && L.w_off % 4) ||
+        (L.next_stride != 0) != (l < n_layers - 1))
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   p.n_layers = n_layers;
   p.x = x;
   p.feats = feats;
   p.z = z;
-  p.workspace = workspace;
+  p.partial = partial;
+  p.done = done;
   p.head_w = head_w;
   p.head_b = head_b;
   p.head_dim = head_dim;
   p.head_act = head_act;
-  p.buf1_offset = buf1_offset;
-  p.ws_frame = ws_frame;
+  p.head_parts = head_parts;
   p.batch = batch;
+  p.n_items = (batch + p.group - 1) / p.group * p.tiles_y * p.tiles_x;
+  if ((z != nullptr && (partial == nullptr || done == nullptr)) ||
+      (blocks > 0 && done == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (batch == 0) return 0;
-  const bool stream_frames = chunk_b > 0;
+  if (p.n_items == 0) return 0;
+  if (blocks == 0 && p.n_items > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   const void* kernel =
-      stream_frames ? reinterpret_cast<const void*>(encoder_stream_kernel)
-                    : reinterpret_cast<const void*>(encoder_kernel);
+      blocks > 0 ? reinterpret_cast<const void*>(encoder_stream_kernel)
+                 : reinterpret_cast<const void*>(encoder_kernel);
   if (smem_bytes > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -236,45 +665,54 @@ int launch(const float* x, float* feats, float* z, float* workspace,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int resident = chunk_b < batch ? chunk_b : batch;
-  if (stream_frames)
-    encoder_stream_kernel<<<resident, kThreads, smem_bytes, s>>>(p);
-  else
-    encoder_kernel<<<batch, kThreads, smem_bytes, s>>>(p);
+  if (blocks > 0) {
+    const long long grid = blocks < p.n_items ? blocks : p.n_items;
+    encoder_stream_kernel<<<static_cast<int>(grid), kThreads, smem_bytes,
+                            s>>>(p);
+  } else {
+    encoder_kernel<<<static_cast<int>(p.n_items), kThreads, smem_bytes, s>>>(
+        p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// desc: n_layers x kDescInts host ints per layer, in the order (kernel,
-// stride, c_in, c_out, in_h, in_w, out_h, out_w, pad_top, pad_left, act).
-// weights, biases: host arrays of n_layers device pointers.  z, head_w and
-// head_b may be null (no epilogue; no bias).  With ws_frame > 0 the
-// intermediates go to `workspace` (batch * ws_frame floats) and smem_bytes
-// must be 0; with ws_frame == 0 they go to smem_bytes of shared memory.
-// Launches K1 on `stream` and returns cudaGetLastError().
+// desc: kHeaderInts tile ints (tile_h, tile_w, tiles_y, tiles_x, group,
+// in_ext_h, in_ext_w, in_row, in_mul_h, in_add_h, in_mul_w, in_add_w,
+// in_off0, in_off1, smem_floats), then kLayerInts per layer: the geometry
+// (kernel, stride, c_in, c_out, in_h, in_w, out_h, out_w, pad_top,
+// pad_left, act) and the tile (ext_h, ext_w, row, next_stride, mul_h,
+// add_h, mul_w, add_w, pix, co_block, co_pad, w_off, b_off, out_off), all
+// from PassPlan.tile_plan.  weights, biases: host arrays of n_layers
+// device pointers.  z, head_w and head_b may be null (no epilogue; no
+// bias); with z, `partial` holds batch * tiles * head_parts * head_dim
+// floats and `done` batch zeroed ints.  Launches K1 (group 1) on `stream`
+// and returns cudaGetLastError().
 extern "C" int miniconv_encoder_launch(
-    const float* x, float* feats, float* z, float* workspace,
+    const float* x, float* feats, float* z, float* partial, int* done,
     const int* desc, int n_layers, const void* const* weights,
     const void* const* biases, const float* head_w, const float* head_b,
-    int head_dim, int head_act, int batch, int buf1_offset,
-    long long ws_frame, int smem_bytes, int device, void* stream) {
-  return launch(x, feats, z, workspace, desc, n_layers, weights, biases,
-                head_w, head_b, head_dim, head_act, batch, 0, buf1_offset,
-                ws_frame, smem_bytes, device, stream);
+    int head_dim, int head_act, int head_parts, long long batch,
+    int smem_bytes, int device, void* stream) {
+  return launch(x, feats, z, partial, done, desc, n_layers, weights, biases,
+                head_w, head_b, head_dim, head_act, head_parts, batch, 0,
+                smem_bytes, device, stream);
 }
 
-// K4: the arguments of miniconv_encoder_launch plus chunk_b >= 1, the
-// resident blocks; `workspace` then holds min(chunk_b, batch) * ws_frame
-// floats.  Launches on `stream` and returns cudaGetLastError().
+// K4: the arguments of miniconv_encoder_launch plus blocks >= 1, the
+// persistent blocks (at most one per item); `desc` then carries two input
+// buffers and up to kMaxGroup frames an item, and `done` holds batch + 1
+// zeroed ints, with or without z.  Launches on `stream` and
+// returns cudaGetLastError().
 extern "C" int miniconv_encoder_stream_launch(
-    const float* x, float* feats, float* z, float* workspace,
+    const float* x, float* feats, float* z, float* partial, int* done,
     const int* desc, int n_layers, const void* const* weights,
     const void* const* biases, const float* head_w, const float* head_b,
-    int head_dim, int head_act, int batch, int chunk_b, int buf1_offset,
-    long long ws_frame, int smem_bytes, int device, void* stream) {
-  if (chunk_b < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(x, feats, z, workspace, desc, n_layers, weights, biases,
-                head_w, head_b, head_dim, head_act, batch, chunk_b,
-                buf1_offset, ws_frame, smem_bytes, device, stream);
+    int head_dim, int head_act, int head_parts, long long batch, int blocks,
+    int smem_bytes, int device, void* stream) {
+  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(x, feats, z, partial, done, desc, n_layers, weights, biases,
+                head_w, head_b, head_dim, head_act, head_parts, batch, blocks,
+                smem_bytes, device, stream);
 }

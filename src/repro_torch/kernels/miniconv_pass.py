@@ -9,12 +9,12 @@
   ``miniconv_layer_grouped`` / ``_layer_group_kernel``: the ``grouped``
   backend.
 * :func:`miniconv_encoder` (K1) — a whole PassPlan, optionally with the
-  projection epilogue, in one launch (``csrc/miniconv_encoder.cu``), the
-  counterpart of ``miniconv_encoder`` / ``_encoder_kernel``: the ``fused``
-  and ``fused+head`` backends.
-* :func:`miniconv_encoder_stream` (K4) — K1 as a persistent kernel of
-  ``chunk_b`` resident blocks that walk the batch (same source), the
-  counterpart of ``miniconv_encoder_stream`` /
+  projection epilogue, in one launch of one block per halo tile
+  (``csrc/miniconv_encoder.cu``), the counterpart of ``miniconv_encoder``
+  / ``_encoder_kernel``: the ``fused`` and ``fused+head`` backends.
+* :func:`miniconv_encoder_stream` (K4) — K1's tile body in persistent
+  blocks that walk the batch's tiles and fetch each next tile while they
+  compute (same source), the counterpart of ``miniconv_encoder_stream`` /
   ``_miniconv_encoder_pipelined``: ``fused+stream``, and plain ``fused``
   past ``max_safe_batch``.
 
@@ -29,8 +29,9 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core.passplan import SMEM_LIMIT
+from repro_torch.core.passplan import ENCODER_THREADS, SMEM_LIMIT
 from repro_torch.kernels._build import (aligned, check_rc, launcher,
                                         on_one_device)
 from repro_torch.kernels.ref import (miniconv_encoder_ref,
@@ -151,19 +152,53 @@ miniconv_layer_grouped.launches = 0
 # ---------------------------------------------------------------------------
 
 _MAX_LAYERS = 8
-_ENCODER_ARGS = ((_P,) * 5 + (_I,) + (_P,) * 4 + (_I,) * 4
+_ENCODER_ARGS = ((_P,) * 6 + (_I,) + (_P,) * 4 + (_I,) * 3
                  + (ctypes.c_longlong, _I, _I, _P))
+_STREAM_ARGS = ((_P,) * 6 + (_I,) + (_P,) * 4 + (_I,) * 3
+                + (ctypes.c_longlong, _I, _I, _I, _P))
 
 
-def _layer_desc(plan) -> list[int]:
-    """Per layer: kernel, stride, c_in, c_out, in_h, in_w, out_h, out_w,
-    pad_top, pad_left, activation code (``miniconv_encoder.cu``)."""
-    out = []
-    for l in plan.layers:
+def encoder_desc(plan, tp) -> list[int]:
+    """The ints ``miniconv_encoder.cu`` reads: the tile header, then per
+    layer its geometry (kernel, stride, c_in, c_out, in_h, in_w, out_h,
+    out_w, pad_top, pad_left, activation code) and its share of the tile
+    (region, row, reader's stride, origin, register tile, shared-memory
+    offsets)."""
+    out = [tp.tile_h, tp.tile_w, tp.tiles_y, tp.tiles_x, tp.group,
+           tp.in_ext_h, tp.in_ext_w, tp.in_row, *tp.in_org_h, *tp.in_org_w,
+           tp.in_offs[0], tp.in_offs[-1], tp.smem_floats]
+    for l, lt in zip(plan.layers, tp.layers):
         out += [l.kernel, l.stride, l.c_in, l.c_out, l.in_h, l.in_w,
                 l.out_h, l.out_w, l.pad_top, l.pad_left,
-                _ACT_CODES[l.activation]]
+                _ACT_CODES[l.activation], lt.ext_h, lt.ext_w, lt.row,
+                lt.next_stride, *lt.org_h, *lt.org_w, lt.pix, lt.co_block,
+                lt.co_pad, lt.w_off, lt.b_off, lt.out_off]
     return out
+
+
+def head_parts(head_dim: int) -> int:
+    """Runs a tile's features split into for the projection epilogue, so
+    that (run, column lane) pairs fill a block: a lane takes 4 columns
+    when ``head_dim`` allows 16-byte loads, else 1."""
+    lanes = head_dim // 4 if head_dim % 4 == 0 else head_dim
+    return max(1, ENCODER_THREADS // lanes)
+
+
+_DESC_CACHE: dict = {}
+
+
+def _desc_array(plan, batch: int, streamed: bool):
+    """(tile plan, ctypes int array of :func:`encoder_desc`) for a launch,
+    kept per plan object so that a served call does not rebuild them."""
+    key = (id(plan), batch, streamed)
+    hit = _DESC_CACHE.get(key)
+    if hit is None or hit[0] is not plan:
+        tp = plan.tile_plan(batch, streamed=streamed)
+        desc = encoder_desc(plan, tp)
+        if len(_DESC_CACHE) > 256:
+            _DESC_CACHE.clear()
+        hit = _DESC_CACHE[key] = (plan, tp, (ctypes.c_int * len(desc))(*desc))
+    return hit[1], hit[2]
 
 
 def prepare_fused_head(head_w, plan):
@@ -210,59 +245,63 @@ def _check_encoder_args(x, weights, biases, plan, head_w, head_b,
 
 def _launch_encoder(x, weights, biases, plan, head_w, head_b, head_act,
                     dev, chunk_b=None):
-    """Launch K1 (``chunk_b`` None: one block per frame) or K4
-    (``chunk_b`` resident blocks) on CUDA tensors; returns what
-    :func:`miniconv_encoder` returns."""
+    """Launch K1 (``chunk_b`` None: one block per tile item) or K4 (at
+    most ``chunk_b`` frames' items in flight, in persistent blocks) on
+    CUDA tensors; returns what :func:`miniconv_encoder` returns."""
     B = x.shape[0]
     L = len(plan.layers)
+    streamed = chunk_b is not None
+    tp, desc = _desc_array(plan, B, streamed)
     x = _kernel_arg(x, "x")
-    ws = [_kernel_arg(t, "weight") for t in weights]
+    # a layer whose weights are not staged is read from device memory in
+    # the staged layout: (kh, kw, c_in, co_pad), zero past c_out
+    ws = [_kernel_arg(t if lt.w_off >= 0 or lt.co_pad == t.shape[-1]
+                      else F.pad(t, (0, lt.co_pad - t.shape[-1])), "weight")
+          for t, lt in zip(weights, tp.layers)]
     bs = [_kernel_arg(t, "bias") for t in biases]
     feats = torch.empty((B,) + plan.feature_shape, dtype=torch.float32,
                         device=dev)
-    z = hw = hb = None
+    z = hw = hb = partial = done = None
     d_out = 0
     if head_w is not None:
         hw = _kernel_arg(head_w, "head_w")
         hb = None if head_b is None else _kernel_arg(head_b, "head_b")
         d_out = hw.shape[1]
         z = torch.empty((B, d_out), dtype=torch.float32, device=dev)
-    buf0, buf1 = plan.staging_floats
-    slots = B if chunk_b is None else min(chunk_b, B)
-    if plan.staging == "shared":
-        workspace, ws_frame, smem = None, 0, plan.smem_bytes
-    else:
-        ws_frame, smem = buf0 + buf1, 0
-        workspace = torch.empty((slots * ws_frame,), dtype=torch.float32,
-                                device=dev)
+        partial = torch.empty((B * tp.n_tiles * head_parts(d_out) * d_out,),
+                              dtype=torch.float32, device=dev)
+    if head_w is not None or streamed:
+        # per-frame tile counts, then K4's item counter
+        done = torch.zeros((B + streamed,), dtype=torch.int32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    desc = _layer_desc(plan)
-    args = [x.data_ptr(), feats.data_ptr(), ptr(z), ptr(workspace),
-            (ctypes.c_int * len(desc))(*desc), L,
+    args = [x.data_ptr(), feats.data_ptr(), ptr(z), ptr(partial), ptr(done),
+            desc, L,
             (ctypes.c_void_p * L)(*[t.data_ptr() for t in ws]),
             (ctypes.c_void_p * L)(*[t.data_ptr() for t in bs]),
-            ptr(hw), ptr(hb), d_out, _ACT_CODES[head_act], B]
-    if chunk_b is None:
-        fn = launcher("miniconv_encoder", "miniconv_encoder_launch",
-                      _ENCODER_ARGS)
-    else:
+            ptr(hw), ptr(hb), d_out, _ACT_CODES[head_act],
+            head_parts(max(d_out, 1)), B]
+    if streamed:
         fn = launcher("miniconv_encoder", "miniconv_encoder_stream_launch",
                       _STREAM_ARGS)
-        args.append(chunk_b)
-    rc = fn(*args, buf0, ws_frame, smem, dev.index or 0,
+        args.append(tp.stream_blocks(B, chunk_b))
+    else:
+        fn = launcher("miniconv_encoder", "miniconv_encoder_launch",
+                      _ENCODER_ARGS)
+    rc = fn(*args, tp.smem_bytes, dev.index or 0,
             torch.cuda.current_stream(dev).cuda_stream)
-    check_rc(rc, "miniconv_encoder" if chunk_b is None
-              else "miniconv_encoder_stream")
+    check_rc(rc, "miniconv_encoder_stream" if streamed
+              else "miniconv_encoder")
     return feats if z is None else (feats, z)
 
 
 def miniconv_encoder(x, weights, biases, plan, *, tile_h: int = 8,
                      head_w=None, head_b=None, head_act: str = "relu"):
     """Execute a whole :class:`~repro_torch.core.passplan.PassPlan` as ONE
-    kernel launch (one thread block per frame).
+    kernel launch (one thread block per halo tile of
+    ``plan.tile_plan(B)``).
 
     x: (B, H, W, C_in) with (H, W) == (plan.in_h, plan.in_w);
     weights/biases: per-layer lists, HWIO kernels and (C_out,) biases.
@@ -290,23 +329,22 @@ miniconv_encoder.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K4: the encoder streamed through chunk_b resident blocks
+# K4: the encoder streamed through persistent blocks
 # ---------------------------------------------------------------------------
-
-_STREAM_ARGS = ((_P,) * 5 + (_I,) + (_P,) * 4 + (_I,) * 5
-                + (ctypes.c_longlong, _I, _I, _P))
-
 
 def miniconv_encoder_stream(x, weights, biases, plan, *, chunk_b: int,
                             tile_h: int = 8, head_w=None, head_b=None,
                             head_act: str = "relu"):
     """The fused encoder over a batch larger than one chunk, in ONE launch
-    of ``chunk_b`` persistent blocks (K4).
+    of persistent blocks (K4).
 
-    Block k encodes frames k, k + chunk_b, ... through its own staging
-    slot, so a global workspace holds ``chunk_b`` frames rather than the
-    batch (``chunk_b`` should come from ``PassPlan.max_safe_batch``, the
-    frames whose workspace fits the L2).  Each frame runs K1's code, so the
+    The batch's tile items (``plan.tile_plan(B, streamed=True)``, each a
+    tile of ``group`` frames) are walked frame group by frame group by at
+    most ``ceil(chunk_b / group) * tiles`` resident blocks, so about
+    ``chunk_b`` frames are in flight (``chunk_b`` should come from
+    ``PassPlan.max_safe_batch``, the frames that fill one wave of resident
+    blocks); each block fetches its next item's input while it computes
+    the current one.  Each item runs K1's code at K1's tile size, so the
     result equals :func:`miniconv_encoder` bit for bit at every batch.  A
     batch within one chunk falls through to K1.  Arguments and return
     value are :func:`miniconv_encoder`'s.
@@ -332,5 +370,6 @@ def miniconv_encoder_stream(x, weights, biases, plan, *, chunk_b: int,
 miniconv_encoder_stream.launches = 0
 
 
-__all__ = ["miniconv_encoder", "miniconv_encoder_stream",
-           "miniconv_layer_grouped", "miniconv_pass", "prepare_fused_head"]
+__all__ = ["encoder_desc", "head_parts", "miniconv_encoder",
+           "miniconv_encoder_stream", "miniconv_layer_grouped",
+           "miniconv_pass", "prepare_fused_head"]

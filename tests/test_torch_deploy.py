@@ -132,15 +132,20 @@ def test_build_reports_the_shared_memory_plan():
                                     device="cpu")
     assert dep.wire_bytes == 492 and dep.wire_bytes_batch() == 8 * 492
     assert dep.max_safe_batch >= dep.config.max_batch == 8
+    tp = dep.plan.tile_plan(8)
     assert dep.build_log == (
-        "staging: shared — 141120 B of layer intermediates per frame in the "
-        "block's shared memory",)
+        f"staging: halo tiles of {tp.tile_h}x{tp.tile_w} outputs, "
+        f"{tp.n_tiles} a frame at max_batch=8; every layer's region in the "
+        f"block's shared memory ({tp.smem_bytes} B a block, "
+        f"{dep.plan.tile_plan(8, streamed=True).smem_bytes} B streamed); no "
+        f"intermediate reaches device memory",)
     big = t_deploy.Deployment.build(
         t_deploy.DeploymentConfig.standard(c_in=4, h=400, max_batch=64),
         device="cpu")
-    assert big.plan.staging == "global"
-    assert any("global workspace" in line for line in big.build_log)
-    assert any("exceed the L2" in line for line in big.build_log)
+    assert big.stream_chunk == big.max_safe_batch < 64
+    assert any("halo tiles" in line for line in big.build_log)
+    assert any("one wave of resident blocks" in line
+               for line in big.build_log)
 
 
 def test_cli_writes_and_verifies_a_manifest(tmp_path, capsys):

@@ -64,17 +64,27 @@ ODD = MiniConvSpec((LayerSpec(4, 2, 12, 16, "relu"),
                     LayerSpec(3, 2, 16, 6, "linear")))
 
 
-@pytest.mark.parametrize("spec,B,H,W,D,staging", [
-    (standard_spec(c_in=12, k=4), 8, 84, 84, None, "shared"),
-    (standard_spec(c_in=12, k=4), 8, 84, 84, 512, "shared"),
-    (standard_spec(c_in=4, k=4), 2, 128, 128, 512, "global"),
-    (ODD, 3, 85, 83, 200, "shared"),
-    (MiniConvSpec((LayerSpec(3, 1, 8, 6, "sigmoid"),)), 2, 17, 23, 40,
-     "shared"),
-], ids=["std", "std+head", "global+head", "odd+head", "one-layer+head"])
-def test_encoder_kernel_matches_plain(cuda, spec, B, H, W, D, staging):
+@pytest.mark.parametrize("spec,B,H,W,D,min_tiles", [
+    (standard_spec(c_in=12, k=4), 8, 84, 84, None, 9),
+    (standard_spec(c_in=12, k=4), 8, 84, 84, 512, 9),
+    (standard_spec(c_in=4, k=4), 2, 128, 128, 512, 16),
+    (ODD, 3, 85, 83, 200, 9),
+    (MiniConvSpec((LayerSpec(3, 1, 8, 6, "sigmoid"),)), 2, 17, 23, 40, 2),
+    (standard_spec(c_in=12, k=4), 1, 84, 84, None, 36),
+    (standard_spec(c_in=12, k=4), 1, 84, 84, 512, 36),
+    (MiniConvSpec((LayerSpec(4, 2, 12, 320, "relu"),)), 2, 16, 16, 24, 1),
+], ids=["std", "std+head", "global+head", "odd+head", "one-layer+head",
+        "served", "served+head", "wide+head"])
+def test_encoder_kernel_matches_plain(cuda, spec, B, H, W, D, min_tiles):
+    """K1 at each shape, cut into at least ``min_tiles`` tiles a frame
+    (one frame at 84x84 spreads over many SMs); the batched 84x84 and odd
+    cases take tiles that do not divide their 11x11 output; the wide layer's
+    weights (245,760 B) miss shared memory and are read in place."""
     plan, x, ws, bs, hw, hb = _case(spec, B, H, W, D, cuda)
-    assert plan.staging == staging
+    tp = plan.tile_plan(B)
+    assert tp.n_tiles >= min_tiles
+    if H in (84, 85) and B > 1:
+        assert plan.out_h % tp.tile_h != 0
     before = kmod.miniconv_encoder.launches
     got = kmod.miniconv_encoder(x, ws, bs, plan, head_w=hw, head_b=hb)
     want = miniconv_encoder_ref(x, ws, bs, plan, head_w=hw, head_b=hb)
@@ -161,7 +171,8 @@ def test_grouped_tier_equals_reference_tier_bitwise(cuda):
     (standard_spec(c_in=12, k=4), 13, 84, 84, 512, 4),
     (standard_spec(c_in=4, k=4), 5, 128, 128, 512, 2),
     (ODD, 7, 85, 83, 200, 3),
-], ids=["shared", "shared+head", "global+head", "odd+head"])
+    (standard_spec(c_in=4, k=4), 33, 400, 400, 512, 2),
+], ids=["shared", "shared+head", "global+head", "odd+head", "400x400+head"])
 def test_stream_kernel_equals_fused_kernel(cuda, spec, B, H, W, D, chunk):
     """K4 runs K1's frame body, so it equals K1 bit for bit at every batch,
     a ragged last round included, in one launch."""

@@ -121,24 +121,34 @@ def test_backend_registry_resolves_like_reference():
 
 
 def test_shared_memory_residency_model():
-    """The port's residency model: one frame's layer intermediates in the
-    block's shared memory when they fit, else a global workspace."""
+    """The port's residency model: a launch is cut into halo tiles, every
+    layer's region of a tile in its block's shared memory, and
+    max_safe_batch is the frames that fill one wave of the streamed
+    kernel's resident blocks."""
     p84 = t_miniconv.standard_spec(c_in=12, k=4).plan(84)
-    # two ping-pong buffers: 42x42x16 (layer 0) and 21x21x16 (layer 1)
-    assert p84.staging_floats == (42 * 42 * 16, 21 * 21 * 16)
-    assert p84.smem_bytes == 4 * (42 * 42 * 16 + 21 * 21 * 16)
-    assert p84.staging == "shared" and p84.workspace_bytes(8) == 0
+    k4 = p84.tile_plan(8, streamed=True)
+    k1 = p84.tile_plan(8)
+    # K1 and K4 cut alike; K4 holds a second input buffer
+    assert (k1.tile_h, k1.tile_w) == (k4.tile_h, k4.tile_w)
+    assert len(k1.in_offs) == 1 and len(k4.in_offs) == 2
+    slot = k4.tile_h * k4.tile_w * 4
+    assert k4.smem_bytes - k1.smem_bytes == 4 * (
+        k4.in_ext_h * k4.in_row * 12 + (k4.group - 1) * slot)
+    assert k4.smem_bytes + t_passplan.SMEM_STATIC <= t_passplan.SMEM_LIMIT
     assert p84.max_safe_batch() >= 8          # max_batch=8 is never refused
     p400 = t_miniconv.standard_spec(c_in=4, k=4).plan(400)
-    assert p400.staging == "global"
-    assert p400.workspace_bytes(2) == 2 * p400.smem_bytes
+    wave = p400.tile_plan(None, streamed=True)
     assert p400.max_safe_batch() == \
-        t_passplan.WORKSPACE_LIMIT // p400.smem_bytes
+        wave.group * -(-wave.resident_blocks // wave.n_tiles)
+    assert 1 <= p400.max_safe_batch() < 64    # config B streams
     one = t_miniconv.MiniConvSpec(
         (t_miniconv.LayerSpec(3, 1, 4, 6),)).plan(17, 23)
-    assert one.staging_floats == (0, 0) and one.staging == "shared"
+    assert len(one.tile_plan(1).layers) == 1
     odd = t_miniconv.MiniConvSpec((t_miniconv.LayerSpec(3, 2, 4, 6),
                                    t_miniconv.LayerSpec(3, 2, 6, 16),
                                    t_miniconv.LayerSpec(3, 1, 16, 5)))
-    # buffers start 16-byte aligned: sizes rounded up to 4 floats
-    assert all(f % 4 == 0 for f in odd.plan(33, 19).staging_floats)
+    # buffers start 16-byte aligned: offsets are multiples of 4 floats
+    tp = odd.plan(33, 19).tile_plan(3, streamed=True)
+    offs = [*tp.in_offs] + [o for lt in tp.layers
+                            for o in (lt.w_off, lt.b_off, lt.out_off)]
+    assert all(o % 4 == 0 for o in offs)
