@@ -7,9 +7,10 @@ Run from the root of a checkout, with no arguments::
 
 It builds the port's CUDA kernels from the sources in the checkout (K1
 the fused encoder, K2 the per-pass kernel, K3 the grouped layer, K4 the
-streamed encoder, K5 flash attention), holds each against its plain
-PyTorch version on the card at the shapes the served paths give it (and
-the tiers against each other), times each, then drives the port's entry
+streamed encoder, K5 flash attention, whose bf16 route must show HGMMA
+instructions in its SASS), holds each against its plain PyTorch version
+on the card at the shapes the served paths give it (and the tiers
+against each other), times each, then drives the port's entry
 points: it serves split-policy decisions from a deployment manifest
 (``fused``, ``fused+head``, ``reference`` and ``grouped`` backends), tunes
 the manifest on the card with ``python -m repro_torch.deploy --tune`` and
@@ -83,40 +84,26 @@ def bound(n_bytes, flops, peak_flop_s=PEAK_FP32_FLOP_S):
 
 
 def profile_decision(fn):
-    """Trace one call of ``fn`` with torch.profiler and print the device's
-    busy time (the sum of its kernels' device time), the kernels launched,
-    the busy share of the traced call's wall time (the profiler's own host
-    cost included), K5's device time a launch and the top kernels."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    if not kern:
+    """Trace one call of ``fn`` (``lm_split.trace_decision``) and print the
+    device's busy time, the kernels launched, the busy share of the traced
+    call's wall time, K5's device time a launch and the top kernels.
+    Returns (kernels launched, K5 device us a launch), or None when the
+    profiler sees no device time."""
+    from repro_torch.benchmarks.lm_split import trace_decision
+    t = trace_decision(fn)
+    busy_ms, wall_ms, n = t["busy_ms"], t["traced_wall_ms"], t["kernels"]
+    if not n:
         print(f"profile: the profiler saw no device time; busy share not "
               f"measured (traced wall {wall_ms:.4f} ms)")
-        return
-    n = sum(e.count for e in kern)
-    k5 = [e for e in kern if "flash_kernel" in e.key]
-    k5_us = (sum(e.self_device_time_total for e in k5)
-             / max(sum(e.count for e in k5), 1))
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:4]
+        return None
+    k5_us = t["k5_device_us"] or 0.0
     print(f"profile of one split decision (edge + server): {n} kernels, "
           f"device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms traced wall "
           f"({100 * busy_ms / wall_ms:.2f}%); K5 {k5_us:.2f} us of device "
-          f"time a launch over {sum(e.count for e in k5)} launches; top: "
-          + "; ".join(f"{e.key[:60]} x{e.count} "
-                      f"{e.self_device_time_total / 1e3:.4f} ms"
-                      for e in top))
+          f"time a launch over {t['k5_launches']} launches; top: "
+          + "; ".join(f"{key[:60]} x{count} {ms:.4f} ms"
+                      for key, count, ms in t["top"]))
+    return n, k5_us
 
 
 def kernel_device_us(fn, name, calls=20):
@@ -140,6 +127,22 @@ def kernel_device_us(fn, name, calls=20):
         return None
     return (sum(e.self_device_time_total for e in hits)
             / sum(e.count for e in hits))
+
+
+def host_us(fn, calls=2000):
+    """Host time of one call of ``fn`` in microseconds: ``calls`` calls
+    without a synchronize between them, so where the device keeps up it is
+    what the caller's thread spends a call."""
+    import torch
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
 
 
 def attention_pairs(S, window):
@@ -197,8 +200,18 @@ def main() -> int:
           f"{sorted(built) or 'nothing (cached)'}")
     for name, info in built.items():
         for line in info["log"].splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
+            if any(w in line.lower() for w in ("registers", "smem", "spill",
+                                                "wgmma", "warning")):
                 print(f"  ptxas {name}: {line.strip()}")
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(_build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    check(hgmma > 0, "K5's SASS holds no HGMMA: the bf16 route is not on "
+          "the tensor cores")
+    print(f"K5 SASS: {hgmma} HGMMA instructions (cuobjdump -sass)")
 
     wrappers = (miniconv_encoder, miniconv_pass, miniconv_layer_grouped,
                 miniconv_encoder_stream, flash_attention)
@@ -206,6 +219,7 @@ def main() -> int:
     def reset_counts():
         for f in wrappers:
             f.launches = 0
+        flash_attention.tc_launches = flash_attention.copies = 0
 
     def counts():
         """Launches per kernel since the last reset, K1..K5 in order."""
@@ -571,6 +585,14 @@ def main() -> int:
     check(r_err <= ACT_TOL, f"reference vs fused action differ by {r_err}")
     print(f"serve reference: 1 request, K2 launches {ref_launches}; action "
           f"vs fused max_abs_err {r_err:.3g} (tol {ACT_TOL})")
+    k2_us = kernel_device_us(
+        lambda: server_r.serve([client_r.encode_fn(obs[0:1])]),
+        "pass_kernel", calls=10)
+    print("serve reference traced: K2 "
+          + ("not measured" if k2_us is None else f"{k2_us:.2f} us")
+          + " of device time a launch (mean of a request's 9 passes), "
+          f"against {1e3 * k2_rows[1]['ms'] / 9:.2f} us a launch by CUDA "
+          "events in phase 2")
 
     # ---- 5. the grouped path -----------------------------------------------
     dep_g = Deployment.build(dataclasses.replace(cfg, backend="grouped"))
@@ -586,6 +608,14 @@ def main() -> int:
     check(g_err <= ACT_TOL, f"grouped vs xla actions differ by {g_err}")
     print(f"serve grouped: 8 requests, K3 launches {grouped_launches}; "
           f"actions vs xla build max_abs_err {g_err:.3g} (tol {ACT_TOL})")
+    k3_us = kernel_device_us(
+        lambda: server_g.serve([client_g.encode_fn(obs[0:1])]),
+        "layer_grouped_kernel", calls=10)
+    print("serve grouped traced: K3 "
+          + ("not measured" if k3_us is None else f"{k3_us:.2f} us")
+          + " of device time a launch (mean of a request's 3 layers), "
+          f"against {1e3 * k3_rows['served edge']['ms'] / 3:.2f} us a "
+          "launch by CUDA events in phase 2")
 
     # ---- 6. tune the served manifest on the card, serve the tuned build --
     manifest = ROOT / "build" / "tuned_manifest.json"
@@ -686,22 +716,42 @@ def main() -> int:
     del xB, fB, z_b, z_k1, rfB, rzB
 
     # ---- 8. K5 against its plain version -----------------------------------
-    k5_cases = [  # (label, B, H, S, D, dtype, window, timing iters)
-        ("served", 1, 16, 128, 128, torch.bfloat16, None, 50),
-        ("served f32", 1, 16, 128, 128, torch.float32, None, 50),
-        ("prefill", 1, 16, 4096, 128, torch.bfloat16, None, 10),
-        ("window", 1, 16, 2048, 128, torch.float32, 512, 10),
-        ("ragged", 2, 4, 100, 64, torch.float32, None, 50),
+    # (label, B, H, H_kv, S, D, dtype, window, timing iters, as the decoder
+    # calls it: transposed (B, S, heads, D) views)
+    k5_cases = [
+        ("served", 1, 16, 16, 128, 128, torch.bfloat16, None, 50, False),
+        ("served f32", 1, 16, 16, 128, 128, torch.float32, None, 50, False),
+        ("prefill", 1, 16, 16, 4096, 128, torch.bfloat16, None, 10, False),
+        ("window", 1, 16, 16, 2048, 128, torch.float32, 512, 10, False),
+        ("ragged", 2, 4, 4, 100, 64, torch.float32, None, 50, False),
+        ("served GQA", 1, 16, 8, 128, 128, torch.bfloat16, None, 50, True),
+        ("prefill GQA", 1, 16, 8, 4096, 128, torch.bfloat16, None, 10,
+         True),
     ]
     k5_rows = {}
-    for idx, (label, B, H, S, D, dt, win, iters) in enumerate(k5_cases):
-        q, k, v = (randn((B, H, S, D), 500 + 3 * idx + i).to(dt)
-                   for i in range(3))
+    for idx, (label, B, H, H_kv, S, D, dt, win, iters,
+              views) in enumerate(k5_cases):
+        heads = (H, H_kv, H_kv)
+        if views:
+            q, k, v = (randn((B, S, n, D), 500 + 3 * idx + i).to(dt)
+                       .transpose(1, 2) for i, n in enumerate(heads))
+        else:
+            q, k, v = (randn((B, n, S, D), 500 + 3 * idx + i).to(dt)
+                       for i, n in enumerate(heads))
+        n_rep = H // H_kv
+        kr, vr = k.repeat_interleave(n_rep, 1), v.repeat_interleave(n_rep, 1)
+        tc0, copies0 = flash_attention.tc_launches, flash_attention.copies
         got = flash_attention(q, k, v, causal=True, sliding_window=win)
-        want = attention_ref(q.float(), k.float(), v.float(), causal=True,
+        want = attention_ref(q.float(), kr.float(), vr.float(), causal=True,
                              sliding_window=win)
         again = flash_attention(q, k, v, causal=True, sliding_window=win)
         torch.cuda.synchronize()
+        tc = dt == torch.bfloat16
+        check(flash_attention.tc_launches - tc0 == 2 * tc
+              and flash_attention.copies == copies0,
+              f"K5 {label}: {flash_attention.tc_launches - tc0} tensor-core "
+              f"launches of 2 (expected {2 * tc}), "
+              f"{flash_attention.copies - copies0} copies (expected 0)")
         name = str(dt).removeprefix("torch.")
         tol = ATTN_TOL[name]
         check(got.dtype == dt and got.shape == q.shape
@@ -715,9 +765,9 @@ def main() -> int:
         ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True,
                                              sliding_window=win),
                      iters=iters)
-        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True,
-                                                 sliding_window=win),
-                           iters=iters)
+        plain_ms = cuda_ms(lambda: attention_ref(
+            q, k.repeat_interleave(n_rep, 1), v.repeat_interleave(n_rep, 1),
+            causal=True, sliding_window=win), iters=iters)
         if win is None:
             lib_mask = None
         else:
@@ -725,23 +775,43 @@ def main() -> int:
             lib_mask = ((pos[None, :] <= pos[:, None])
                         & (pos[None, :] > pos[:, None] - win))
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=lib_mask, is_causal=lib_mask is None),
-            iters=iters)
+            q, k, v, attn_mask=lib_mask, is_causal=lib_mask is None,
+            enable_gqa=n_rep > 1), iters=iters)
+        dev_us = kernel_device_us(lambda: flash_attention(
+            q, k, v, causal=True, sliding_window=win), "flash_kernel",
+            calls=iters)
         flops = 4 * D * attention_pairs(S, win) * B * H
         b_ms, b_by = bound(nbytes(q, k, v, got), flops,
                            PEAK_BF16_FLOP_S if dt == torch.bfloat16
                            else PEAK_FP32_FLOP_S)
-        print(f"K5 flash_attention {label} ({B},{H},{S},{D}) {name} window "
-              f"{win}: max_abs_err {err:.3g} (tol {tol}, vs plain in f32), "
-              f"repeats bit for bit; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms "
-              f"(scaled_dot_product_attention), bound {b_ms:.5f} ms "
-              f"({b_by}, {flops / 1e9:.4g} GFLOP)")
-        k5_rows[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=b_ms, bound_by=b_by,
-                              library_ms=lib_ms, shape=[B, H, S, D],
-                              dtype=name, window=win)
-        del q, k, v, got, want, again
+        t_ms = ms if dev_us is None else dev_us / 1e3
+        print(f"K5 flash_attention {label} ({B},{H}/{H_kv} heads,{S},{D}) "
+              f"{name} window {win}"
+              + (" as (B,S,H,D) views" if views else "")
+              + f", {'tensor' if tc else 'CUDA'}-core route: max_abs_err "
+              f"{err:.3g} (tol {tol}, vs plain in f32), repeats bit for bit; "
+              f"kernel {ms:.4f} ms (device "
+              + ("not measured" if dev_us is None else f"{dev_us:.2f} us")
+              + f" a launch, traced), plain {plain_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms (scaled_dot_product_attention), bound "
+              f"{b_ms:.5f} ms ({b_by}, {flops / 1e9:.4g} GFLOP); "
+              f"{flops / t_ms / 1e9:.1f} TFLOP/s, "
+              f"{100 * b_ms / t_ms:.2f}% of the bound")
+        if label == "served GQA":   # host-bound: the wrapper's host time
+            k5_host = host_us(lambda: flash_attention(
+                q, k, v, causal=True, sliding_window=win))
+            lib_host = host_us(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+            print(f"K5 {label}: {k5_host:.2f} us of host time a call, "
+                  f"scaled_dot_product_attention {lib_host:.2f} us")
+        k5_rows[label] = dict(max_abs_err=err, ms=ms, device_us=dev_us,
+                              plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=lib_ms,
+                              tflops=flops / t_ms / 1e9,
+                              bound_share=b_ms / t_ms, shape=[B, H, S, D],
+                              kv_heads=H_kv, dtype=name, window=win,
+                              views=views, tensor_cores=tc)
+        del q, k, v, kr, vr, got, want, again
 
     # ---- 9. the LM split path at Qwen3-0.6B's full width -------------------
     from repro_torch.configs import get_config
@@ -767,9 +837,13 @@ def main() -> int:
     logits = server_fn(payload)
     torch.cuda.synchronize()
     lm_launches = flash_attention.launches
+    lm_tc, lm_copies = flash_attention.tc_launches, flash_attention.copies
     check(counts() == (0, 0, 0, 0, 28), f"one split decision launched "
           f"K1..K5 {counts()} times; expected (0, 0, 0, 0, 28): 1 edge "
           f"layer + 27 server layers")
+    check(lm_tc == 28 and lm_copies == 0, f"the decision's K5 launches: "
+          f"{lm_tc} of 28 on the tensor cores, {lm_copies} input copies "
+          f"(expected 28 and 0)")
     check(logits.shape == (1, 128, 151936) and logits.dtype == torch.bfloat16
           and torch.isfinite(logits.float()).all(),
           f"bad logits {logits.dtype} {tuple(logits.shape)}")
@@ -790,7 +864,8 @@ def main() -> int:
     print(f"LM split qwen3-0.6b full width (28 layers, d 1024, 16/8 heads, "
           f"head_dim 128, vocab 151936, bf16), 1x128 tokens, uint8 codec: "
           f"built in {build_s:.2f} s; one decision (edge + server) launched "
-          f"K5 {lm_launches} times, the monolith 28; logits "
+          f"K5 {lm_launches} times ({lm_tc} on the tensor cores, "
+          f"{lm_copies} input copies), the monolith 28; logits "
           f"{tuple(logits.shape)} {logits.dtype} finite; top-1 agreement "
           f"with the monolith {top1:.4f}")
     print(f"qwen3-0.6b split@1 codec=uint8: edge {edge_s * 1e3:.4f}ms "
@@ -800,7 +875,11 @@ def main() -> int:
     for line in serve_cli.latency_table(edge_s, split_s, mono_s, wire_lm,
                                         raw_lm, [10.0, 25.0, 50.0, 100.0]):
         print(line)
-    profile_decision(lambda: server_fn(edge_fn(tokens)))
+    traced = profile_decision(lambda: server_fn(edge_fn(tokens)))
+    if traced is not None:
+        print(f"profiled kernels of one decision: {traced[0]} (2,632 and "
+              f"2,633 in two traces of it when the decoder still repeated "
+              f"and copied K5's inputs)")
     del edge_fn, server_fn, mono_fn, payload, logits, mono
 
     (_, edge32, server32, mono32, *_) = serve_cli.build_split(
@@ -855,8 +934,8 @@ def main() -> int:
 
     # ---- 12. results -------------------------------------------------------
     k1 = k1_rows["served edge"]
-    k2 = k2_rows[1]
-    k3 = k3_rows["served edge"]
+    k2 = dict(k2_rows[1], device_us=k2_us)
+    k3 = dict(k3_rows["served edge"], device_us=k3_us)
     k4 = dict(max_abs_err=errB, ms=k4_ms, plain_ms=plainB_ms,
               bound_ms=bB_ms, bound_by=bB_by, library_ms=libB_ms,
               shape=[64, 400, 400, 4], head=hwB.shape[1], chunk_b=chunkB,
@@ -884,10 +963,16 @@ def main() -> int:
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:26",
-             launches=lm_launches, **k5_rows["served"],
-             prefill_ms=k5_rows["prefill"]["ms"],
-             prefill_library_ms=k5_rows["prefill"]["library_ms"],
-             prefill_bound_ms=k5_rows["prefill"]["bound_ms"]),
+             launches=lm_launches, tc_launches=lm_tc, copies=lm_copies,
+             hgmma=hgmma, host_us=k5_host, library_host_us=lib_host,
+             **k5_rows["served GQA"],
+             decision_device_us=None if traced is None else traced[1],
+             **{f"{pre}_{key}": k5_rows[label][key]
+                for pre, label in (("prefill", "prefill GQA"),
+                                   ("served_mha", "served"),
+                                   ("prefill_mha", "prefill"))
+                for key in ("ms", "device_us", "library_ms", "bound_ms",
+                            "tflops")}),
     ]
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was launched no time on its path")

@@ -3,12 +3,16 @@
 ``flash_attention`` / ``_flash_kernel``.
 
 Given CPU tensors it computes with the kernel's plain PyTorch version
-(``kernels.ref.attention_ref``).  Given CUDA tensors it launches the kernel
-or raises; nothing falls back.  ``flash_attention.launches`` counts the
-launches, a plain integer a run may reset and read.
+(``kernels.ref.attention_ref``, on K/V heads repeated to H).  Given CUDA
+tensors it launches the kernel or raises; nothing falls back.  Three
+plain integers count what a run did, for a run to reset and read:
+``flash_attention.launches`` (every launch), ``flash_attention.tc_launches``
+(launches on the tensor-core route) and ``flash_attention.copies`` (inputs
+the kernel could not address in place and the wrapper copied).
 """
 from __future__ import annotations
 
+import array
 import ctypes
 from typing import Optional
 
@@ -19,27 +23,73 @@ from repro_torch.kernels._build import (aligned, check_rc, launcher,
 from repro_torch.kernels.ref import attention_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_ARGS = (_P,) * 4 + (_I,) * 6 + (ctypes.c_float,) + (_I, _I, _P)
+# flash_attention_launch(const long long* args, float scale): the args
+# packed in the order of the source's `enum Arg`
+_ARGS = (ctypes.c_void_p, ctypes.c_float)
+TC_MAX_D = 128   # the tensor-core route's widest head dim
+
+
+def tensor_core_route(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether K5 runs on the tensor cores (wgmma) for this dtype and
+    head dim: bf16 at D <= 128.  Everything else (f32 at any D, bf16 at
+    128 < D <= 256) runs on the CUDA cores.  The kernel's C entry applies
+    the same rule itself; this copy counts ``tc_launches``."""
+    return dtype == torch.bfloat16 and head_dim <= TC_MAX_D
+
+
+def _addressable(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernel can read it in place: a unit-stride
+    last dim, and a base and every stride of a dim longer than 1 a
+    positive multiple of 16 bytes.  Else an aligned contiguous copy,
+    counted in ``flash_attention.copies``."""
+    (n0, n1, n2, _), (s0, s1, s2, s3) = t.shape, t.stride()
+    unit = 16 // t.element_size()
+    if (s3 == 1 and t.data_ptr() % 16 == 0
+            and (n0 == 1 or (s0 > 0 and s0 % unit == 0))
+            and (n1 == 1 or (s1 > 0 and s1 % unit == 0))
+            and (n2 == 1 or (s2 > 0 and s2 % unit == 0))):
+        return t
+    flash_attention.copies += 1
+    return aligned(t)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     sliding_window: Optional[int] = None,
                     block_q: int = 128, block_k: int = 128):
-    """q, k, v: (B, H, S, D) -> (B, H, S, D) in q's dtype.  GQA is the
-    caller's: repeat the K/V heads before the call.
+    """q (B, H, S, D), k and v (B, H_kv, S, D) -> (B, H, S, D) in q's dtype.
+
+    Query head h attends with KV head h // (H // H_kv) (grouped-query
+    attention; H_kv = H is plain multi-head).  Any (B, H, S, D) view
+    works, such as the transpose of a (B, S, H, D) projection: the kernel
+    reads strides, and an input is copied only where it cannot be read in
+    place (see ``_addressable``).  On CUDA the output is a (B, S, H, D)
+    tensor returned as its (B, H, S, D) view, so transposing it back is
+    free.
 
     f32 or bf16, all three of one dtype; D a multiple of 8 up to 256; any
-    S.  ``block_q``/``block_k`` keep the reference's contract (S must be a
-    multiple of ``min(block, S)``) and do not change the result: the
-    kernel tiles by 64 and masks a ragged last tile itself.
+    S.  The route depends on the dtype and D alone
+    (``tensor_core_route``): bf16 at D <= 128 runs on the tensor cores
+    (wgmma, TMA loads; D padded to 64 or 128 with zeros), the rest on the
+    CUDA cores.  ``block_q``/``block_k`` keep the reference's contract (S
+    must be a multiple of ``min(block, S)``) and do not change the result:
+    the kernel picks its own tiles and masks a ragged last tile itself.
+
+    The checks read each tensor attribute once: at the served shape the
+    call's host time is the kernel's cost.
     """
-    if q.ndim != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"q, k, v must share one (B, H, S, D) shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+    qs, ks = q.shape, k.shape
+    if len(qs) != 4 or len(ks) != 4 or ks != v.shape:
+        raise ValueError(f"q must be (B, H, S, D) and k, v one (B, H_kv, "
+                         f"S, D) shape, got {tuple(qs)}, {tuple(ks)}, "
                          f"{tuple(v.shape)}")
-    B, H, S, D = q.shape
+    B, H, S, D = qs
+    H_kv = ks[1]
+    if ks[0] != B or ks[2] != S or ks[3] != D:
+        raise ValueError(f"k, v {tuple(ks)} must share q's batch, "
+                         f"sequence and head dim {(B, S, D)}")
+    if H_kv < 1 or H % H_kv:
+        raise ValueError(f"{H} query heads are not a multiple of {H_kv} KV "
+                         f"heads")
     bq, bk = min(block_q, S), min(block_k, S)
     if bq < 1 or bk < 1 or S % bq or S % bk:
         raise ValueError(f"S={S} is not tiled by block_q={block_q} / "
@@ -48,27 +98,43 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"head dim {D} must be a multiple of 8 up to 256")
     if sliding_window is not None and sliding_window < 1:
         raise ValueError(f"sliding_window must be >= 1, got {sliding_window}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    dt = q.dtype
+    code = _DTYPE_CODES.get(dt)
+    if code is None or k.dtype != dt or v.dtype != dt:
         raise TypeError(f"q, k, v must all be float32 or all bfloat16, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
-    dev = on_one_device(q, k, v)
+                        f"{dt}, {k.dtype}, {v.dtype}")
+    dev = q.device
+    if k.device != dev or v.device != dev:
+        dev = on_one_device(q, k, v)         # raises, naming the devices
     if dev.type == "cpu":
-        return attention_ref(q, k, v, causal=causal,
-                             sliding_window=sliding_window)
+        n_rep = H // H_kv
+        return attention_ref(q, k.repeat_interleave(n_rep, dim=1),
+                             v.repeat_interleave(n_rep, dim=1),
+                             causal=causal, sliding_window=sliding_window)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
 
-    q, k, v = aligned(q), aligned(k), aligned(v)
-    o = torch.empty_like(q)
+    q, k, v = _addressable(q), _addressable(k), _addressable(v)
+    # (B, S, H, D) storage seen as (B, H, S, D)
+    o = torch.empty_strided((B, H, S, D), (S * H * D, D, H * D, 1),
+                            dtype=dt, device=dev)
     fn = launcher("flash_attention", "flash_attention_launch", _ARGS)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, S,
-            D, int(causal), -1 if sliding_window is None else sliding_window,
-            D ** -0.5, _DTYPE_CODES[q.dtype], dev.index or 0,
-            torch.cuda.current_stream(dev).cuda_stream)
+    args = array.array("q", (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        B, H, H_kv, S, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        S * H * D, D, H * D, causal,
+        -1 if sliding_window is None else sliding_window, code,
+        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream))
+    rc = fn(args.buffer_info()[0], D ** -0.5)
     check_rc(rc, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.tc_launches += tensor_core_route(dt, D)
     return o
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0
+flash_attention.copies = 0
 
 
-__all__ = ["flash_attention"]
+__all__ = ["TC_MAX_D", "flash_attention", "tensor_core_route"]

@@ -64,7 +64,9 @@ def miniconv_layer(x, kernel, bias, *, stride: int = 1,
 def causal_attention(q, k, v, *, sliding_window: Optional[int] = None,
                      block_q: int = 128, block_k: int = 128):
     """(B, H, S, D) causal flash attention: K5 on CUDA tensors, its plain
-    version on CPU tensors."""
+    version on CPU tensors.  k and v may carry fewer heads (GQA) and any
+    of the three may be a strided view, such as a transposed (B, S, H, D)
+    projection; K5 reads both in place."""
     return flash_attention(q, k, v, causal=True,
                            sliding_window=sliding_window,
                            block_q=block_q, block_k=block_k)

@@ -134,22 +134,23 @@ def attention(params, cfg: AttentionConfig, x, *, positions=None,
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     q, k, v = _project_qkv(params, cfg, x, positions)
-    k = _repeat_kv(k, cfg.n_heads // cfg.n_kv_heads)
-    v = _repeat_kv(v, cfg.n_heads // cfg.n_kv_heads)
     if flash_eligible(cfg, S, mask):
-        # K5 takes (B, H, S, D): these copies go once the kernel reads
-        # strides and maps GQA heads itself
-        out = causal_attention(q.transpose(1, 2).contiguous(),
-                               k.transpose(1, 2).contiguous(),
-                               v.transpose(1, 2).contiguous(),
+        # K5 reads the (B, S, H, D) projections in place as (B, H, S, D)
+        # views and maps each query head to its KV head; on the card its
+        # output is (B, S, H, D) storage, so the reshape below is a view
+        out = causal_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2),
                                sliding_window=cfg.sliding_window)
         out = out.transpose(1, 2)
-    elif S > cfg.chunked_threshold and mask is None:
-        out = chunked_attention(cfg, q, k, v)
     else:
-        if mask is None:
-            mask = make_attention_mask(cfg, S, S, device=x.device)
-        out = _scores_to_out(cfg, q, k, v, mask)
+        k = _repeat_kv(k, cfg.n_heads // cfg.n_kv_heads)
+        v = _repeat_kv(v, cfg.n_heads // cfg.n_kv_heads)
+        if S > cfg.chunked_threshold and mask is None:
+            out = chunked_attention(cfg, q, k, v)
+        else:
+            if mask is None:
+                mask = make_attention_mask(cfg, S, S, device=x.device)
+            out = _scores_to_out(cfg, q, k, v, mask)
     return dense(params["wo"], out.reshape(B, S, -1))
 
 

@@ -1,15 +1,19 @@
 """The port's attention stack against the reference on the CPU: K5's plain
 version against the reference's Pallas ``flash_attention`` (interpret
-mode), ``attention()`` on each of its branches, and the layers under it.
+mode; GQA K/V and transposed views on the repeated K/V), the wrapper's
+checks and copy rule, an emulation of K5's tensor-core arithmetic,
+``attention()`` on each of its branches, and the layers under it.
 
 Inputs come from numpy with a seed and go unchanged to both packages;
 parameters are the reference's own init, converted with
 ``params_from_jax``.  Tolerances: the Pallas comparison keeps the
-reference test's own (f32 2e-4; bf16 3e-2, compared in f32);
+reference test's own (f32 2e-4; bf16 3e-2, compared in f32); the
+tensor-core emulation 1e-2, chip_smoke's bf16 ``ATTN_TOL`` for the card;
 ``attention()`` 1e-5 in f32 (the two frameworks sum in other orders);
 rope and the norms 1e-6; the MLPs 1e-5.
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -27,8 +31,11 @@ from repro.nn.module import KeyGen
 
 from repro_torch.configs import ARCHS
 from repro_torch.convert import params_from_jax
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (_addressable,
+                                                 flash_attention,
+                                                 tensor_core_route)
 from repro_torch.kernels.ops import causal_attention
+from repro_torch.kernels.ref import attention_ref
 from repro_torch.models.blocks import attn_config
 from repro_torch.nn import attention as t_attn
 from repro_torch.nn import layers as t_layers
@@ -98,6 +105,124 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
         flash_attention(x, x[:, :1], x)
 
 
+@pytest.mark.parametrize("h_kv", [1, 2, 4])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd-view"])
+def test_flash_gqa_and_views_match_pallas(h_kv, layout):
+    """K/V with fewer heads, and (B, H, S, D) views of (B, S, H, D)
+    tensors, against the Pallas kernel on the repeated K/V."""
+    S, D, H = 128, 32, 4
+    shapes = [(2, H, S, D), (2, h_kv, S, D), (2, h_kv, S, D)]
+    q, k, v = (_rand(sh, 40 + i) for i, sh in enumerate(shapes))
+    if layout == "bhsd":
+        tq, tk, tv = _t(q), _t(k), _t(v)
+    else:
+        tq, tk, tv = (_t(a.transpose(0, 2, 1, 3).copy()).transpose(1, 2)
+                      for a in (q, k, v))
+        assert not tq.is_contiguous()
+    before = flash_attention.copies
+    got = flash_attention(tq, tk, tv, causal=True, sliding_window=48,
+                          block_q=64, block_k=64)
+    rep = H // h_kv
+    want = j_flash(jnp.asarray(q), jnp.asarray(np.repeat(k, rep, axis=1)),
+                   jnp.asarray(np.repeat(v, rep, axis=1)), causal=True,
+                   sliding_window=48, block_q=64, block_k=64, interpret=True)
+    assert flash_attention.copies == before      # CPU: nothing is copied
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-4, rtol=2e-4)
+
+
+def test_flash_wrapper_refuses_mismatched_heads_and_shapes():
+    x = torch.zeros((2, 4, 64, 32))
+    with pytest.raises(ValueError, match="not a multiple"):
+        flash_attention(x, x[:, :3], x[:, :3])
+    with pytest.raises(ValueError, match="batch, sequence and head dim"):
+        flash_attention(x, x[:1, :2], x[:1, :2])
+    with pytest.raises(ValueError, match="batch, sequence and head dim"):
+        flash_attention(x, x[:, :2, :32], x[:, :2, :32])
+    with pytest.raises(ValueError, match="batch, sequence and head dim"):
+        flash_attention(x, x[:, :2, :, :16], x[:, :2, :, :16])
+    with pytest.raises(ValueError, match="shape"):
+        flash_attention(x, x[:, :2], x[:, :1])
+
+
+def test_flash_route_depends_on_dtype_and_head_dim_only():
+    assert tensor_core_route(torch.bfloat16, 128)
+    assert tensor_core_route(torch.bfloat16, 24)
+    assert not tensor_core_route(torch.bfloat16, 136)
+    assert not tensor_core_route(torch.float32, 64)
+
+
+def test_flash_addressable_copies_only_what_the_kernel_cannot_read():
+    """The wrapper's rule for copying an input: a last dim of stride
+    other than 1, or a base or a stride (of a dim longer than 1) that is
+    not a positive multiple of 16 bytes."""
+    base = torch.zeros((2, 16, 4, 72), dtype=torch.bfloat16)
+    view = base[..., :64].transpose(1, 2)              # (B, H, S, D) view
+    one_head = torch.zeros((2, 1, 16, 64)).expand(2, 4, 16, 64)
+    before = flash_attention.copies
+    assert _addressable(view) is view
+    assert _addressable(base[:1, :, :1]) is not None
+    assert flash_attention.copies == before
+    for bad in (base[..., 4:68],                        # base 8 B off
+                base[..., :64].transpose(2, 3),         # last dim strided
+                torch.zeros((2, 16, 4, 60),
+                            dtype=torch.bfloat16)[..., :56],  # 120 B rows
+                one_head):                              # a zero stride
+        n = flash_attention.copies
+        out = _addressable(bad)
+        assert flash_attention.copies == n + 1
+        assert out.is_contiguous() and out.data_ptr() % 16 == 0
+        assert torch.equal(out, bad)
+
+
+# The tensor-core route's arithmetic, emulated in float32 on the CPU: bf16
+# inputs, exact products summed in fp32 (wgmma), scores scaled after the
+# product, base-2 exponentials, P rounded to bf16 before P.V, the row sum
+# of the unrounded fp32 P, 64 query rows a warpgroup against 128-key
+# tiles, output rounded to bf16.
+def _tc_route_emulation(q, k, v, window=None, block_m=64, block_n=128):
+    B, H, S, D = q.shape
+    sl2 = D ** -0.5 * math.log2(math.e)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.zeros((B, H, S, D))
+    for q0 in range(0, S, block_m):
+        rows = torch.arange(q0, min(q0 + block_m, S))
+        m = torch.full((B, H, len(rows)), -math.inf)
+        l = torch.zeros((B, H, len(rows)))
+        acc = torch.zeros((B, H, len(rows), D))
+        t_hi = min(-(-S // block_n), (rows[-1].item()) // block_n + 1)
+        t_lo = 0 if window is None else max(q0 - window + 1, 0) // block_n
+        for t in range(t_lo, t_hi):
+            keys = torch.arange(t * block_n, min((t + 1) * block_n, S))
+            s = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)
+            see = keys[None, :] <= rows[:, None]
+            if window is not None:
+                see &= keys[None, :] > rows[:, None] - window
+            s = torch.where(see, s, -math.inf)
+            mx = torch.maximum(m, s.amax(-1))
+            base = torch.where(mx == -math.inf, 0.0, mx * sl2)
+            alpha = torch.exp2(m * sl2 - base)
+            p = torch.exp2(s * sl2 - base[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = (acc * alpha[..., None]
+                   + p.bfloat16().float() @ vf[:, :, keys])
+            m = mx
+        out[:, :, rows] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("window", [None, 200])
+def test_tensor_core_numerics_stay_within_the_card_tolerance(window):
+    """At (1, 2, 1024, 128) the emulated tensor-core route stays within
+    chip_smoke's bf16 ATTN_TOL (1e-2) of the plain version in f32, as the
+    card is held to it."""
+    q, k, v = (_t(_rand((1, 2, 1024, 128), 60 + i), torch.bfloat16)
+               for i in range(3))
+    got = _tc_route_emulation(q, k, v, window)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=True,
+                         sliding_window=window)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-2, rtol=1e-2)
+
+
 # ---------------------------------------------------------------------------
 # attention() on each branch
 # ---------------------------------------------------------------------------
@@ -151,6 +276,18 @@ def test_attention_flash_branch(window):
     """Eligible: the core is K5's plain version on the CPU, held against
     the reference's ``_scores_to_out``."""
     _check_attention(64, sliding_window=window)
+
+
+def test_attention_flash_branch_reads_projections_in_place(monkeypatch):
+    """On the flash branch the KV heads are never repeated and nothing is
+    made contiguous: K5 takes the (B, S, H, D) projections as views and
+    maps the GQA heads itself.  The result still matches the reference's
+    ``attention`` for a GQA config (4 query heads over 2 KV heads)."""
+    def refuse(*a, **k):
+        raise AssertionError("the flash branch copied its inputs")
+    monkeypatch.setattr(t_attn, "_repeat_kv", refuse)
+    monkeypatch.setattr(torch.Tensor, "contiguous", refuse)
+    _check_attention(64, sliding_window=8)
 
 
 @pytest.mark.parametrize("skip", [False, True])

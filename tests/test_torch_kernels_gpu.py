@@ -11,7 +11,7 @@ does not have.)  TF32 is switched off so that the plain versions compute
 in full fp32.  Tolerances: features 1e-5 and projections 1e-4, the
 kernels summing in another order than cuDNN and cuBLAS; K5 2e-4 in f32,
 and 1e-2 in bf16 against the plain version in f32 on the upcast inputs
-(the kernel's only rounding is its bf16 output).
+(the kernel rounds P to bf16 for its tensor-core product, and its output).
 """
 import pytest
 import torch
@@ -241,17 +241,116 @@ def test_flash_kernel_matches_plain(cuda, S, D, window, dtype):
     assert torch.equal(got, again)                  # repeats bit for bit
 
 
-def test_attention_on_cuda_launches_k5_once(cuda, monkeypatch):
+def _counts():
+    f = fmod.flash_attention
+    return f.launches, f.tc_launches, f.copies
+
+
+def _gqa_views(B, H, H_kv, S, D, dtype, dev, seed):
+    """q (B, H, S, D) and k, v (B, H_kv, S, D) as transposed views of
+    (B, S, heads, D) tensors, as the decoder's projections give them."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, S, H, D), generator=gen).to(dev, dtype)
+    k, v = (torch.randn((B, S, H_kv, D), generator=gen).to(dev, dtype)
+            for _ in range(2))
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _plain_gqa(q, k, v, window):
+    n_rep = q.shape[1] // k.shape[1]
+    return attention_ref(q.float(), k.float().repeat_interleave(n_rep, 1),
+                         v.float().repeat_interleave(n_rep, 1), causal=True,
+                         sliding_window=window)
+
+
+@pytest.mark.parametrize("n_rep", [1, 2, 8])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernel_gqa_strided_views(cuda, n_rep, D, window, dtype):
+    """K5 maps query heads to KV heads and reads (B, S, H, D) storage in
+    place: held to its plain version on repeated K/V, no input copied, the
+    bf16 cases on the tensor-core route, the output (B, S, H, D)
+    storage; ragged S."""
+    q, k, v = _gqa_views(2, 2 * n_rep, 2, 100, D, dtype, cuda, D + n_rep)
+    before = _counts()
+    got = fmod.flash_attention(q, k, v, causal=True, sliding_window=window)
+    want = _plain_gqa(q, k, v, window)
+    torch.cuda.synchronize()
+    tc = int(dtype == torch.bfloat16)
+    assert _counts() == (before[0] + 1, before[1] + tc, before[2])
+    assert got.dtype == dtype and got.shape == q.shape
+    assert got.transpose(1, 2).is_contiguous()
+    tol = 2e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+    again = fmod.flash_attention(q, k, v, causal=True, sliding_window=window)
+    assert torch.equal(got, again)                  # repeats bit for bit
+
+
+@pytest.mark.parametrize("S,D,H,H_kv,window", [
+    (1100, 128, 16, 8, None), (700, 64, 32, 4, 200), (300, 96, 8, 8, None),
+    (200, 24, 4, 2, 64), (160, 256, 4, 2, None)],
+    ids=["two-warpgroups", "two-warpgroups-d64", "d96", "d24",
+         "d256-cuda-cores"])
+def test_flash_kernel_bf16_routes(cuda, S, D, H, H_kv, window):
+    """bf16 at the shapes that pick each variant: 128-row blocks of two
+    consumer warpgroups (enough blocks to fill the SMs), D padded to 128
+    or 64 with zeros (96, 24), and D = 256 on the CUDA cores; every S
+    ragged against the kernel's tiles (one block of the reference's
+    contract, so any S passes it)."""
+    q, k, v = _gqa_views(1, H, H_kv, S, D, torch.bfloat16, cuda, S + D)
+    before = _counts()
+
+    def run():
+        return fmod.flash_attention(q, k, v, causal=True,
+                                    sliding_window=window, block_q=S,
+                                    block_k=S)
+    got = run()
+    want = _plain_gqa(q, k, v, window)
+    torch.cuda.synchronize()
+    tc = int(D <= 128)
+    assert fmod.tensor_core_route(torch.bfloat16, D) == bool(tc)
+    assert _counts() == (before[0] + 1, before[1] + tc, before[2])
+    torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=1e-2)
+    assert torch.equal(got, run())
+
+
+def test_flash_kernel_copies_only_what_it_cannot_address(cuda):
+    """A misaligned base and a strided last dim are copied and counted;
+    the results still match."""
+    gen = torch.Generator().manual_seed(9)
+    big = torch.randn((1, 4, 128, 72), generator=gen).to(cuda,
+                                                         torch.bfloat16)
+    q = big[..., 4:68]                      # base 8 bytes off alignment
+    k = big[..., :64].clone()
+    v = torch.randn((1, 4, 64, 128), generator=gen).to(
+        cuda, torch.bfloat16).transpose(2, 3)   # last-dim stride 128
+    before = _counts()
+    got = fmod.flash_attention(q, k, v)
+    want = _plain_gqa(q, k, v, None)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 1, before[1] + 1, before[2] + 2)
+    torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype,tc", [(torch.float32, 0),
+                                      (torch.bfloat16, 1)],
+                         ids=["f32-cuda-cores", "bf16-tensor-cores"])
+def test_attention_on_cuda_launches_k5_once(cuda, monkeypatch, dtype, tc):
+    """A GQA layer's core is one K5 launch that copies nothing: on the
+    tensor-core route in bf16, on the CUDA cores in f32."""
     def refuse(*a, **k):
         raise AssertionError("a CUDA tensor reached the plain version")
     monkeypatch.setattr(fmod, "attention_ref", refuse)
     cfg = t_attn.AttentionConfig(d_model=256, n_heads=4, n_kv_heads=2,
                                  head_dim=64, qk_norm=True)
     gen = torch.Generator().manual_seed(5)
-    params = t_attn.attention_init(gen, cfg, device=cuda)
-    x = torch.randn((2, 128, 256), generator=gen).to(cuda)
-    fmod.flash_attention.launches = 0
+    params = t_attn.attention_init(gen, cfg, dtype=dtype, device=cuda)
+    x = torch.randn((2, 128, 256), generator=gen).to(cuda, dtype)
+    f = fmod.flash_attention
+    f.launches = f.tc_launches = f.copies = 0
     out = t_attn.attention(params, cfg, x)
     torch.cuda.synchronize()
-    assert fmod.flash_attention.launches == 1
-    assert out.shape == x.shape and torch.isfinite(out).all()
+    assert _counts() == (1, tc, 0)
+    assert out.shape == x.shape and torch.isfinite(out.float()).all()
