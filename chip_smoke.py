@@ -6,9 +6,10 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout (K1
-the fused encoder, K2 the per-pass kernel, K3 the grouped layer, K4 the
-streamed encoder, K5 flash attention, whose bf16 route must show HGMMA
-instructions in its SASS), holds each against its plain PyTorch version
+the fused encoder, K2 the per-pass kernel and K3 the grouped layer, one
+tiled layer kernel whose ptxas register and spill report it prints, K4
+the streamed encoder, K5 flash attention, whose bf16 route must show
+HGMMA instructions in its SASS), holds each against its plain PyTorch version
 on the card at the shapes the served paths give it (and the tiers
 against each other), times each, then drives the port's entry
 points: it serves split-policy decisions from a deployment manifest
@@ -51,6 +52,11 @@ ATTN_TOL = {"float32": 2e-4,  # K5 in f32: sums in another order
             "bfloat16": 1e-2}  # K5 in bf16 vs plain f32: its output rounding
 LM_SPLIT_TOL = 1e-2   # full-width bf16 split (float32 codec) vs monolith
 LM_CPU_TOL = {"reduced": 1e-4, "full width": 1e-3}  # card vs CPU, f32
+# Device time a launch of the first-draft K2 and K3 (one thread an
+# output, before the tiled layer kernel), traced on a served request by
+# this script on an NVIDIA H100 80GB HBM3 at 700.00 W, printed beside
+# this run's.
+FIRST_K2_US, FIRST_K3_US = 16.60, 11.85
 
 
 def check(cond, msg):
@@ -106,10 +112,11 @@ def profile_decision(fn):
     return n, k5_us
 
 
-def kernel_device_us(fn, name, calls=20):
-    """Device time of one launch of the kernel whose name holds ``name``,
-    from a torch.profiler trace of ``calls`` calls of ``fn`` (None when
-    the profiler sees no device time)."""
+def kernel_device_us(fn, name=None, calls=20):
+    """(device time of one launch, launches a call) of the kernels whose
+    name holds ``name`` (every kernel when None), from a torch.profiler
+    trace of ``calls`` calls of ``fn``; None when the profiler sees no
+    device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -121,12 +128,12 @@ def kernel_device_us(fn, name, calls=20):
             fn()
         torch.cuda.synchronize()
     hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and name in e.key
-            and e.self_device_time_total]
+            if e.device_type == DeviceType.CUDA
+            and (name is None or name in e.key) and e.self_device_time_total]
     if not hits:
         return None
-    return (sum(e.self_device_time_total for e in hits)
-            / sum(e.count for e in hits))
+    n = sum(e.count for e in hits)
+    return sum(e.self_device_time_total for e in hits) / n, n / calls
 
 
 def host_us(fn, calls=2000):
@@ -153,6 +160,33 @@ def attention_pairs(S, window):
 
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def layer_ptxas(log):
+    """ptxas's report of ``miniconv_layer.cu``, one (kernel<kh, kw,
+    stride, c_in, pix, cb>, registers, spill stores, spill loads) per
+    instantiation (0 in the template arguments: the generic one)."""
+    import re
+    out, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(pass_kernel|layer_grouped_kernel)I((?:Li\d+E)+)",
+                          m.group(1))
+            name = m.group(1)
+            if k:
+                targs = ",".join(re.findall(r"Li(\d+)E", k.group(2)))
+                name = f"{k.group(1)}<{targs}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out.append((name, int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return out
 
 
 def main() -> int:
@@ -199,10 +233,19 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s for "
           f"{sorted(built) or 'nothing (cached)'}")
     for name, info in built.items():
+        if name == "miniconv_layer":
+            continue
         for line in info["log"].splitlines():
             if any(w in line.lower() for w in ("registers", "smem", "spill",
                                                 "wgmma", "warning")):
                 print(f"  ptxas {name}: {line.strip()}")
+    if "miniconv_layer" in built:
+        report = layer_ptxas(built["miniconv_layer"]["log"])
+        check(len(report) == 28, f"ptxas reported {len(report)} layer "
+              f"kernels, expected 28 (8 K2 and 20 K3 instantiations)")
+        for kname, regs, st, ld in report:
+            print(f"  ptxas miniconv_layer: {kname} {regs} registers, "
+                  f"{st} B spill stores, {ld} B spill loads")
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass",
                            str(_build.library_path("flash_attention"))],
@@ -220,6 +263,7 @@ def main() -> int:
         for f in wrappers:
             f.launches = 0
         flash_attention.tc_launches = flash_attention.copies = 0
+        miniconv_pass.copies = miniconv_layer_grouped.copies = 0
 
     def counts():
         """Launches per kernel since the last reset, K1..K5 in order."""
@@ -321,6 +365,7 @@ def main() -> int:
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
         lib_ms = cuda_ms(library_chain(x, ws, bs, plan, hw, hb, act))
         dev_us = kernel_device_us(kern, "encoder_kernel")
+        dev_us = dev_us and dev_us[0]
         flops = plan.flops_per_batch(B, plan.head(D) if D else None)
         b_ms, b_by = bound(nbytes(x, *ws, *bs, hw, hb, feats, z), flops)
         tp = plan.tile_plan(B)
@@ -345,59 +390,109 @@ def main() -> int:
     check(k1_rows["served edge"]["tiles"] >= 36,
           "the served 84x84 frame must spread over at least 36 blocks")
 
-    # K2 on each layer of the standard plan, at the served shape (1 frame)
-    # and at a batch of 8; the inputs are the plain chain's layer inputs.
-    plan = std.plan(84)
-    p_std, ws, bs = layer_params(std, 77)
-    k2_err, k2_rows = 0.0, {}
-    for B in (1, 8):
-        y = rand((B, 84, 84, 12), 78)
-        launches = []
-        for l, w, b in zip(plan.layers, ws, bs):
+    # K2 on each layer of the standard plan, at the served shape (1 frame),
+    # at a batch of 8 and at two 400x400x4 frames, on each group's weight
+    # view as the reference tier passes it; the inputs are the plain
+    # chain's layer inputs.
+    from repro_torch.core.passplan import plan_conv_tiles
+
+    def plan_note(x, w, stride, grouped):
+        B, h_in, w_in, c_in = x.shape
+        kh, kw, _, c_out = w.shape
+        tp = plan_conv_tiles(B, (h_in - kh) // stride + 1,
+                             (w_in - kw) // stride + 1, kh, kw, stride,
+                             c_in, c_out, grouped)
+        return (f"{tp.tile_h}x{tp.tile_w}x{tp.co_block} tiles, "
+                f"({tp.pix},{tp.cb}) a thread, {tp.blocks} blocks of "
+                f"{tp.threads}")
+
+    p_std, _, _ = layer_params(std, 77)
+    k2_rows = {}
+    for label, B, H, c_in, iters in (("served edge", 1, 84, 12, 50),
+                                     ("batch", 8, 84, 12, 50),
+                                     ("400x400", 2, 400, 4, 10)):
+        spec = standard_spec(c_in=c_in, k=4)
+        lplan = spec.plan(H)
+        _, ws2, bs2 = layer_params(spec, 77 + B)
+        y = rand((B, H, H, c_in), 78)
+        launches, k2_err, notes = [], 0.0, []
+        miniconv_pass.copies = 0
+        for l, w, b in zip(lplan.layers, ws2, bs2):
             xp = same_pad(y, l.kernel, l.stride)
             wp = F.pad(w, (0, (-l.c_out) % 4))
             bp = F.pad(b, (0, (-l.c_out) % 4))
+            notes.append(plan_note(xp, wp[..., :4], l.stride, False))
             for g in range(0, wp.shape[-1], 4):
-                wg, bg = wp[..., g:g + 4].contiguous(), bp[g:g + 4].clone()
+                wg, bg = wp[..., g:g + 4], bp[g:g + 4]
                 got = miniconv_pass(xp, wg, bg, stride=l.stride)
                 want = miniconv_pass_ref(xp, wg, bg, stride=l.stride)
                 torch.cuda.synchronize()
                 e = (got - want).abs().max().item()
                 check(torch.allclose(got, want, atol=FEAT_TOL,
                                      rtol=FEAT_TOL),
-                      f"K2 layer {l.index} group {g // 4} B={B}: differs "
+                      f"K2 layer {l.index} group {g // 4} {label}: differs "
                       f"by {e} (tol {FEAT_TOL})")
+                check(torch.equal(got, miniconv_pass(xp, wg, bg,
+                                                     stride=l.stride)),
+                      f"K2 layer {l.index} {label}: two runs differ")
                 k2_err = max(k2_err, e)
                 launches.append((xp, wg, bg, l.stride, got))
             y = _ACTS[l.activation](miniconv_pass_ref(xp, w, b,
                                                       stride=l.stride))
-        check(len(launches) == plan.total_passes == 9,
+        check(len(launches) == lplan.total_passes == 9,
               f"K2: {len(launches)} passes, expected 9")
+        check(miniconv_pass.copies == 0, f"K2 {label}: "
+              f"{miniconv_pass.copies} inputs copied, expected 0")
         lib_in = [(xp.permute(0, 3, 1, 2).contiguous(),
-                   wg.permute(3, 2, 0, 1).contiguous(), bg, s)
+                   wg.permute(3, 2, 0, 1).contiguous(), bg.contiguous(), s)
                   for xp, wg, bg, s, _ in launches]
         ms = cuda_ms(lambda: [miniconv_pass(xp, wg, bg, stride=s)
-                              for xp, wg, bg, s, _ in launches])
+                              for xp, wg, bg, s, _ in launches], iters=iters)
         plain_ms = cuda_ms(lambda: [miniconv_pass_ref(xp, wg, bg, stride=s)
-                                    for xp, wg, bg, s, _ in launches])
-        lib_ms = cuda_ms(lambda: [F.conv2d(xn, wn, bg, stride=s)
-                                  for xn, wn, bg, s in lib_in])
-        b_ms, b_by = bound(sum(nbytes(xp, wg, bg, out)
+                                    for xp, wg, bg, s, _ in launches],
+                           iters=iters)
+        lib_ms = cuda_ms(lambda: [F.conv2d(xn, wn, bn, stride=s)
+                                  for xn, wn, bn, s in lib_in], iters=iters)
+        # each pass reads its layer's input and its group's weights once
+        b_ms, b_by = bound(sum(nbytes(xp, bg, out) + 4 * wg.numel()
                                for xp, wg, bg, _, out in launches),
-                           B * plan.flops_per_frame)
-        print(f"K2 miniconv_pass: the 9 passes of the standard 84x84 plan "
-              f"at B={B}: max_abs_err {k2_err:.3g} (tol {FEAT_TOL}); "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}) for 9 launches")
-        k2_rows[B] = dict(max_abs_err=k2_err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                          shape=[B, 84, 84, 12])
+                           B * lplan.flops_per_frame)
+        row = dict(max_abs_err=k2_err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   shape=[B, H, H, c_in], plans=notes)
+        host = ""
+        if label == "served edge":   # the wrappers' host and device time
+            xp, wg, bg, s, _ = launches[0]
+            xn, wn, bn, _ = lib_in[0]
+            row["host_us"] = host_us(lambda: miniconv_pass(xp, wg, bg,
+                                                           stride=s))
+            row["library_host_us"] = host_us(lambda: F.conv2d(xn, wn, bn,
+                                                              stride=s))
+            lib = kernel_device_us(lambda: [F.conv2d(xn, wn, bn, stride=s)
+                                            for xn, wn, bn, s in lib_in])
+            # per F.conv2d call: (device us, kernels)
+            lib = lib and (lib[0] * lib[1] / 9, lib[1] / 9)
+            row["library_device_us"] = lib and lib[0]
+            host = (f"; host {row['host_us']:.2f} us a call (layer 0, "
+                    f"group 0), F.conv2d {row['library_host_us']:.2f} us; "
+                    f"F.conv2d traced: " + (
+                        "not measured" if lib is None else
+                        f"{lib[0]:.2f} us of device time a call, "
+                        f"{lib[1]:.2f} kernels a call"))
+        print(f"K2 miniconv_pass {label}: the 9 passes of the standard plan "
+              f"at ({B},{H},{H},{c_in}), weight group views, 0 copies: "
+              f"max_abs_err {k2_err:.3g} (tol {FEAT_TOL}), repeats bit for "
+              f"bit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms (9 F.conv2d), bound {b_ms:.5f} ms ({b_by}) "
+              f"for 9 launches{host}; plans by layer: " + "; ".join(notes))
+        k2_rows[label] = row
 
     # One hand kernel against the other: the per-pass tier against the
     # fused tier, both on the card.
     xb = rand((8, 84, 84, 12), 79)
     per_pass = miniconv_apply(p_std, std, xb, use_kernel="reference")
-    fused = miniconv_apply(p_std, std, xb, use_kernel="fused", plan=plan)
+    fused = miniconv_apply(p_std, std, xb, use_kernel="fused",
+                           plan=std.plan(84))
     torch.cuda.synchronize()
     e = (per_pass - fused).abs().max().item()
     check(torch.allclose(per_pass, fused, atol=FEAT_TOL, rtol=FEAT_TOL),
@@ -416,9 +511,11 @@ def main() -> int:
         lplan = spec.plan(H)
         _, ws3, bs3 = layer_params(spec, 200 + B)
         y = rand((B, H, H, c_in), 201 + B)
-        launches, k3_err = [], 0.0
+        launches, k3_err, notes = [], 0.0, []
+        miniconv_layer_grouped.copies = 0
         for l, w, b in zip(lplan.layers, ws3, bs3):
             xp = same_pad(y, l.kernel, l.stride)
+            notes.append(plan_note(xp, w, l.stride, True))
             got = miniconv_layer_grouped(xp, w, b, stride=l.stride)
             want = miniconv_layer_grouped_ref(xp, w, b, stride=l.stride)
             torch.cuda.synchronize()
@@ -427,9 +524,14 @@ def main() -> int:
                 got, want, atol=FEAT_TOL, rtol=FEAT_TOL),
                 f"K3 layer {l.index} {label}: differs by {e} (tol "
                 f"{FEAT_TOL})")
+            check(torch.equal(got, miniconv_layer_grouped(
+                xp, w, b, stride=l.stride)),
+                f"K3 layer {l.index} {label}: two runs differ")
             k3_err = max(k3_err, e)
             launches.append((xp, w, b, l.stride, got))
             y = _ACTS[l.activation](want)
+        check(miniconv_layer_grouped.copies == 0, f"K3 {label}: "
+              f"{miniconv_layer_grouped.copies} inputs copied, expected 0")
         lib_in = [(xp.permute(0, 3, 1, 2).contiguous(),
                    w.permute(3, 2, 0, 1).contiguous(), b, st)
                   for xp, w, b, st, _ in launches]
@@ -443,14 +545,35 @@ def main() -> int:
         b_ms, b_by = bound(sum(nbytes(xp, w, b, out)
                                for xp, w, b, _, out in launches),
                            B * lplan.flops_per_frame)
+        row = dict(max_abs_err=k3_err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   shape=[B, H, H, c_in], plans=notes)
+        host = ""
+        if label == "served edge":   # the wrappers' host and device time
+            xp, w, b, st, _ = launches[0]
+            xn, wn, _, _ = lib_in[0]
+            row["host_us"] = host_us(lambda: miniconv_layer_grouped(
+                xp, w, b, stride=st))
+            row["library_host_us"] = host_us(lambda: F.conv2d(xn, wn, b,
+                                                              stride=st))
+            lib = kernel_device_us(lambda: [F.conv2d(xn, wn, b, stride=st)
+                                            for xn, wn, b, st in lib_in])
+            # per F.conv2d call: (device us, kernels)
+            lib = lib and (lib[0] * lib[1] / 3, lib[1] / 3)
+            row["library_device_us"] = lib and lib[0]
+            host = (f"; host {row['host_us']:.2f} us a call (layer 0), "
+                    f"F.conv2d {row['library_host_us']:.2f} us; F.conv2d "
+                    f"traced: " + (
+                        "not measured" if lib is None else
+                        f"{lib[0]:.2f} us of device time a call, "
+                        f"{lib[1]:.2f} kernels a call"))
         print(f"K3 miniconv_layer_grouped {label}: the 3 layers at "
-              f"({B},{H},{H},{c_in}): max_abs_err {k3_err:.3g} (tol "
-              f"{FEAT_TOL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"library {lib_ms:.4f} ms (3 F.conv2d), bound {b_ms:.5f} ms "
-              f"({b_by}) for 3 launches")
-        k3_rows[label] = dict(max_abs_err=k3_err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                              shape=[B, H, H, c_in])
+              f"({B},{H},{H},{c_in}), 0 copies: max_abs_err {k3_err:.3g} "
+              f"(tol {FEAT_TOL}), repeats bit for bit; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms (3 "
+              f"F.conv2d), bound {b_ms:.5f} ms ({b_by}) for 3 launches"
+              f"{host}; plans by layer: " + "; ".join(notes))
+        k3_rows[label] = row
     grouped = miniconv_apply(p_std, std, xb, use_kernel="grouped")
     torch.cuda.synchronize()
     check(torch.equal(grouped, per_pass),
@@ -581,17 +704,25 @@ def main() -> int:
     ref_launches = miniconv_pass.launches
     check(counts() == (0, 9, 0, 0, 0), f"reference serve launched K1..K5 "
           f"{counts()} times; expected (0, 9, 0, 0, 0)")
+    ref_copies = miniconv_pass.copies
+    check(ref_copies == 0, f"reference serve copied {ref_copies} K2 inputs "
+          f"(expected 0: the group weights are read as views)")
     r_err = (action_r - actions[0]).abs().max().item()
     check(r_err <= ACT_TOL, f"reference vs fused action differ by {r_err}")
-    print(f"serve reference: 1 request, K2 launches {ref_launches}; action "
-          f"vs fused max_abs_err {r_err:.3g} (tol {ACT_TOL})")
+    a_err = (action_r - actions_x[0]).abs().max().item()
+    check(a_err <= ACT_TOL, f"reference vs xla action differ by {a_err}")
+    print(f"serve reference: 1 request, K2 launches {ref_launches}, copies "
+          f"{ref_copies}; action vs fused max_abs_err {r_err:.3g}, vs xla "
+          f"build {a_err:.3g} (tol {ACT_TOL})")
     k2_us = kernel_device_us(
         lambda: server_r.serve([client_r.encode_fn(obs[0:1])]),
         "pass_kernel", calls=10)
+    k2_us = k2_us and k2_us[0]
     print("serve reference traced: K2 "
           + ("not measured" if k2_us is None else f"{k2_us:.2f} us")
-          + " of device time a launch (mean of a request's 9 passes), "
-          f"against {1e3 * k2_rows[1]['ms'] / 9:.2f} us a launch by CUDA "
+          + " of device time a launch (mean of a request's 9 passes; the "
+          f"first-draft K2: {FIRST_K2_US} us), against "
+          f"{1e3 * k2_rows['served edge']['ms'] / 9:.2f} us a launch by CUDA "
           "events in phase 2")
 
     # ---- 5. the grouped path -----------------------------------------------
@@ -611,11 +742,13 @@ def main() -> int:
     k3_us = kernel_device_us(
         lambda: server_g.serve([client_g.encode_fn(obs[0:1])]),
         "layer_grouped_kernel", calls=10)
+    k3_us = k3_us and k3_us[0]
     print("serve grouped traced: K3 "
           + ("not measured" if k3_us is None else f"{k3_us:.2f} us")
-          + " of device time a launch (mean of a request's 3 layers), "
-          f"against {1e3 * k3_rows['served edge']['ms'] / 3:.2f} us a "
-          "launch by CUDA events in phase 2")
+          + " of device time a launch (mean of a request's 3 layers; the "
+          f"first-draft K3: {FIRST_K3_US} us), against "
+          f"{1e3 * k3_rows['served edge']['ms'] / 3:.2f} us a launch by "
+          "CUDA events in phase 2")
 
     # ---- 6. tune the served manifest on the card, serve the tuned build --
     manifest = ROOT / "build" / "tuned_manifest.json"
@@ -700,6 +833,7 @@ def main() -> int:
         k4_us = kernel_device_us(lambda: miniconv_encoder_stream(
             xB, wsB, bsB, planB, chunk_b=chunkB, head_w=hwB, head_b=hbB),
             "encoder_stream_kernel", calls=5)
+        k4_us = k4_us and k4_us[0]
     flopsB = planB.flops_per_batch(64, planB.head(hwB.shape[1]))
     bB_ms, bB_by = bound(nbytes(xB, *wsB, *bsB, hwB, hbB, fB, z_b), flopsB)
     tpB = planB.tile_plan(64, streamed=True)
@@ -780,6 +914,7 @@ def main() -> int:
         dev_us = kernel_device_us(lambda: flash_attention(
             q, k, v, causal=True, sliding_window=win), "flash_kernel",
             calls=iters)
+        dev_us = dev_us and dev_us[0]
         flops = 4 * D * attention_pairs(S, win) * B * H
         b_ms, b_by = bound(nbytes(q, k, v, got), flops,
                            PEAK_BF16_FLOP_S if dt == torch.bfloat16
@@ -934,8 +1069,17 @@ def main() -> int:
 
     # ---- 12. results -------------------------------------------------------
     k1 = k1_rows["served edge"]
-    k2 = dict(k2_rows[1], device_us=k2_us)
-    k3 = dict(k3_rows["served edge"], device_us=k3_us)
+    def layer_row(rows, dev_us):
+        """The served frame's row, with the 400x400 and batch-8 times."""
+        row = dict(rows["served edge"], device_us=dev_us)
+        for pre, label in (("400x400", "400x400"), ("batch8", "batch")):
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                        "max_abs_err"):
+                row[f"{pre}_{key}"] = rows[label][key]
+        return row
+
+    k2 = layer_row(k2_rows, k2_us)
+    k3 = layer_row(k3_rows, k3_us)
     k4 = dict(max_abs_err=errB, ms=k4_ms, plain_ms=plainB_ms,
               bound_ms=bB_ms, bound_by=bB_by, library_ms=libB_ms,
               shape=[64, 400, 400, 4], head=hwB.shape[1], chunk_b=chunkB,
@@ -949,11 +1093,11 @@ def main() -> int:
                  "ms", "device_us", "plain_ms", "library_ms", "bound_ms",
                  "max_abs_err", "shape", "head", "tiles")}),
         dict(name="miniconv_pass", route="cuda",
-             source="src/repro_torch/kernels/csrc/miniconv_pass.cu",
+             source="src/repro_torch/kernels/csrc/miniconv_layer.cu",
              replaces="src/repro/kernels/miniconv_pass.py:91",
-             launches=ref_launches, **k2),
+             launches=ref_launches, copies=ref_copies, **k2),
         dict(name="miniconv_layer_grouped", route="cuda",
-             source="src/repro_torch/kernels/csrc/miniconv_layer_grouped.cu",
+             source="src/repro_torch/kernels/csrc/miniconv_layer.cu",
              replaces="src/repro/kernels/miniconv_pass.py:164",
              launches=grouped_launches, **k3),
         dict(name="miniconv_encoder_stream", route="cuda",

@@ -595,9 +595,258 @@ def plan_tiles(plan: "PassPlan", batch: Optional[int] = 1, *,
                      f"the {SMEM_LIMIT} B of shared memory a block may use")
 
 
-__all__ = ["ENCODER_THREADS", "FRAMES_PER_ITEM", "HeadPlan", "LayerPlan",
-           "LayerTile", "MAX_BLOCKS_PER_SM", "N_SMS", "PassPlan", "SMEM_LIMIT",
-           "SMEM_PER_SM", "SMEM_STATIC", "ShaderPass", "TASK_SHAPES",
-           "TilePlan", "build_pass_plan", "count_passes", "layer_cycles",
-           "out_size", "out_spatial_chain", "plan_tiles", "same_pads",
+# ---------------------------------------------------------------------------
+# Tiles of the layer kernels (K2, K3)
+# ---------------------------------------------------------------------------
+
+# Threads of one layer block at most (``__launch_bounds__(256, 2)`` in
+# ``miniconv_layer.cu``), and the registers the model gives a thread of a
+# P x CB register tile: ptxas gave the standard layers' instantiations
+# 66-109 (chip_smoke, NVIDIA H100 80GB HBM3).
+CONV_MAX_THREADS = 256
+
+
+def _conv_regs(shape: tuple[int, int]) -> int:
+    """Registers a thread of the layer kernels, modelled: 64 plus two per
+    accumulator."""
+    return 64 + 2 * shape[0] * shape[1]
+
+# Register tiles of the pass kernel, which writes 4 channels.
+PASS_TASK_SHAPES = tuple(s for s in TASK_SHAPES if s[1] == 4)
+# Output tile sides the planner tries (a tile is at most 4 times as wide
+# as it is high, or the other way round).
+CONV_TILE_SIDES = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
+# Blocks an SM keeps resident at most, and its threads.
+_BLOCKS_PER_SM = 32
+_THREADS_PER_SM = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvCost:
+    """The constants of the layer kernels' cost model: cycles between one
+    warp's instructions while its scheduler has too few warps to hide
+    their latencies; instructions of one thread to stage one 16-byte
+    copy; cycles of one block's start and end (launch, index arithmetic,
+    barrier), paid in turn by the blocks of one SM; bytes L2 delivers a
+    cycle to one SM, and to all SMs together."""
+
+    warp_alone_cpi: float
+    load_cost: float
+    block_cycles: float
+    sm_bytes_per_cycle: float
+    l2_bytes_per_cycle: float
+
+
+# The best grid point of ``python -m repro_torch.benchmarks.conv_tiles
+# --fit`` over its sweep of every plan of the standard layers timed on the
+# card (NVIDIA H100 80GB HBM3, 700 W): its picks come closest to the
+# fastest plans.  The sweeps fix warp_alone_cpi and block_cycles; the
+# other three sit on a plateau of equal picks.
+CONV_COST = ConvCost(warp_alone_cpi=2, load_cost=4, block_cycles=250,
+                     sm_bytes_per_cycle=64, l2_bytes_per_cycle=3000)
+
+
+def conv_cost(work: tuple[int, ...], model: ConvCost = CONV_COST) -> float:
+    """Modelled SM cycles of a launch of :attr:`ConvTilePlan.work`.
+
+    The launch runs in waves of ``on_sm`` blocks on each SM.  A wave takes
+    the longest of: its warps' instructions issued by the SM's 4
+    schedulers (one warp's chain of staging copies and tap loop at
+    ``warp_alone_cpi`` cycles an instruction while a scheduler holds fewer
+    warps than that), its shared-memory wavefronts (one a cycle), and the
+    bytes its blocks stage at one SM's share of L2; plus the first block's
+    staging, before which nothing computes, and each block's start and
+    end.  The whole launch's staged bytes at the L2's rate bound it too.
+    """
+    blocks, threads, resident, stage, steps, p, cb = work
+    if resident < 1:
+        return float("inf")
+    on_sm = min(resident, _cdiv(blocks, N_SMS))
+    warps = on_sm * threads // 32
+    # per (tap, channel quad) a task issues 4 p cb FMAs, p region loads of
+    # 16 B (4 wavefronts a warp) and cb weight quads (one address across
+    # the warp: 1 wavefront each)
+    instr = steps * (4 * p * cb + p + cb)
+    chain = _cdiv(stage, threads) * model.load_cost + instr
+    one = stage * 16 / model.sm_bytes_per_cycle
+    # the blocks' staging overlaps the others' compute, but for the first
+    # block's
+    wave = (max(max(_cdiv(warps, 4), model.warp_alone_cpi) * chain,
+                warps * steps * (4 * p + cb), on_sm * one)
+            + one + on_sm * model.block_cycles)
+    return max(_cdiv(blocks, N_SMS * on_sm) * wave,
+               blocks * stage * 16 / model.l2_bytes_per_cycle)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvTilePlan:
+    """How K2 or K3 cuts one layer's launch into blocks.
+
+    A block owns a ``tile_h`` x ``tile_w`` tile of one frame's output and
+    ``co_block`` of its output channels (block ``((n * tiles_y + ty) *
+    tiles_x + tx) * co_blocks + cob``).  It stages the input region under
+    the tile, ``in_ext_h`` x ``in_ext_w`` positions, as ``c4`` planes of
+    float4 (input channels 4q .. 4q+3, zero past c_in), each row
+    ``in_row`` float4 slots with its columns split by phase modulo the
+    stride (column x at ``(x % s) * (in_row / s) + x // s``), and its
+    channels' weights as ``(kh, kw, c_in, co_block)`` rows.  Shared memory
+    holds the weights at 0, the bias at ``b_off`` and the region at
+    ``in_off`` (floats).  A thread computes ``pix`` output pixels (tasks
+    ``ceil(tile_h * tile_w / pix)`` apart) by ``cb`` channels.
+    """
+
+    batch: int
+    tile_h: int
+    tile_w: int
+    tiles_y: int
+    tiles_x: int
+    co_block: int
+    co_blocks: int
+    pix: int
+    cb: int
+    threads: int
+    in_ext_h: int
+    in_ext_w: int
+    in_row: int
+    c4: int
+    b_off: int
+    in_off: int
+    smem_floats: int
+    # what the cost model reads: blocks, threads a block, blocks an SM
+    # holds, 16-byte copies a block stages, tap steps a thread, (P, CB)
+    work: tuple[int, ...]
+
+    @property
+    def blocks(self) -> int:
+        return self.batch * self.tiles_y * self.tiles_x * self.co_blocks
+
+    @property
+    def cost(self) -> float:
+        """Modelled SM cycles of the launch (:func:`conv_cost`)."""
+        return conv_cost(self.work)
+
+    @property
+    def smem_bytes(self) -> int:
+        return 4 * self.smem_floats
+
+    @functools.cached_property
+    def launch_ints(self) -> tuple[int, ...]:
+        """The plan as the kernel's argument array carries it: tile_h,
+        tile_w, co_block, pix, cb, threads, shared-memory bytes."""
+        return (self.tile_h, self.tile_w, self.co_block, self.pix, self.cb,
+                self.threads, self.smem_bytes)
+
+    @property
+    def tasks(self) -> int:
+        """Register tiles of one block."""
+        return (_cdiv(self.tile_h * self.tile_w, self.pix)
+                * (self.co_block // self.cb))
+
+
+def conv_tile_layout(batch: int, h_out: int, w_out: int, kh: int, kw: int,
+                     stride: int, c_in: int, c_out: int, tile_h: int,
+                     tile_w: int, co_block: int, shape: tuple[int, int]
+                     ) -> ConvTilePlan:
+    """The plan of ``tile_h`` x ``tile_w`` tiles of ``co_block`` channels
+    and register tiles of ``shape`` = (pixels, channels), laid out."""
+    p, cb = shape
+    s = stride
+    c4 = _cdiv(c_in, 4)
+    ext_h = (tile_h - 1) * s + kh
+    ext_w = (tile_w - 1) * s + kw
+    row = _split_row(ext_w, s)
+    w_floats = kh * kw * c_in * co_block
+    b_off = w_floats
+    in_off = b_off + co_block
+    smem = in_off + 4 * c4 * ext_h * row
+    tasks = _cdiv(tile_h * tile_w, p) * (co_block // cb)
+    threads = min(CONV_MAX_THREADS, 32 * _cdiv(tasks, 32))
+    tiles_y, tiles_x = _cdiv(h_out, tile_h), _cdiv(w_out, tile_w)
+    blocks = batch * tiles_y * tiles_x * (c_out // co_block)
+    # 16-byte copies a block stages: region, weights, bias
+    stage = c4 * ext_h * ext_w + w_floats // 4 + co_block
+    resident = min(_BLOCKS_PER_SM, _THREADS_PER_SM // threads,
+                   65536 // (threads * _conv_regs(shape)),
+                   SMEM_PER_SM // (4 * smem + SMEM_RESERVED))
+    steps = _cdiv(tasks, threads) * kh * kw * c4
+    return ConvTilePlan(batch=batch, tile_h=tile_h, tile_w=tile_w,
+                        tiles_y=tiles_y, tiles_x=tiles_x, co_block=co_block,
+                        co_blocks=c_out // co_block, pix=p, cb=cb,
+                        threads=threads, in_ext_h=ext_h, in_ext_w=ext_w,
+                        in_row=row, c4=c4, b_off=b_off, in_off=in_off,
+                        smem_floats=smem,
+                        work=(blocks, threads, resident, stage, steps, p, cb))
+
+
+def conv_candidates(batch: int, h_out: int, w_out: int, kh: int, kw: int,
+                    stride: int, c_in: int, c_out: int, grouped: bool = True
+                    ) -> list[ConvTilePlan]:
+    """Every plan :func:`plan_conv_tiles` chooses from: tile sides from
+    ``CONV_TILE_SIDES`` (cut to the output's sides, at most 4:1), channel
+    blocks that divide ``c_out`` in whole quads, and the register tiles of
+    the kernel (K3: ``TASK_SHAPES``; K2, ``grouped=False``:
+    ``PASS_TASK_SHAPES``) whose channels divide the block's; only plans
+    whose shared memory fits a block."""
+    if batch < 1 or h_out < 1 or w_out < 1 or c_out < 4 or c_out % 4:
+        raise ValueError(f"no layer launch of batch {batch}, output "
+                         f"{h_out}x{w_out}x{c_out} (c_out % 4 == 0)")
+    if not grouped and c_out != 4:
+        raise ValueError(f"a pass writes 4 channels, not {c_out}")
+    shapes = TASK_SHAPES if grouped else PASS_TASK_SHAPES
+    sides_h = sorted({min(t, h_out) for t in CONV_TILE_SIDES})
+    sides_w = sorted({min(t, w_out) for t in CONV_TILE_SIDES})
+    out = []
+    for th in sides_h:
+        for tw in sides_w:
+            if max(th, tw) > 4 * min(th, tw) and th < h_out and tw < w_out:
+                continue
+            for co_block in range(4, c_out + 1, 4):
+                if c_out % co_block:
+                    continue
+                for shape in shapes:
+                    if co_block % shape[1]:
+                        continue
+                    tp = conv_tile_layout(batch, h_out, w_out, kh, kw,
+                                          stride, c_in, c_out, th, tw,
+                                          co_block, shape)
+                    if tp.smem_bytes <= SMEM_LIMIT:
+                        out.append(tp)
+    return out
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_conv_tiles(batch: int, h_out: int, w_out: int, kh: int, kw: int,
+                    stride: int, c_in: int, c_out: int, grouped: bool = True
+                    ) -> ConvTilePlan:
+    """The plan of one K3 (``grouped``) or K2 launch: among the
+    candidates of :func:`conv_candidates` that spread over every SM (or
+    over as many blocks as the layer can be cut into, when that is
+    fewer), the one with the least modelled cost; ties go to the fewer
+    blocks, then the larger tile.  Raises ``ValueError`` when no plan
+    fits a block's shared memory."""
+    cands = conv_candidates(batch, h_out, w_out, kh, kw, stride, c_in,
+                            c_out, grouped)
+    if not cands:
+        raise ValueError(f"no tile of a {kh}x{kw}x{c_in} layer fits the "
+                         f"{SMEM_LIMIT} B of shared memory a block may use")
+    return pick_conv_plan(cands)
+
+
+def pick_conv_plan(cands: list[ConvTilePlan], model: ConvCost = CONV_COST
+                   ) -> ConvTilePlan:
+    """:func:`plan_conv_tiles`'s choice among ``cands`` under ``model``."""
+    need = min(N_SMS, max(tp.blocks for tp in cands))
+    return min((tp for tp in cands if tp.blocks >= need),
+               key=lambda tp: (conv_cost(tp.work, model), tp.blocks,
+                               -tp.tile_h * tp.tile_w))
+
+
+__all__ = ["CONV_COST", "CONV_MAX_THREADS", "ConvCost", "ConvTilePlan",
+           "ENCODER_THREADS", "FRAMES_PER_ITEM", "HeadPlan", "LayerPlan",
+           "LayerTile", "MAX_BLOCKS_PER_SM", "N_SMS", "PASS_TASK_SHAPES",
+           "PassPlan", "SMEM_LIMIT", "SMEM_PER_SM", "SMEM_STATIC",
+           "ShaderPass", "TASK_SHAPES", "TilePlan", "build_pass_plan",
+           "conv_candidates", "conv_cost", "conv_tile_layout",
+           "count_passes", "layer_cycles", "out_size", "out_spatial_chain",
+           "pick_conv_plan", "plan_conv_tiles", "plan_tiles", "same_pads",
            "task_shape", "tile_cost", "tile_layout"]

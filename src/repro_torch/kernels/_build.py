@@ -28,8 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = {
-    "miniconv_pass": "miniconv_pass.cu",
-    "miniconv_layer_grouped": "miniconv_layer_grouped.cu",
+    "miniconv_layer": "miniconv_layer.cu",
     "miniconv_encoder": "miniconv_encoder.cu",
     "flash_attention": "flash_attention.cu",
 }

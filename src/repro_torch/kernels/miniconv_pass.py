@@ -1,13 +1,15 @@
 """Wrappers of the port's four MiniConv CUDA kernels.
 
-* :func:`miniconv_pass` (K2) — one shader pass (``csrc/miniconv_pass.cu``),
-  the counterpart of the reference's ``miniconv_pass`` / ``_pass_kernel``.
+* :func:`miniconv_pass` (K2) — one shader pass, the counterpart of the
+  reference's ``miniconv_pass`` / ``_pass_kernel``.
   ``kernels.ops.miniconv_layer`` launches it once per 4-channel output
-  group: the ``reference`` backend, the oracle of the fused tier.
+  group, on the group's weight view: the ``reference`` backend, the
+  oracle of the fused tier.
 * :func:`miniconv_layer_grouped` (K3) — one layer, every output group in
-  one launch (``csrc/miniconv_layer_grouped.cu``), the counterpart of
-  ``miniconv_layer_grouped`` / ``_layer_group_kernel``: the ``grouped``
-  backend.
+  one launch, the counterpart of ``miniconv_layer_grouped`` /
+  ``_layer_group_kernel``: the ``grouped`` backend.  K2 and K3 are one
+  tiled layer kernel (``csrc/miniconv_layer.cu``), cut into blocks by
+  ``core.passplan.plan_conv_tiles``.
 * :func:`miniconv_encoder` (K1) — a whole PassPlan, optionally with the
   projection epilogue, in one launch of one block per halo tile
   (``csrc/miniconv_encoder.cu``), the counterpart of ``miniconv_encoder``
@@ -22,16 +24,20 @@ A wrapper given CPU tensors computes with the kernel's plain PyTorch
 version (``kernels/ref.py``).  Given CUDA tensors it launches the kernel or
 raises; nothing falls back.  Each wrapper counts its launches in a plain
 integer attribute (``miniconv_pass.launches`` and so on) that a run may
-reset and read to show which kernels a path went through.
+reset and read to show which kernels a path went through; K2 and K3 also
+count the inputs they had to copy (``miniconv_pass.copies``,
+``miniconv_layer_grouped.copies``).
 """
 from __future__ import annotations
 
+import array
 import ctypes
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.passplan import ENCODER_THREADS, SMEM_LIMIT
+from repro_torch.core.passplan import (ENCODER_THREADS, SMEM_LIMIT,
+                                      plan_conv_tiles)
 from repro_torch.kernels._build import (aligned, check_rc, launcher,
                                         on_one_device)
 from repro_torch.kernels.ref import (miniconv_encoder_ref,
@@ -53,10 +59,136 @@ def _kernel_arg(t: torch.Tensor, what: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K2: one shader pass
+# K2 and K3: one tiled layer kernel
 # ---------------------------------------------------------------------------
 
-_PASS_ARGS = (_P, _P, _P, _P) + (_I,) * 10 + (_P,)
+# miniconv_pass_launch / miniconv_layer_grouped_launch(const long long*
+# args): the args packed in the order of the source's `enum Arg`
+_LAYER_ARGS = (_P,)
+_LAYER_SYMBOLS = {False: "miniconv_pass_launch",
+                  True: "miniconv_layer_grouped_launch"}
+_layer_fns: dict = {}
+
+
+def _layer_fn(grouped: bool):
+    """K3's (``grouped``) or K2's C entry, resolved and typed once."""
+    fn = _layer_fns.get(grouped)
+    if fn is None:
+        fn = _layer_fns[grouped] = launcher(
+            "miniconv_layer", _LAYER_SYMBOLS[grouped], _LAYER_ARGS)
+    return fn
+
+
+def tap_stride(w: torch.Tensor) -> int:
+    """Floats between neighbouring (i, j, c) taps of a (kh, kw, C_in,
+    C_out) weight when the layer kernels can read it in place: unit-stride
+    output channels and the taps one stride apart in (i, j, c) order, as
+    in a contiguous weight (``C_out``) or its 4-channel group view
+    ``w[..., g:g + 4]`` (the layer's C_out).  0 when they cannot."""
+    (_, kw, c_in, c_out), (s0, s1, s2, s3) = w.shape, w.stride()
+    if s3 == 1 and s2 >= c_out and s1 == c_in * s2 and s0 == kw * s1:
+        return s2
+    return 0
+
+
+def layer_args(ptrs, dims, w_ld: int, tp, device: int,
+               stream: int) -> array.array:
+    """The int64 argument array of one K2 or K3 launch (``enum Arg`` in
+    ``csrc/miniconv_layer.cu``): the pointers of x, w, b and y; ``dims`` =
+    (B, H_in, W_in, C_in, kh, kw, stride, H_out, W_out, C_out); the
+    weight's tap stride; the tile plan ``tp``
+    (``core.passplan.plan_conv_tiles``); the device and stream."""
+    return array.array("q", (*ptrs, *dims, w_ld, *tp.launch_ints, device,
+                             stream))
+
+
+def _layer_inputs(wrapper, x, w, b):
+    """(x, w, b, w's tap stride) as the layer kernels read them: x and b
+    contiguous, w in place where :func:`tap_stride` allows; whatever is
+    not is copied, counted in ``wrapper.copies``."""
+    f32 = torch.float32
+    if x.dtype is not f32 or w.dtype is not f32 or b.dtype is not f32:
+        raise TypeError(f"x, w and b must be float32 for the CUDA kernel, "
+                        f"got {x.dtype}, {w.dtype}, {b.dtype}")
+    if not x.is_contiguous():
+        x = x.contiguous()
+        wrapper.copies += 1
+    if not b.is_contiguous():
+        b = b.contiguous()
+        wrapper.copies += 1
+    ld = tap_stride(w)
+    if not ld:
+        w = w.contiguous()
+        ld = w.shape[-1]
+        wrapper.copies += 1
+    return x, w, b, ld
+
+
+def launch_layer(x, w, b, *, stride: int, tp, grouped: bool):
+    """Launch K3 (``grouped``) or K2 on CUDA tensors with the tile plan
+    ``tp``; returns (B, H_out, W_out, C_out).  The wrappers pass
+    ``plan_conv_tiles``'s plan (None for an empty batch: nothing to
+    launch); a caller may pass any plan of ``conv_candidates``, with which
+    the kernel computes the same values.  Counts no launch."""
+    wrapper = miniconv_layer_grouped if grouped else miniconv_pass
+    B, h_in, w_in, c_in = x.shape
+    kh, kw, _, c_out = w.shape
+    h_out, w_out = (h_in - kh) // stride + 1, (w_in - kw) // stride + 1
+    dev = x.device
+    x, w, b, ld = _layer_inputs(wrapper, x, w, b)
+    y = torch.empty((B, h_out, w_out, c_out), dtype=torch.float32,
+                    device=dev)
+    if tp is None:
+        return y
+    index = dev.index or 0
+    # torch's own accessor of the current stream, as its generated code
+    # calls it: torch.cuda.current_stream(dev).cuda_stream builds a Stream
+    # object and takes a third of a served call's host time
+    # (benchmarks/conv_tiles.py times both)
+    args = layer_args(
+        (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr()),
+        (B, h_in, w_in, c_in, kh, kw, stride, h_out, w_out, c_out), ld, tp,
+        index, torch._C._cuda_getCurrentRawStream(index))
+    check_rc(_layer_fn(grouped)(args.buffer_info()[0]), wrapper.__name__)
+    return y
+
+
+def _layer(wrapper, grouped: bool, x, w, b, stride: int):
+    """K2 (4 channels) or K3 on CUDA tensors, their plain version on CPU
+    tensors, after the checks.  Reads each tensor attribute once: at the
+    served shape the call's host time is most of the layer's cost."""
+    xs, ws, bs = x.shape, w.shape, b.shape
+    B, h_in, w_in, c_in = xs
+    kh, kw, c_in_w, c_out = ws
+    if grouped:
+        if c_in != c_in_w or c_out < 4 or c_out % 4 or tuple(bs) != (c_out,):
+            raise ValueError(f"grouped layer takes x (B,H,W,C), w (kh,kw,C,"
+                             f"C_out%4==0), b (C_out,); got {tuple(xs)}, "
+                             f"{tuple(ws)}, {tuple(bs)}")
+    elif c_in != c_in_w or c_out != 4 or tuple(bs) != (4,):
+        raise ValueError(f"pass takes x (B,H,W,C), w (kh,kw,C,4), b (4,); "
+                         f"got {tuple(xs)}, {tuple(ws)}, {tuple(bs)}")
+    if h_in < kh or w_in < kw or stride < 1:
+        raise ValueError(f"input {h_in}x{w_in} smaller than kernel "
+                         f"{kh}x{kw} or stride {stride} < 1")
+    if grouped and 4 * kh * kw * c_in * c_out > SMEM_LIMIT:
+        raise ValueError(f"layer weights of {4 * kh * kw * c_in * c_out} B "
+                         f"exceed the {SMEM_LIMIT} B of shared memory a "
+                         f"block may use")
+    dev = x.device
+    if w.device != dev or b.device != dev:
+        dev = on_one_device(x, w, b)        # raises, naming the devices
+    if dev.type == "cpu":
+        ref = miniconv_layer_grouped_ref if grouped else miniconv_pass_ref
+        return ref(x, w, b, stride=stride)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    tp = plan_conv_tiles(B, (h_in - kh) // stride + 1,
+                         (w_in - kw) // stride + 1, kh, kw, stride, c_in,
+                         c_out, grouped) if B else None
+    y = launch_layer(x, w, b, stride=stride, tp=tp, grouped=grouped)
+    wrapper.launches += tp is not None
+    return y
 
 
 def miniconv_pass(x, w, b, *, stride: int = 1):
@@ -65,43 +197,17 @@ def miniconv_pass(x, w, b, *, stride: int = 1):
     x: (B, H_in, W_in, C_in); w: (kh, kw, C_in, 4); b: (4,).
     Returns (B, H_out, W_out, 4) with
     H_out = (H_in - kh)//stride + 1, W_out = (W_in - kw)//stride + 1.
-    """
-    B, h_in, w_in, c_in = x.shape
-    kh, kw, c_in_w, c_out = w.shape
-    if c_in != c_in_w or c_out != 4 or tuple(b.shape) != (4,):
-        raise ValueError(f"pass takes x (B,H,W,C), w (kh,kw,C,4), b (4,); "
-                         f"got {tuple(x.shape)}, {tuple(w.shape)}, "
-                         f"{tuple(b.shape)}")
-    if h_in < kh or w_in < kw or stride < 1:
-        raise ValueError(f"input {h_in}x{w_in} smaller than kernel "
-                         f"{kh}x{kw} or stride {stride} < 1")
-    h_out = (h_in - kh) // stride + 1
-    w_out = (w_in - kw) // stride + 1
-    dev = on_one_device(x, w, b)
-    if dev.type == "cpu":
-        return miniconv_pass_ref(x, w, b, stride=stride)
 
-    x = _kernel_arg(x, "x")
-    w = _kernel_arg(w, "w")
-    b = _kernel_arg(b, "b")
-    y = torch.empty((B, h_out, w_out, 4), dtype=torch.float32, device=dev)
-    fn = launcher("miniconv_pass", "miniconv_pass_launch", _PASS_ARGS)
-    rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B,
-            h_in, w_in, c_in, kh, kw, stride, h_out, w_out, dev.index or 0,
-            torch.cuda.current_stream(dev).cuda_stream)
-    check_rc(rc, "miniconv_pass")
-    miniconv_pass.launches += 1
-    return y
+    On CUDA (K2) ``w`` may be the 4-channel group view ``kernel[...,
+    g:g + 4]`` of a layer's weight: the kernel reads it in place.  Inputs
+    it cannot read in place are copied, counted in
+    ``miniconv_pass.copies``.
+    """
+    return _layer(miniconv_pass, False, x, w, b, stride)
 
 
 miniconv_pass.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# K3: one layer, every output group
-# ---------------------------------------------------------------------------
-
-_GROUPED_ARGS = (_P, _P, _P, _P) + (_I,) * 11 + (_P,)
+miniconv_pass.copies = 0
 
 
 def miniconv_layer_grouped(x, w, b, *, stride: int = 1):
@@ -109,42 +215,16 @@ def miniconv_layer_grouped(x, w, b, *, stride: int = 1):
 
     x: (B, H_in, W_in, C_in) pre-padded; w: (kh, kw, C_in, C_out) with
     C_out % 4 == 0 (callers pad; see ``kernels.ops.miniconv_layer``);
-    b: (C_out,).  Returns (B, H_out, W_out, C_out).
+    b: (C_out,).  Returns (B, H_out, W_out, C_out).  On CUDA (K3) it sums
+    each output as K2 does, so it equals K2's groups bit for bit; inputs
+    it cannot read in place are copied, counted in
+    ``miniconv_layer_grouped.copies``.
     """
-    B, h_in, w_in, c_in = x.shape
-    kh, kw, c_in_w, c_out = w.shape
-    if c_in != c_in_w or c_out < 4 or c_out % 4 or tuple(b.shape) != (c_out,):
-        raise ValueError(f"grouped layer takes x (B,H,W,C), w (kh,kw,C,"
-                         f"C_out%4==0), b (C_out,); got {tuple(x.shape)}, "
-                         f"{tuple(w.shape)}, {tuple(b.shape)}")
-    if h_in < kh or w_in < kw or stride < 1:
-        raise ValueError(f"input {h_in}x{w_in} smaller than kernel "
-                         f"{kh}x{kw} or stride {stride} < 1")
-    if 4 * w.numel() > SMEM_LIMIT:
-        raise ValueError(f"layer weights of {4 * w.numel()} B exceed the "
-                         f"{SMEM_LIMIT} B of shared memory a block may use")
-    h_out = (h_in - kh) // stride + 1
-    w_out = (w_in - kw) // stride + 1
-    dev = on_one_device(x, w, b)
-    if dev.type == "cpu":
-        return miniconv_layer_grouped_ref(x, w, b, stride=stride)
-
-    x = _kernel_arg(x, "x")
-    w = _kernel_arg(w, "w")
-    b = _kernel_arg(b, "b")
-    y = torch.empty((B, h_out, w_out, c_out), dtype=torch.float32,
-                    device=dev)
-    fn = launcher("miniconv_layer_grouped", "miniconv_layer_grouped_launch",
-                  _GROUPED_ARGS)
-    rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), B,
-            h_in, w_in, c_in, kh, kw, stride, h_out, w_out, c_out,
-            dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
-    check_rc(rc, "miniconv_layer_grouped")
-    miniconv_layer_grouped.launches += 1
-    return y
+    return _layer(miniconv_layer_grouped, True, x, w, b, stride)
 
 
 miniconv_layer_grouped.launches = 0
+miniconv_layer_grouped.copies = 0
 
 
 # ---------------------------------------------------------------------------
@@ -370,6 +450,7 @@ def miniconv_encoder_stream(x, weights, biases, plan, *, chunk_b: int,
 miniconv_encoder_stream.launches = 0
 
 
-__all__ = ["encoder_desc", "head_parts", "miniconv_encoder",
-           "miniconv_encoder_stream", "miniconv_layer_grouped",
-           "miniconv_pass", "prepare_fused_head"]
+__all__ = ["encoder_desc", "head_parts", "launch_layer", "layer_args",
+           "miniconv_encoder", "miniconv_encoder_stream",
+           "miniconv_layer_grouped", "miniconv_pass", "prepare_fused_head",
+           "tap_stride"]

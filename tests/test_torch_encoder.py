@@ -131,6 +131,29 @@ def test_pass_wrapper_matches_reference_pass_kernel(kernel, stride, h, w):
     _close(got, want, FEAT_TOL)
 
 
+@pytest.mark.parametrize("g", [0, 8])
+@pytest.mark.parametrize("kernel,stride", [(3, 1), (4, 2)])
+def test_pass_wrapper_takes_a_weight_group_view(kernel, stride, g):
+    """K2 given its group's weights as the non-contiguous view
+    ``w[..., g:g + 4]`` of a 12-channel layer weight (as the ``reference``
+    tier passes them), against the reference's pass kernel on the same
+    group."""
+    rng = np.random.default_rng(kernel * 10 + stride + g)
+    x = rng.random((2, 17, 23, 8), dtype=np.float32)
+    wt = rng.normal(0, 0.2, (kernel, kernel, 8, 12)).astype(np.float32)
+    b = rng.normal(0, 0.1, (12,)).astype(np.float32)
+    want = j_kernels.miniconv_pass(jnp.asarray(x),
+                                   jnp.asarray(wt[..., g:g + 4]),
+                                   jnp.asarray(b[g:g + 4]), stride=stride)
+    view = torch.from_numpy(wt)[..., g:g + 4]
+    assert not view.is_contiguous()
+    got = t_kernels.miniconv_pass(torch.from_numpy(x), view,
+                                  torch.from_numpy(b)[g:g + 4],
+                                  stride=stride)
+    assert tuple(got.shape) == want.shape
+    _close(got, want, FEAT_TOL)
+
+
 @pytest.mark.parametrize("c_out", [4, 6, 16])
 def test_per_pass_layer_matches_reference(c_out):
     rng = np.random.default_rng(c_out)

@@ -67,6 +67,32 @@ def test_grouped_wrapper_matches_reference_grouped_kernel(kernel, stride, h,
     _close(got, want, FEAT_TOL)
 
 
+@pytest.mark.parametrize("kernel,stride,h,w,c_in,c_out", [
+    (3, 2, 17, 23, 8, 16),
+    (4, 2, 24, 24, 12, 16),
+])
+def test_pass_group_views_match_reference_grouped_kernel(kernel, stride, h,
+                                                         w, c_in, c_out):
+    """K2 on each group's non-contiguous ``w[..., g:g + 4]`` view, the
+    groups concatenated, against the reference's grouped kernel in
+    interpret mode; and equal to the port's K3 bit for bit."""
+    rng = np.random.default_rng(kernel * 100 + h + 1)
+    x = rng.random((2, h, w, c_in), dtype=np.float32)
+    wt = rng.normal(0, 0.2, (kernel, kernel, c_in, c_out)).astype(np.float32)
+    b = rng.normal(0, 0.1, (c_out,)).astype(np.float32)
+    want = j_kernels.miniconv_layer_grouped(
+        jnp.asarray(x), jnp.asarray(wt), jnp.asarray(b), stride=stride,
+        interpret=True)
+    xt, wv, bv = map(torch.from_numpy, (x, wt, b))
+    parts = [t_kernels.miniconv_pass(xt, wv[..., g:g + 4], bv[g:g + 4],
+                                     stride=stride)
+             for g in range(0, c_out, 4)]
+    got = torch.cat(parts, dim=-1)
+    _close(got, want, FEAT_TOL)
+    assert torch.equal(got, t_kernels.miniconv_layer_grouped(
+        xt, wv, bv, stride=stride))
+
+
 @pytest.mark.parametrize("c_out", [4, 6, 13])
 def test_grouped_layer_matches_reference_including_ragged_groups(c_out):
     """``ops.miniconv_layer(fused_groups=True)`` pads a c_out % 4 != 0

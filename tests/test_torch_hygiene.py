@@ -53,8 +53,7 @@ def test_port_files_exist():
         assert mod in names, mod
     assert len([n for n in names if n.startswith("configs/")]) == 11
     assert {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")} == \
-        {"miniconv_encoder.cu", "miniconv_layer_grouped.cu",
-         "miniconv_pass.cu", "flash_attention.cu"}
+        {"miniconv_encoder.cu", "miniconv_layer.cu", "flash_attention.cu"}
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)

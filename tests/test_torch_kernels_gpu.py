@@ -101,10 +101,15 @@ def test_encoder_kernel_matches_plain(cuda, spec, B, H, W, D, min_tiles):
     assert D is None or torch.equal(got[1], again[1])
 
 
-def test_pass_kernel_matches_plain_on_every_standard_layer(cuda):
-    spec = standard_spec(c_in=12, k=4)
-    plan, x, ws, bs, _, _ = _case(spec, 4, 84, 84, None, cuda)
+@pytest.mark.parametrize("B,H,c_in", [(4, 84, 12), (2, 400, 4)])
+def test_pass_kernel_matches_plain_on_every_standard_layer(cuda, B, H, c_in):
+    """K2 on each 4-channel group view of every standard layer, at 84x84
+    and 400x400: within 1e-5 of the plain version, nothing copied, the
+    same bits on a second run."""
+    spec = standard_spec(c_in=c_in, k=4)
+    plan, x, ws, bs, _, _ = _case(spec, B, H, H, None, cuda)
     y = x
+    kmod.miniconv_pass.copies = 0
     for l, w, b in zip(plan.layers, ws, bs):
         xp = same_pad(y, l.kernel, l.stride)
         for g in range(0, l.c_out, 4):
@@ -114,7 +119,103 @@ def test_pass_kernel_matches_plain_on_every_standard_layer(cuda):
             want = miniconv_pass_ref(xp, wg, bg, stride=l.stride)
             torch.testing.assert_close(got, want, atol=FEAT_TOL,
                                        rtol=FEAT_TOL)
+            assert torch.equal(got, kmod.miniconv_pass(xp, wg, bg,
+                                                       stride=l.stride))
         y = torch.relu(miniconv_pass_ref(xp, w, b, stride=l.stride))
+    assert kmod.miniconv_pass.copies == 0
+
+
+# (kh, kw, stride, c_in, c_out, B, H_in, W_in): the three compile-time
+# shapes of the standard layers, then the generic instantiation (stride 1,
+# c_in % 4 != 0, kh != kw, stride 3, the ODD spec's padded last layer)
+LAYER_SHAPES = [
+    (4, 4, 2, 12, 16, 1, 86, 86), (3, 3, 2, 16, 16, 8, 43, 43),
+    (3, 3, 2, 16, 4, 2, 23, 23), (4, 4, 2, 4, 16, 2, 402, 402),
+    (3, 3, 1, 8, 8, 2, 17, 23), (3, 3, 1, 6, 8, 1, 19, 16),
+    (2, 3, 1, 5, 4, 2, 9, 14), (3, 3, 3, 4, 8, 1, 25, 31),
+    (3, 3, 2, 16, 8, 3, 23, 22),
+]
+
+
+@pytest.mark.parametrize("kh,kw,s,c_in,c_out,B,H,W", LAYER_SHAPES)
+def test_layer_kernels_match_plain_with_every_plan(cuda, kh, kw, s, c_in,
+                                                   c_out, B, H, W):
+    """K3 with the planner's plan and with one plan of each register tile
+    (on a ragged 5x7 tile), and K2 on each group view: within 1e-5 of the
+    plain version and all bit for bit equal, since every plan sums each
+    output in one order."""
+    from repro_torch.core.passplan import (PASS_TASK_SHAPES, TASK_SHAPES,
+                                           conv_tile_layout)
+    gen = torch.Generator().manual_seed(kh * 100 + c_in * 10 + s)
+    x = torch.rand((B, H, W, c_in), generator=gen).to(cuda)
+    w = (torch.randn((kh, kw, c_in, c_out), generator=gen) * 0.2).to(cuda)
+    b = (torch.randn(c_out, generator=gen) * 0.1).to(cuda)
+    ho, wo = (H - kh) // s + 1, (W - kw) // s + 1
+    want = miniconv_layer_grouped_ref(x, w, b, stride=s)
+    got = kmod.miniconv_layer_grouped(x, w, b, stride=s)
+    torch.testing.assert_close(got, want, atol=FEAT_TOL, rtol=FEAT_TOL)
+    for shape in TASK_SHAPES:
+        cob = c_out if c_out % shape[1] == 0 else None
+        if cob is None:
+            continue
+        tp = conv_tile_layout(B, ho, wo, kh, kw, s, c_in, c_out, min(5, ho),
+                              min(7, wo), cob, shape)
+        other = kmod.launch_layer(x, w, b, stride=s, tp=tp, grouped=True)
+        assert torch.equal(other, got), shape
+    for g in range(0, c_out, 4):
+        part = kmod.miniconv_pass(x, w[..., g:g + 4], b[g:g + 4], stride=s)
+        assert torch.equal(part, got[..., g:g + 4])
+        for shape in PASS_TASK_SHAPES:
+            alt = conv_tile_layout(B, ho, wo, kh, kw, s, c_in, 4,
+                                   min(3, ho), min(4, wo), 4, shape)
+            assert torch.equal(kmod.launch_layer(
+                x, w[..., g:g + 4], b[g:g + 4], stride=s, tp=alt,
+                grouped=False), part), shape
+    assert torch.equal(got, kmod.miniconv_layer_grouped(x, w, b, stride=s))
+
+
+def test_layer_kernels_copy_only_what_they_cannot_address(cuda):
+    """A transposed weight and a strided input are copied and counted; a
+    group view and a misaligned (4-byte offset) input are read in
+    place."""
+    gen = torch.Generator().manual_seed(11)
+    big = torch.rand((1, 20, 20, 13), generator=gen).to(cuda)
+    x = big[..., 1:]                       # strided: copied
+    w = (torch.randn((4, 3, 3, 12), generator=gen) * 0.2).to(cuda)
+    b = torch.zeros(4, device=cuda)
+    kmod.miniconv_pass.copies = 0
+    got = kmod.miniconv_pass(x, w.permute(1, 2, 3, 0), b, stride=2)
+    assert kmod.miniconv_pass.copies == 2
+    torch.testing.assert_close(
+        got, miniconv_pass_ref(x, w.permute(1, 2, 3, 0), b, stride=2),
+        atol=FEAT_TOL, rtol=FEAT_TOL)
+    flat = torch.rand(1 + 20 * 20 * 12, generator=gen).to(cuda)
+    xm = flat[1:].view(1, 20, 20, 12)      # 4 bytes off 16-byte alignment
+    wl = (torch.randn((3, 3, 12, 16), generator=gen) * 0.2).to(cuda)
+    kmod.miniconv_pass.copies = 0
+    got = kmod.miniconv_pass(xm, wl[..., 8:12], b, stride=2)
+    assert kmod.miniconv_pass.copies == 0
+    torch.testing.assert_close(
+        got, miniconv_pass_ref(xm, wl[..., 8:12], b, stride=2),
+        atol=FEAT_TOL, rtol=FEAT_TOL)
+
+
+def test_served_reference_request_makes_no_copies(cuda):
+    """One served frame on the reference tier: 9 K2 launches on the
+    layers' group views, no input copied."""
+    spec = standard_spec(c_in=12, k=4)
+    params = miniconv_init(torch.Generator().manual_seed(6), spec,
+                           device=cuda)
+    x = torch.rand((1, 84, 84, 12), generator=torch.Generator()
+                   .manual_seed(7)).to(cuda)
+    kmod.miniconv_pass.launches = kmod.miniconv_pass.copies = 0
+    out = miniconv_apply(params, spec, x, use_kernel="reference")
+    torch.cuda.synchronize()
+    assert kmod.miniconv_pass.launches == 9
+    assert kmod.miniconv_pass.copies == 0
+    torch.testing.assert_close(
+        out, miniconv_apply(params, spec, x, use_kernel="xla"),
+        atol=FEAT_TOL, rtol=FEAT_TOL)
 
 
 def test_tiers_agree_and_count_launches(cuda):
