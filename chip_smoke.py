@@ -16,8 +16,15 @@ points: it serves split-policy decisions from a deployment manifest
 (``fused``, ``fused+head``, ``reference`` and ``grouped`` backends), tunes
 the manifest on the card with ``python -m repro_torch.deploy --tune`` and
 serves through the tuned build, encodes 64 frames of 400x400x4 through
-``fused+stream``, and serves one split decision of Qwen3-0.6B at full
-width (random weights from a seed) through ``repro_torch.launch.serve``.
+``fused+stream``, serves one split decision of Qwen3-0.6B at full
+width (random weights from a seed) through ``repro_torch.launch.serve``,
+and runs the paper's latency path on the tuned manifest: Table 5
+(``benchmarks.decision_latency``: split below server-only at 10 Mb/s, the
+edge kernel launched), Table 6 and the fleet table on the card's measured
+t(B) curve (``benchmarks.scalability``: the smoke and fleet-monotone
+gates), the break-even bandwidth with the edge encode time measured on the
+card (``benchmarks.break_even``), and the ``wifi_markov`` scenario twice,
+bitwise equal.
 Each path runs with every launch count set to 0 just before it and read
 just after; the actions are checked against the eager ``xla`` build of
 the same manifest, and the LM's logits against its monolith and against
@@ -1067,7 +1074,111 @@ def main() -> int:
           "python -m repro_torch.launch.serve failed")
     print(f"peak device memory {torch.cuda.max_memory_allocated()} B")
 
-    # ---- 12. results -------------------------------------------------------
+    # ---- 12. the paper's latency path on the card --------------------------
+    # Table 5 (decision latency under bandwidth shaping), Table 6 (clients
+    # a server sustains, FIFO against micro-batching, and the fleet), the
+    # break-even bandwidth and one seeded scenario, all on the tuned
+    # manifest's stage times measured here.  cuDNN's TF32 stays off (phase
+    # 1): the server-only baseline's convs are fp32.
+    from repro_torch.benchmarks import (break_even, decision_latency,
+                                        scalability)
+    from repro_torch.serving.scenario import get_scenario
+
+    t_lat = time.perf_counter()
+    # the kernel each backend's edge encode launches (a one-frame request
+    # on fused+stream falls through to K1's plain launch)
+    edge_kernel = {"fused": miniconv_encoder, "fused+head": miniconv_encoder,
+                   "fused+stream": miniconv_encoder,
+                   "reference": miniconv_pass,
+                   "grouped": miniconv_layer_grouped}
+    lat_cfg = dataclasses.replace(tuned_cfg, n_servers=4,
+                                  router="least_loaded")
+    if tp.backend not in edge_kernel:
+        print(f"latency path: the tuner picked {tp.backend}, which launches "
+              f"no hand kernel on the edge; the path runs on fused (K1)")
+        lat_cfg = dataclasses.replace(lat_cfg, backend="fused", tuning=None)
+    setup = decision_latency.build(config=lat_cfg, device="cuda")
+    lat_backend = setup.deployment.backend.name
+    lat_kernel = edge_kernel[lat_backend]
+    check(setup.wire_bytes == 492 and setup.frame_bytes == 84 * 84 * 12,
+          f"latency path: wire {setup.wire_bytes} B, frame "
+          f"{setup.frame_bytes} B")
+    reset_counts()
+    rows5 = decision_latency.run((10, 25, 50, 100), n_decisions=1000,
+                                 setup=setup)
+    torch.cuda.synchronize()
+    lat_counts = counts()
+    lat_launches = lat_kernel.launches
+    check(lat_launches > 0, f"Table 5 on {lat_backend} launched K1..K5 "
+          f"{lat_counts}: its edge kernel ran no time")
+    r10 = rows5[0]
+    check(r10["mbps"] == 10 and r10["split_ms"] < r10["server_only_ms"],
+          f"at 10 Mb/s split {r10['split_ms']} ms is not below server-only "
+          f"{r10['server_only_ms']} ms")
+    print(f"latency Table 5 on {lat_backend}: launches K1..K5 {lat_counts}; "
+          f"split {r10['split_ms']:.4f} ms < server-only "
+          f"{r10['server_only_ms']:.4f} ms at 10 Mb/s")
+
+    times, model = decision_latency.measure_service_curve(setup, max_batch=8)
+    queue = decision_latency.run_queue(n_clients=8, setup=setup, model=model)
+    fifo_p95, batched_p95 = queue["fifo_p95_ms"], queue["batched_p95_ms"]
+    check(batched_p95 <= 1.05 * fifo_p95 + 1e-9,
+          f"smoke gate: batched p95 {batched_p95} ms > 1.05 x FIFO p95 "
+          f"{fifo_p95} ms at N=8")
+    check("fleet_p95_ms" in queue, "run_queue gave no fleet p95 for a "
+          "4-server manifest")
+    rows6, p95s = scalability.run(n_max=256, horizon_s=2.0, setup=setup,
+                                  model=model)
+    # the reference's --smoke sizes
+    fleet_n_max, fleet_horizon = 2048, 2.0
+    table = scalability.fleet_table(setup, model, mbps=1000.0,
+                                    horizon_s=fleet_horizon,
+                                    n_max=fleet_n_max, max_batch=8,
+                                    max_wait_s=0.0)
+    check(scalability.check_fleet_monotone(table, min_gain_at_4x=2.0,
+                                           n_max=fleet_n_max),
+          f"fleet table not monotone with >= 2x at 4 servers: {table}")
+
+    rows_be = break_even.run()
+    check(abs(rows_be[0]["pred"] - 50.4) < 0.05,
+          f"paper break-even {rows_be[0]['pred']} Mb/s, expected 50.4")
+    lat_manifest = ROOT / "build" / "latency_manifest.json"
+    lat_manifest.write_text(lat_cfg.to_json(indent=2))
+    be = break_even.run_manifest(str(lat_manifest), device="cuda")
+
+    sc = get_scenario("wifi_markov")
+    rep1, rep2 = (setup.deployment.scenario_sim(sc).report(sc.n_clients)
+                  for _ in range(2))
+    check(rep1.latencies.tobytes() == rep2.latencies.tobytes()
+          and rep1.mode_idx.tobytes() == rep2.mode_idx.tobytes()
+          and rep1.total_uplink_bytes == rep2.total_uplink_bytes
+          and rep1.delivered_return == rep2.delivered_return,
+          "wifi_markov: two runs of one seed differ")
+    lat_s = time.perf_counter() - t_lat
+    print(f"scenario wifi_markov (seed {sc.seed}, {sc.n_clients} clients, "
+          f"{lat_cfg.n_servers} servers, {lat_cfg.router}): two runs "
+          f"bitwise equal; {rep1.n_requests} requests, p95 "
+          f"{rep1.p95_s * 1e3:.4f} ms, deadline hit rate "
+          f"{rep1.deadline_hit_rate:.4f}, modes {rep1.mode_counts()}")
+    latency_path = {
+        "backend": lat_backend, "launches": list(lat_counts),
+        "table5": rows5,
+        "service_ms": {b: t * 1e3 for b, t in sorted(times.items())},
+        "queue": queue, "table6": rows6,
+        "table6_n_max": 256, "split_p95_ms": {n: list(v) for n, v in
+                                               p95s.items()},
+        "fleet": table, "fleet_n_max": fleet_n_max,
+        "fleet_horizon_s": fleet_horizon, "fleet_mbps": 1000.0,
+        "break_even_paper": rows_be, "break_even_manifest": be,
+        "scenario": {"name": sc.name, "p95_ms": rep1.p95_s * 1e3,
+                     "hit_rate": rep1.deadline_hit_rate,
+                     "modes": rep1.mode_counts(), "bitwise_repeat": True},
+        "seconds": lat_s}
+    print(f"latency path: {lat_s:.2f} s")
+    print(json.dumps({"latency_path": latency_path}, default=float))
+    del setup
+
+    # ---- 13. results -------------------------------------------------------
     k1 = k1_rows["served edge"]
     def layer_row(rows, dev_us):
         """The served frame's row, with the 400x400 and batch-8 times."""
@@ -1118,6 +1229,9 @@ def main() -> int:
                 for key in ("ms", "device_us", "library_ms", "bound_ms",
                             "tflops")}),
     ]
+    for k in kernels:
+        if k["name"] == lat_kernel.__name__:
+            k["latency_path_launches"] = lat_launches
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was launched no time on its path")
     print(json.dumps({"kernels": kernels}))

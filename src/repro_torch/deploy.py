@@ -22,9 +22,12 @@ Quick start::
     actions = server.serve([client.encode_fn(obs)])
 
 Run ``python -m repro_torch.deploy --verify`` to write and round-trip-
-verify a manifest, and ``--tune`` to measure every backend on the device
-(``core.tuning``) and freeze the winner into it.  Not ported yet (see
-ROADMAP.md): the fleet and real fleet, the scenario simulation and
+verify a manifest, ``--tune`` to measure every backend on the device
+(``core.tuning``) and freeze the winner into it, and ``--scenario NAME`` to
+run the manifest through a registered serving scenario.  The manifest's
+fleet shape (``n_servers``, ``router``) drives :meth:`Deployment.fleet_sim`
+and :meth:`Deployment.scenario_sim`.  Not ported yet (see ROADMAP.md): the
+real multi-process fleet (``Deployment.fleet``, ``--real-fleet``) and
 ``export_best``.
 """
 from __future__ import annotations
@@ -50,16 +53,13 @@ from repro_torch.nn.layers import dense
 from repro_torch.rl.networks import Encoder, miniconv_encoder_init
 from repro_torch.schema import check_version
 from repro_torch.serving.client import EdgeClient
+from repro_torch.serving.fleet import ROUTERS, FleetQueueSim
 from repro_torch.serving.server import BatchingPolicyServer
 
 # version 2 added the optional ``tuning`` block (a frozen TunedPlan);
 # version-1 manifests load unchanged with ``tuning=None``.
 CONFIG_VERSION = 2
 _READABLE_VERSIONS = (1, 2)
-
-# The fleet routing policies of repro.serving.fleet, by name.  The fleet
-# itself is not ported yet; a manifest naming another router is refused.
-ROUTERS = ("round_robin", "client_affinity", "least_loaded")
 
 
 # ---------------------------------------------------------------------------
@@ -87,7 +87,9 @@ class DeploymentConfig:
     tile_h          : the reference's output-row tile; the CUDA kernel has
                       no row tiles, so it does not change the result.
     quantize_in_train : straight-through-quantise features in training.
-    n_servers, router : fleet shape (the fleet is not ported yet).
+    n_servers       : fleet size: how many micro-batching servers share
+                      the ingress (1 = the paper's Table 6 single server).
+    router          : fleet routing policy (``serving.fleet.ROUTERS``).
     tuning          : optional frozen :class:`TunedPlan`, honoured only
                       when the port measured it (see :meth:`Deployment.build`).
     """
@@ -442,6 +444,70 @@ class Deployment:
         """The paper's Figure-5 pipeline, ready to measure."""
         return self.client(params), self.server(params, head)
 
+    def fleet_sim(self, service_model: Callable[[int], float], *, uplink,
+                  rate_hz: float = 10.0, horizon_s: float = 5.0,
+                  action_bytes: int = 64,
+                  n_servers: Optional[int] = None,
+                  router: Optional[str] = None,
+                  max_batch: Optional[int] = None,
+                  max_wait_s: Optional[float] = None) -> FleetQueueSim:
+        """Fleet-scale queue simulator for THIS deployment.
+
+        Payload bytes, micro-batching policy and fleet shape
+        (``n_servers`` / ``router``) all come from the manifest; keyword
+        overrides take precedence, so a benchmark sweeping the batching
+        policy keeps the sim on the policy it MEASURED t(B) under.
+        ``service_model`` is that measured curve
+        (``BatchingPolicyServer.service_model()``), charged by every
+        server.  At ``n_servers=1`` this is the Table 6 batched
+        simulation.
+        """
+        cfg = self.config
+        return FleetQueueSim(
+            service_time_s=service_model(1), uplink=uplink,
+            payload_bytes=self.wire_bytes, action_bytes=action_bytes,
+            rate_hz=rate_hz, horizon_s=horizon_s,
+            max_batch=cfg.max_batch if max_batch is None else max_batch,
+            max_wait_s=cfg.max_wait_ms / 1e3 if max_wait_s is None
+            else max_wait_s,
+            service_model=service_model,
+            n_servers=cfg.n_servers if n_servers is None else n_servers,
+            router=cfg.router if router is None else router)
+
+    def scenario_sim(self, scenario, *,
+                     n_servers: Optional[int] = None,
+                     router: Optional[str] = None,
+                     max_batch: Optional[int] = None,
+                     max_wait_s: Optional[float] = None,
+                     adaptation: str = "none",
+                     service_model: Optional[Callable[[int], float]] = None):
+        """This deployment under a named (or inline) :class:`Scenario`.
+
+        The scenario supplies the serving condition (its seeded link, its
+        device zoo cycled across the servers, client population and rate,
+        adaptation-mode ladder); the manifest supplies the deployment:
+        payload bytes (``wire_bytes``), micro-batching policy and fleet
+        shape, with the keyword-override precedence of :meth:`fleet_sim`.
+        ``adaptation`` picks the controller (``"none"``, ``"rule"``,
+        ``"static:<i>"`` or a registered one); a measured
+        ``service_model`` replaces the zoo on every server.  Returns a
+        :class:`~repro_torch.serving.scenario.ScenarioFleetSim`; call
+        ``.report(n_clients)``.
+        """
+        from repro_torch.serving.scenario import get_scenario
+        sc = get_scenario(scenario)
+        cfg = self.config
+        ns = cfg.n_servers if n_servers is None else n_servers
+        return sc.sim(
+            self.wire_bytes, n_servers=ns,
+            router=cfg.router if router is None else router,
+            max_batch=cfg.max_batch if max_batch is None else max_batch,
+            max_wait_s=cfg.max_wait_ms / 1e3 if max_wait_s is None
+            else max_wait_s,
+            adaptation=adaptation,
+            service_models=None if service_model is None
+            else (service_model,) * ns)
+
 
 # ---------------------------------------------------------------------------
 # Manifest CLI: python -m repro_torch.deploy
@@ -472,6 +538,27 @@ def _verify_roundtrip(cfg: DeploymentConfig, *, device: DeviceLike = None,
             raise AssertionError(f"reloaded manifest changed payload {k!r}")
 
 
+def _scenario_report(dep: "Deployment", name: str) -> None:
+    """Run one registered scenario against this deployment and print the
+    static-against-adaptive scorecard (simulation only)."""
+    from repro_torch.serving.scenario import get_scenario
+    sc = get_scenario(name)
+    print(f"  scenario {sc.name}: link={sc.link_kind} seed={sc.seed} "
+          f"devices={','.join(sc.devices)} N={sc.n_clients} "
+          f"rate={sc.rate_hz}Hz horizon={sc.horizon_s}s "
+          f"deadline={sc.deadline_s * 1e3:.0f}ms")
+    policies = ([f"static:{i}" for i in range(len(sc.modes))]
+                + (["rule"] if len(sc.modes) > 1 else []))
+    for adapt in policies:
+        rep = dep.scenario_sim(sc, adaptation=adapt).report(sc.n_clients)
+        modes = " ".join(f"{k}={v}" for k, v in rep.mode_counts().items()
+                         if v)
+        print(f"    {adapt:<9} p95={rep.p95_s * 1e3:8.2f}ms "
+              f"mean={rep.mean_s * 1e3:7.2f}ms "
+              f"return={rep.delivered_return:.4f} "
+              f"bytes={rep.total_uplink_bytes / 1e6:.3f}MB  [{modes}]")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Build the standard deployment config, write its "
@@ -483,7 +570,8 @@ def main(argv=None):
                     help=f"one of: {', '.join(backend_names())}")
     ap.add_argument("--codec", default="uint8")
     ap.add_argument("--max-batch", type=int, default=8)
-    ap.add_argument("--n-servers", type=int, default=1)
+    ap.add_argument("--n-servers", type=int, default=1,
+                    help="fleet size for the sharded serving simulation")
     ap.add_argument("--router", default="round_robin",
                     help=f"fleet routing policy: {', '.join(ROUTERS)}")
     ap.add_argument("--out", default="deploy_manifest.json")
@@ -498,6 +586,11 @@ def main(argv=None):
                          "winning TunedPlan into the written manifest")
     ap.add_argument("--tune-iters", type=int, default=5,
                     help="timing repetitions per measured candidate")
+    ap.add_argument("--scenario", default=None,
+                    help="run the manifest through a registered serving "
+                         "scenario (repro_torch.serving.scenario: seeded "
+                         "link + device zoo) and print the per-static-mode "
+                         "and rule-controller comparison")
     args = ap.parse_args(argv)
 
     cfg = DeploymentConfig.standard(k=args.k, c_in=args.c_in, h=args.x,
@@ -528,11 +621,14 @@ def main(argv=None):
     print(f"  round-trip OK: backend={dep.backend.name} "
           f"plan={dep.plan.total_passes} passes "
           f"feature={dep.plan.feature_shape} wire={dep.wire_bytes}B "
-          f"max_safe_batch={dep.max_safe_batch} device={dep.device}")
+          f"max_safe_batch={dep.max_safe_batch} "
+          f"fleet={cfg.n_servers}x/{cfg.router} device={dep.device}")
     if args.verify:
         _verify_roundtrip(cfg, device=args.device)
         print("  verified: reloaded manifest reproduces identical encoder "
               "outputs and wire payloads")
+    if args.scenario:
+        _scenario_report(dep, args.scenario)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,12 @@
-"""The split MiniConv encoder and the deterministic policy/value heads
-(port of the serving part of ``repro.rl.networks``).
+"""The split MiniConv encoder, the Full-CNN baseline and the deterministic
+policy/value heads (port of the serving part of ``repro.rl.networks``).
 
+* ``full_cnn`` — the SB3 NatureCNN feature extractor, the paper's
+  server-only baseline: VALID convs 8x8/4 x32, 4x4/2 x64, 3x3/1 x64,
+  flatten, dense 512 + ReLU.  Kernels are HWIO and dense weights
+  ``(in, out)``, so ``convert.params_from_jax`` carries the reference's
+  tree unchanged.  The reference runs these convs outside any Pallas
+  kernel, so here they are ``F.conv2d`` through ``nn.layers.conv2d``.
 * ``miniconv`` — the paper's on-device encoder; the conv stack is the
   *edge* half, the flatten + dense(512) belongs to the *server* half, so
   the wire tensor is exactly the K-channel feature map the paper sends.
@@ -18,7 +24,7 @@ import torch
 from repro_torch.core.miniconv import (MiniConvSpec, miniconv_apply,
                                        miniconv_init)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.nn.layers import dense, dense_init
+from repro_torch.nn.layers import conv2d, conv2d_init, dense, dense_init
 from repro_torch.nn.module import orthogonal_init
 
 FEATURE_DIM = 512
@@ -27,6 +33,35 @@ FEATURE_DIM = 512
 # ---------------------------------------------------------------------------
 # Encoders
 # ---------------------------------------------------------------------------
+
+def full_cnn_init(gen: torch.Generator, c_in: int, *, h: int = 84,
+                  w: int = 84, device: DeviceLike = None):
+    dev = resolve_device(device)
+    # NatureCNN spatial sizes for 84x84 (VALID padding as in SB3/torch)
+    h1, w1 = (h - 8) // 4 + 1, (w - 8) // 4 + 1       # 20
+    h2, w2 = (h1 - 4) // 2 + 1, (w1 - 4) // 2 + 1     # 9
+    h3, w3 = h2 - 3 + 1, w2 - 3 + 1                   # 7
+    if h3 < 1 or w3 < 1:
+        raise ValueError(f"full_cnn needs an input of at least 36x36, got "
+                         f"{h}x{w}")
+    flat = h3 * w3 * 64
+    return {
+        "conv1": conv2d_init(gen, 8, 8, c_in, 32, device=dev),
+        "conv2": conv2d_init(gen, 4, 4, 32, 64, device=dev),
+        "conv3": conv2d_init(gen, 3, 3, 64, 64, device=dev),
+        "proj": dense_init(gen, flat, FEATURE_DIM, use_bias=True,
+                           device=dev),
+    }
+
+
+def full_cnn_apply(params, obs):
+    """obs: (B, H, W, C) in [0,1] -> (B, 512)."""
+    x = torch.relu(conv2d(params["conv1"], obs, stride=4, padding="VALID"))
+    x = torch.relu(conv2d(params["conv2"], x, stride=2, padding="VALID"))
+    x = torch.relu(conv2d(params["conv3"], x, stride=1, padding="VALID"))
+    x = x.reshape(x.shape[0], -1)
+    return torch.relu(dense(params["proj"], x))
+
 
 def miniconv_encoder_init(gen: torch.Generator, spec: MiniConvSpec, *,
                           h: int = 84, w: int = 84,
@@ -152,7 +187,7 @@ def det_actor(params, feats):
 
 
 __all__ = ["Encoder", "FEATURE_DIM", "det_actor", "det_actor_init",
-           "gaussian_actor", "gaussian_actor_init", "miniconv_edge_apply",
+           "full_cnn_apply", "full_cnn_init", "gaussian_actor", "gaussian_actor_init", "miniconv_edge_apply",
            "miniconv_encoder_init", "miniconv_server_apply", "mlp_apply",
            "mlp_init", "q_critic", "q_critic_init", "squashed_actor_init",
            "squashed_actor_mode", "v_critic", "v_critic_init"]

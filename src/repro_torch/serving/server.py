@@ -5,7 +5,16 @@ time.  ``BatchingPolicyServer`` serves queued requests as ONE batched call
 (up to ``max_batch``) and measures the service-time curve t(B) that
 :class:`BatchServiceModel` interpolates.  Timings wait for the device with
 :func:`_block` before reading the host clock on both sides of the window.
-The queue simulators come with the fleet.
+
+``QueueSim`` reproduces the paper's Table 6 setting: N clients at a fixed
+decision rate against one FIFO server, reporting p95 decision latency
+(queueing + service + transfer).  ``BatchQueueSim`` extends it with
+micro-batching: when the server frees up it launches whatever has arrived
+(capped at ``max_batch``), optionally holding the batch open
+``max_wait_s`` for stragglers, and charges the whole batch the batched
+service time t(B).  The simulators take times as Python floats and do
+plain float and numpy arithmetic, so equal inputs give the reference's
+latencies bit for bit.
 """
 from __future__ import annotations
 
@@ -16,6 +25,8 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.serving.netsim import ShapedLink
 
 
 @dataclasses.dataclass
@@ -167,4 +178,161 @@ class BatchingPolicyServer:
                                  out_of_range=out_of_range)
 
 
-__all__ = ["BatchServiceModel", "BatchingPolicyServer", "PolicyServer"]
+@dataclasses.dataclass
+class QueueSim:
+    """Deterministic FIFO queue: N clients, fixed rate, one server.
+
+    Decision latency per request = uplink transfer + queueing + service +
+    downlink transfer.  ``max_clients`` sweeps N until p95 exceeds the
+    budget (the paper's Table 6 protocol: 10 Hz, p95 < 100 ms).
+    """
+
+    service_time_s: float
+    uplink: ShapedLink
+    payload_bytes: int
+    action_bytes: int = 64
+    rate_hz: float = 10.0
+    horizon_s: float = 10.0
+
+    def _request_arrivals(self, n_clients: int) \
+            -> list[tuple[float, float, int]]:
+        """(t_obs, server_arrival, client) per request, observation order.
+
+        The uplink serialises transfers FIFO, so arrivals are
+        non-decreasing in this order.
+        """
+        self.uplink.reset()
+        period = 1.0 / self.rate_hz
+        events = []          # (obs_time, client)
+        for c in range(n_clients):
+            t = c * period / n_clients       # staggered clients
+            while t < self.horizon_s:
+                events.append((t, c))
+                t += period
+        events.sort()
+        return [(t_obs, self.uplink.send(t_obs, self.payload_bytes).arrival,
+                 c) for t_obs, c in events]
+
+    def _drain_downlink(self, done: float, n_actions: int,
+                        down_free: float) -> tuple[list[float], float]:
+        """Receive times of ``n_actions`` actions completing at ``done``.
+
+        The action return rides the same link model (downlink assumed
+        symmetric), but the downlink SERIALISES: each action payload
+        transmits after the previous one (and after whatever the link was
+        still sending), so a batch of B actions costs B transfer slots,
+        not one.  Returns (per-action receive times, new downlink-busy
+        time).
+        """
+        act_tx = self.uplink.tx_time(self.action_bytes)
+        start = max(done, down_free)
+        recv = [start + (m + 1) * act_tx + self.uplink.propagation_s
+                for m in range(n_actions)]
+        return recv, start + n_actions * act_tx
+
+    def latencies(self, n_clients: int) -> np.ndarray:
+        server_free = 0.0
+        down_free = 0.0
+        lat = []
+        for t_obs, arrival, _ in self._request_arrivals(n_clients):
+            start = max(arrival, server_free)
+            done = start + self.service_time_s
+            server_free = done
+            (recv,), down_free = self._drain_downlink(done, 1, down_free)
+            lat.append(recv - t_obs)
+        return np.asarray(lat)
+
+    def p95(self, n_clients: int) -> float:
+        return float(np.percentile(self.latencies(n_clients), 95))
+
+    def _zero_scan_limit(self, p95_budget_s: float) -> int:
+        """How far past a failing p95 to keep scanning while NOTHING has
+        passed yet.  FIFO p95 is monotone in N, so a failure at N=1
+        means saturation: 0.  Batch-hold subclasses override — their
+        p95 dips after small N."""
+        return 0
+
+    def max_clients(self, *, p95_budget_s: float = 0.1,
+                    n_max: int = 512) -> int:
+        best = 0
+        limit = self._zero_scan_limit(p95_budget_s)
+        for n in range(1, n_max + 1):
+            if self.p95(n) <= p95_budget_s:
+                best = n
+            elif best or n >= limit:
+                # monotone beyond saturation — stop, even at best == 0
+                # (p95(1) already over budget) once past the small-N
+                # transient window
+                break
+        return best
+
+
+@dataclasses.dataclass
+class BatchQueueSim(QueueSim):
+    """Micro-batching server against the same client population.
+
+    When the server frees up it launches a batch: all requests that have
+    arrived (up to ``max_batch``), after optionally holding the launch up
+    to ``max_wait_s`` for the batch to fill.  The whole batch occupies the
+    server for ``service_model(B)`` (falling back to the batch-invariant
+    ``service_time_s`` when no model is given); the B actions then
+    serialise on the downlink, each charged its own transfer slot.  With
+    ``max_batch=1``/``max_wait_s=0`` this reduces exactly to the FIFO
+    :class:`QueueSim`.
+    """
+
+    max_batch: int = 8
+    max_wait_s: float = 0.0
+    service_model: Optional[Callable[[int], float]] = None
+
+    def service(self, batch: int) -> float:
+        if self.service_model is not None:
+            return self.service_model(batch)
+        return self.service_time_s
+
+    def _zero_scan_limit(self, p95_budget_s: float) -> int:
+        """With a batch hold, p95 is NOT monotone at small N: a lone
+        client waits out ``max_wait_s`` every decision, so p95(1) can
+        exceed a budget that a well-fed batching server meets easily.
+        Holds stop binding once ~max_batch requests arrive within the
+        relevant window (the hold, or the budget when that is tighter),
+        so keep scanning past zero until twice that population."""
+        if self.max_wait_s <= 0.0 or p95_budget_s <= 0.0:
+            return 0
+        window = min(self.max_wait_s, p95_budget_s)
+        return int(np.ceil(2.0 * self.max_batch / (self.rate_hz * window)))
+
+    def latencies(self, n_clients: int) -> np.ndarray:
+        arr = self._request_arrivals(n_clients)
+        n = len(arr)
+        server_free = 0.0
+        down_free = 0.0
+        lat = np.empty(n)
+        i = 0
+        while i < n:
+            ready = max(server_free, arr[i][1])
+            j_fill = i + self.max_batch - 1
+            if j_fill < n and arr[j_fill][1] <= ready:
+                launch = ready           # batch already full when server free
+            elif self.max_wait_s > 0.0:
+                deadline = ready + self.max_wait_s
+                fill = arr[j_fill][1] if j_fill < n else np.inf
+                launch = max(ready, min(deadline, fill))
+            else:
+                launch = ready           # greedy: take what's there
+            k = i
+            while k < n and k - i < self.max_batch and arr[k][1] <= launch:
+                k += 1
+            done = launch + self.service(k - i)
+            # B actions serialise on the downlink — the batch does NOT
+            # collapse into one action transfer
+            recv, down_free = self._drain_downlink(done, k - i, down_free)
+            for m in range(i, k):
+                lat[m] = recv[m - i] - arr[m][0]
+            server_free = done
+            i = k
+        return lat
+
+
+__all__ = ["BatchQueueSim", "BatchServiceModel", "BatchingPolicyServer",
+           "PolicyServer", "QueueSim"]

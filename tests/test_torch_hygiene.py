@@ -49,7 +49,11 @@ def test_port_files_exist():
                 "configs/qwen3_0_6b.py", "nn/rotary.py", "nn/attention.py",
                 "kernels/flash_attention.py", "models/blocks.py",
                 "models/transformer.py", "models/registry.py",
-                "serving/netsim.py", "launch/serve.py"):
+                "serving/netsim.py", "launch/serve.py", "core/latency.py",
+                "serving/fleet.py", "serving/profiles.py",
+                "serving/scenario.py", "benchmarks/decision_latency.py",
+                "benchmarks/break_even.py", "benchmarks/scalability.py",
+                "examples/quickstart.py"):
         assert mod in names, mod
     assert len([n for n in names if n.startswith("configs/")]) == 11
     assert {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")} == \
