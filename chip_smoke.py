@@ -24,7 +24,13 @@ edge kernel launched), Table 6 and the fleet table on the card's measured
 t(B) curve (``benchmarks.scalability``: the smoke and fleet-monotone
 gates), the break-even bandwidth with the edge encode time measured on the
 card (``benchmarks.break_even``), and the ``wifi_markov`` scenario twice,
-bitwise equal.
+bitwise equal.  Last it serves that manifest from worker processes on the
+card over localhost sockets (``repro_torch.serving.realfleet``): 4
+workers whose actions equal in-process serving bit for bit through every
+router and after one is killed, the measured p95 against the fleet
+simulator's at 1, 2 and 4 workers under every router and its gate, one
+cell with shaped ingress, Table 5's real-fleet row, and the edge kernel
+sustained for 2,000 frames.
 Each path runs with every launch count set to 0 just before it and read
 just after; the actions are checked against the eager ``xla`` build of
 the same manifest, and the LM's logits against its monolith and against
@@ -1176,9 +1182,93 @@ def main() -> int:
         "seconds": lat_s}
     print(f"latency path: {lat_s:.2f} s")
     print(json.dumps({"latency_path": latency_path}, default=float))
+
+    # ---- 13. the real fleet on the card ------------------------------------
+    # Worker processes spawned from the latency path's manifest (tuned, 4
+    # servers behind least_loaded), each with its own CUDA context on this
+    # card and the TF32 switches of phase 1; phase 1 built the kernels, so
+    # no worker runs nvcc.  (a) socket-served actions bitwise equal to
+    # in-process serving, through every router and after a kill; (b) the
+    # sim-to-real calibration at 1, 2 and 4 servers and its gate; (c) one
+    # cell with shaped ingress; (d) Table 5's real-fleet row; (e) the edge
+    # kernel sustained for 2,000 frames.
+    from repro_torch.benchmarks import realfleet as rf_bench
+    from repro_torch.benchmarks import sustained
+
+    t_rf = time.perf_counter()
+    reset_counts()
+    seen = deploy_cli._real_fleet_check(lat_cfg, n_requests=8,
+                                        device="cuda")
+    torch.cuda.synchronize()
+    rf_a_launches = lat_kernel.launches
+    check(rf_a_launches > 0, f"real fleet (a): the edge encode launched "
+          f"K1..K5 {counts()}")
+    rerouted = seen["per_server_after_kill"]
+    check(seen["bitwise"] and seen["leaked"] == []
+          and min(seen["per_server"]) > 0 and sum(rerouted[1:]) == 8,
+          f"real fleet (a): {seen}")
+    rf_a_s = time.perf_counter() - t_rf
+    print(f"real fleet (a): {lat_cfg.n_servers} workers on the card, 8 "
+          f"requests (payloads by {lat_kernel.__name__}, {rf_a_launches} "
+          f"launches) through {', '.join(seen['routers'])}: bitwise equal "
+          f"to in-process serving, per-server {seen['per_server']}; worker "
+          f"0 killed, re-routed {rerouted}, bitwise; 0 leaked; "
+          f"{rf_a_s:.2f} s")
+
+    t0 = time.perf_counter()
+    reset_counts()
+    rows_b = rf_bench.calibrate(lat_cfg, n_servers_list=(1, 2, 4),
+                                n_clients=4, rate_hz=20.0, duration_s=1.5,
+                                device="cuda")
+    check(rf_bench.smoke_gate(rows_b), "real fleet (b): the calibration "
+          "gate failed (3x + 25 ms, no failure, no leak)")
+    rows_c = rf_bench.calibrate(lat_cfg, n_servers_list=(1,),
+                                routers=("round_robin",), n_clients=4,
+                                rate_hz=20.0, duration_s=1.5,
+                                shaped_mbps=10.0, device="cuda")
+    check(all(r["n_failures"] == 0 and r["leaked_workers"] == 0
+              for r in rows_c), f"real fleet (c): {rows_c}")
+    row_d = decision_latency.run_real_fleet(setup, n_clients=8,
+                                            rate_hz=10.0)
+    check(row_d["real_n_failures"] == 0
+          and row_d["real_leaked_workers"] == 0, f"real fleet (d): {row_d}")
+    torch.cuda.synchronize()
+    rf_bcd_launches = lat_kernel.launches
+    rf_bcd_s = time.perf_counter() - t0
+    print(f"real fleet (b)-(d): {rf_bcd_s:.2f} s, {lat_kernel.__name__} "
+          f"launches {rf_bcd_launches}")
+
+    per_frame = {miniconv_encoder: 1, miniconv_layer_grouped: 3,
+                 miniconv_pass: 9}[lat_kernel]
+    t0 = time.perf_counter()
+    reset_counts()
+    sus = sustained.run(manifest=str(lat_manifest), n_frames=2000,
+                        device="cuda")
+    torch.cuda.synchronize()
+    rf_e_launches = lat_kernel.launches
+    want_e = (2000 + sustained.WARMUP) * per_frame
+    check(rf_e_launches == want_e, f"sustained: {lat_kernel.__name__} "
+          f"launched {rf_e_launches} times, expected {want_e} (frames plus "
+          f"warm-up)")
+    (sus_name, sus_row), = sus.items()
+    rf_e_s = time.perf_counter() - t0
+    print(f"sustained ({sus_name}): 2000 frames, {lat_kernel.__name__} "
+          f"launches {rf_e_launches} = frames + warm-up; {rf_e_s:.2f} s")
+    rf_s = time.perf_counter() - t_rf
+    real_fleet = {
+        "backend": lat_backend, "kernel": lat_kernel.__name__,
+        "check": seen, "launches": {"a": rf_a_launches,
+                                    "b_to_d": rf_bcd_launches,
+                                    "e": rf_e_launches},
+        "calibration": rows_b, "shaped": rows_c, "table5_row": row_d,
+        "sustained": dict(sus_row, name=sus_name),
+        "seconds": {"a": rf_a_s, "b_to_d": rf_bcd_s, "e": rf_e_s,
+                    "phase": rf_s}}
+    print(f"real fleet: {rf_s:.2f} s")
+    print(json.dumps({"real_fleet": real_fleet}, default=float))
     del setup
 
-    # ---- 13. results -------------------------------------------------------
+    # ---- 14. results -------------------------------------------------------
     k1 = k1_rows["served edge"]
     def layer_row(rows, dev_us):
         """The served frame's row, with the 400x400 and batch-8 times."""
@@ -1232,6 +1322,8 @@ def main() -> int:
     for k in kernels:
         if k["name"] == lat_kernel.__name__:
             k["latency_path_launches"] = lat_launches
+            k["real_fleet_launches"] = (rf_a_launches + rf_bcd_launches
+                                        + rf_e_launches)
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel was launched no time on its path")
     print(json.dumps({"kernels": kernels}))

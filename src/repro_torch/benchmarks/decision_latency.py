@@ -16,7 +16,10 @@ file ``python -m repro_torch.deploy`` writes.
 ``--clients N`` also reports the p95 decision latency of N clients sharing
 one split-policy server, FIFO against micro-batching (the batch-aware
 queue simulation fed by the measured t(B) curve), and the fleet's p95 when
-the manifest sets ``n_servers > 1``.  Nothing is written to disk:
+the manifest sets ``n_servers > 1``.  ``--real-fleet`` also spawns the
+manifest's fleet on localhost (``repro_torch.serving.realfleet``, workers
+on ``--device``) and reports its measured p95 under the same open-loop
+load beside the loopback sim's.  Nothing is written to disk:
 
     python -m repro_torch.benchmarks.decision_latency
 """
@@ -157,12 +160,14 @@ def measure_service_curve(setup: ServingSetup, *, max_batch: int = 8,
 def run_queue(*, n_clients: int = 8, mbps: float = 100.0, k: int = 4,
               max_batch: int = 8, max_wait_ms: float = 0.0,
               rate_hz: float = 10.0, setup: ServingSetup | None = None,
-              device: DeviceLike = None, model=None):
+              device: DeviceLike = None, model=None,
+              real_fleet: bool = False):
     """p95 decision latency at N clients: FIFO server against
     micro-batching, both on the MEASURED t(B) curve (``model``, measured
     here when not given).  When the manifest sets ``n_servers > 1`` the
     sharded fleet's p95 is reported too: the same curve on every server,
-    routed by the configured policy."""
+    routed by the configured policy.  ``real_fleet=True`` adds
+    :func:`run_real_fleet`'s measured p95 of the spawned fleet."""
     setup = setup or build(k=k, device=device)
     if model is None:
         times, model = measure_service_curve(setup, max_batch=max_batch,
@@ -197,7 +202,59 @@ def run_queue(*, n_clients: int = 8, mbps: float = 100.0, k: int = 4,
         row["router"] = cfg.router
         print(f"  N={n_clients} fleet ({cfg.n_servers} servers, "
               f"{cfg.router}): p95 {row['fleet_p95_ms']:.4f} ms")
+    if real_fleet:
+        row.update(run_real_fleet(setup, n_clients=n_clients,
+                                  rate_hz=rate_hz))
     return row
+
+
+def run_real_fleet(setup: ServingSetup, *, n_clients: int = 8,
+                   rate_hz: float = 10.0, duration_s: float = 2.0,
+                   timeout_s: float = 30.0) -> dict:
+    """Measured p95 of the manifest's REAL fleet against the loopback sim.
+
+    The service curve is re-measured on ``Deployment.server_batch_fn``
+    as the workers serve it (no benchmark-local head), so the sim's
+    prediction and the spawned fleet charge the same t(B); the uplink is
+    the localhost loopback, so both sides see negligible transfer time.
+    The workers serve on the setup's device.
+    """
+    from repro_torch.serving.realfleet import pack_payload, run_load
+
+    dep = setup.deployment
+    cfg = dep.config
+    payload = setup.edge_fn(setup.obs)
+    srv = dep.server(setup.params)
+    srv.measure(payload, batch_sizes=tuple(
+        b for b in (1, 2, 4, 8, 16) if b <= cfg.max_batch), iters=10)
+    model = srv.service_model()
+    fleet = dep.fleet(setup.params, service_model=model,
+                      timeout_s=timeout_s)
+    try:
+        sim = dep.fleet_sim(model, uplink=shaped(10_000.0, rtt_ms=0.2),
+                            rate_hz=rate_hz, horizon_s=duration_s,
+                            max_batch=fleet.max_batch, max_wait_s=0.0)
+        predicted = sim.p95(n_clients)
+        rep = run_load(fleet.client, pack_payload(payload),
+                       n_clients=n_clients, rate_hz=rate_hz,
+                       duration_s=duration_s)
+    finally:
+        leaked = fleet.close()
+    out = {"real_predicted_p95_ms": predicted * 1e3,
+           "real_measured_p95_ms": rep.p95() * 1e3,
+           "real_measured_p50_ms": rep.p50() * 1e3,
+           "real_n_requests": rep.n_requests,
+           "real_n_failures": rep.n_failures,
+           "real_max_served_batch": fleet.stats["max_served_batch"],
+           "real_leaked_workers": len(leaked),
+           "real_startup_s": fleet.startup_s, "real_close_s": fleet.close_s}
+    print(f"  N={n_clients} REAL fleet ({cfg.n_servers} servers, "
+          f"{cfg.router}, localhost, {dep.device}): measured p95 "
+          f"{out['real_measured_p95_ms']:.4f} ms vs loopback-sim "
+          f"{out['real_predicted_p95_ms']:.4f} ms "
+          f"({rep.n_requests} reqs, {rep.n_failures} failed, "
+          f"{len(leaked)} leaked)")
+    return out
 
 
 def load_manifest(path: str) -> DeploymentConfig:
@@ -219,6 +276,10 @@ def main(argv=None):
                     help="N clients for the FIFO-vs-batched p95 report "
                          "(0 disables)")
     ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--real-fleet", action="store_true",
+                    help="also spawn the manifest's real multi-process "
+                         "fleet on localhost and report measured p95 "
+                         "next to the loopback sim prediction")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
     args = ap.parse_args(argv)
@@ -228,7 +289,7 @@ def main(argv=None):
         n_decisions=args.decisions, setup=setup)
     if args.clients:
         run_queue(n_clients=args.clients, max_batch=args.max_batch,
-                  setup=setup)
+                  setup=setup, real_fleet=args.real_fleet)
 
 
 if __name__ == "__main__":

@@ -21,6 +21,9 @@ must not exceed 1.05 x the FIFO p95, and the fleet table must be monotone
 (more servers never supports fewer clients, for every router) with at
 least 2x the clients at 4 servers.  ``--manifest`` builds the pipeline
 from a serialised :class:`repro_torch.deploy.DeploymentConfig`.
+``--real-fleet`` then holds the tables' predictions against the real
+spawned fleet (``benchmarks.realfleet``, 1 and 2 servers, the manifest or
+the small calibration deployment), writing ``build/realfleet.json``.
 
     python -m repro_torch.benchmarks.scalability --smoke
 """
@@ -160,6 +163,11 @@ def main(argv=None):
                          "n_servers with >= 2x clients at 4 servers")
     ap.add_argument("--no-fleet", action="store_true",
                     help="skip the fleet table (single-server rows only)")
+    ap.add_argument("--real-fleet", action="store_true",
+                    help="after the tables, calibrate their predictions "
+                         "against the REAL spawned fleet on localhost "
+                         "(benchmarks.realfleet; uses the manifest when "
+                         "given, else the small calibration deployment)")
     ap.add_argument("--manifest", default=None,
                     help="deployment manifest JSON to build the pipeline "
                          "from (see python -m repro_torch.deploy)")
@@ -208,6 +216,17 @@ def main(argv=None):
                         budget_ms=args.budget_ms,
                         max_batch=args.max_batch,
                         max_wait_s=args.max_wait_ms / 1e3)
+    if args.real_fleet:
+        # the sim tables above are predictions; close the loop by running
+        # the same deployment as real worker processes and comparing p95
+        from repro_torch.benchmarks.realfleet import (calibrate,
+                                                      small_config,
+                                                      write_artifact)
+        rcfg = config or small_config()
+        print("  real-fleet calibration (localhost, measured vs "
+              "predicted):")
+        rows = calibrate(rcfg, n_servers_list=(1, 2), device=args.device)
+        write_artifact(rows, rcfg, device=args.device)
 
 
 if __name__ == "__main__":

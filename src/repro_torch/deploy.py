@@ -24,11 +24,13 @@ Quick start::
 Run ``python -m repro_torch.deploy --verify`` to write and round-trip-
 verify a manifest, ``--tune`` to measure every backend on the device
 (``core.tuning``) and freeze the winner into it, and ``--scenario NAME`` to
-run the manifest through a registered serving scenario.  The manifest's
-fleet shape (``n_servers``, ``router``) drives :meth:`Deployment.fleet_sim`
-and :meth:`Deployment.scenario_sim`.  Not ported yet (see ROADMAP.md): the
-real multi-process fleet (``Deployment.fleet``, ``--real-fleet``) and
-``export_best``.
+run the manifest through a registered serving scenario, and
+``--real-fleet`` to serve it from ``n_servers`` spawned worker processes
+over localhost sockets, bitwise equal to in-process serving.  The
+manifest's fleet shape (``n_servers``, ``router``) drives
+:meth:`Deployment.fleet_sim`, :meth:`Deployment.scenario_sim` and the real
+:meth:`Deployment.fleet`.  Not ported yet (see ROADMAP.md):
+``export_best``, which comes with training.
 """
 from __future__ import annotations
 
@@ -508,6 +510,50 @@ class Deployment:
             service_models=None if service_model is None
             else (service_model,) * ns)
 
+    def fleet(self, params, *, n_servers: Optional[int] = None,
+              router: Optional[str] = None, max_batch: Optional[int] = None,
+              service_model: Optional[Callable[[int], float]] = None,
+              timeout_s: float = 10.0, retries: int = 2,
+              precompile: bool = True, start: bool = True,
+              shaping=None):
+        """A REAL multi-process fleet for THIS deployment (localhost).
+
+        The counterpart of :meth:`fleet_sim`: ``n_servers`` spawned worker
+        processes, each rebuilding the server half from this manifest on
+        this deployment's device, length-prefix-framed sockets carrying
+        the wire codec's payloads, and the registered routing policy at
+        the front door (``repro_torch.serving.realfleet``).  The fleet
+        shape defaults to the manifest's (``n_servers`` / ``router`` /
+        ``max_batch``), as in the simulator.  The parameters cross the
+        process boundary as numpy arrays.
+
+        With a measured ``service_model``, worker admission is capped at
+        its ``max_measured_batch``: the real fleet never serves batch
+        sizes the t(B) curve only extrapolates.  ``shaping`` (a
+        :class:`~repro_torch.serving.realfleet.ShapingConfig` or its dict)
+        token-bucket-shapes every worker's request ingress.
+
+        Returns a started :class:`~repro_torch.serving.realfleet.RealFleet`
+        (``start=False`` defers the spawn); always ``close()`` it: the
+        returned leak list is the "no leaked workers" gate.
+        """
+        from repro_torch.nn.module import tree_map
+        from repro_torch.serving.realfleet import RealFleet
+        cfg = self.config
+        cap = cfg.max_batch if max_batch is None else max_batch
+        if service_model is not None and hasattr(service_model,
+                                                 "max_measured_batch"):
+            cap = min(cap, service_model.max_measured_batch)
+        params_np = tree_map(lambda t: t.detach().cpu().numpy(),
+                             self._split_params(params))
+        fl = RealFleet(
+            cfg.to_dict(), params_np,
+            n_servers=cfg.n_servers if n_servers is None else n_servers,
+            router=cfg.router if router is None else router,
+            max_batch=max(1, cap), timeout_s=timeout_s, retries=retries,
+            precompile=precompile, shaping=shaping, device=str(self.device))
+        return fl.start() if start else fl
+
 
 # ---------------------------------------------------------------------------
 # Manifest CLI: python -m repro_torch.deploy
@@ -536,6 +582,80 @@ def _verify_roundtrip(cfg: DeploymentConfig, *, device: DeviceLike = None,
     for k in p1:
         if not torch.equal(p1[k], p2[k]):
             raise AssertionError(f"reloaded manifest changed payload {k!r}")
+
+
+def _real_fleet_check(cfg: DeploymentConfig, *, n_requests: int = 8,
+                      seed: int = 0, device: DeviceLike = None) -> dict:
+    """Launch the manifest's real multi-process fleet on localhost, serve
+    ``n_requests`` over sockets through the manifest's router and then
+    every other registered router, and raise unless every action is
+    bitwise equal to in-process ``server.serve([p])`` on the same device.
+    With ``n_servers > 1`` it then kills worker 0 and serves them again
+    round-robin: the dead worker's requests re-route and stay bitwise
+    equal.  It raises unless every worker served a request (when
+    ``n_requests >= n_servers``) and no worker leaked at shutdown.
+    Requests go one at a time, so every worker serves a batch of one, as
+    the in-process server does.  Returns what it saw."""
+    import numpy as np
+    from repro_torch.serving.fleet import router_names
+    dep = Deployment.build(cfg, device=device)
+    params = dep.init(torch.Generator().manual_seed(seed))
+    client, server = dep.serving_pair(params)
+    obs = torch.rand((n_requests, cfg.in_h, cfg.in_w,
+                      cfg.spec.layers[0].c_in),
+                     generator=torch.Generator().manual_seed(seed + 1))
+    obs = obs.to(dep.device)
+    payloads = [client.encode_fn(obs[i:i + 1]) for i in range(n_requests)]
+    want = [server.serve([p])[0].cpu().numpy() for p in payloads]
+
+    def serve_all(what):
+        got = [fleet.request(p, client=i) for i, p in enumerate(payloads)]
+        for i, (w, g) in enumerate(zip(want, got)):
+            np.testing.assert_array_equal(
+                w, g, err_msg=f"request {i} {what}: socket-served action "
+                              f"differs from in-process serving")
+
+    routers = [cfg.router] + [r for r in router_names() if r != cfg.router]
+    killed = None
+    fleet = dep.fleet(params)
+    try:
+        for router in routers:
+            fleet.set_router(router)
+            serve_all(f"via {router}")
+        per_server = list(fleet.stats["per_server"])
+        if cfg.n_servers > 1:
+            killed = fleet.processes[0].pid
+            fleet.processes[0].kill()
+            fleet.processes[0].join(10.0)
+            fleet.set_router("round_robin")
+            serve_all(f"after killing worker 0 (pid {killed})")
+        stats = dict(fleet.stats, per_server=list(fleet.stats["per_server"]))
+    finally:
+        leaked = fleet.close()
+    if leaked:
+        raise AssertionError(f"leaked worker processes: {leaked}")
+    if n_requests >= cfg.n_servers and min(per_server) == 0:
+        raise AssertionError(f"a worker served no request: per-server "
+                             f"{per_server}")
+    after = [b - a for a, b in zip(per_server, stats["per_server"])]
+    print(f"  real fleet: {cfg.n_servers} worker(s) on {dep.device} served "
+          f"{n_requests} requests over sockets through each of "
+          f"{', '.join(routers)} (per-server {per_server}); actions "
+          f"bitwise equal to in-process serving")
+    if killed is not None:
+        print(f"  real fleet: worker 0 (pid {killed}) killed; {n_requests} "
+              f"requests re-routed (per-server {after}, {stats['retries']} "
+              f"retries), bitwise equal")
+    print(f"  real fleet: clean shutdown, no leaked workers (started in "
+          f"{fleet.startup_s:.2f} s, drained and joined in "
+          f"{fleet.close_s:.2f} s)")
+    return {"n_servers": cfg.n_servers, "device": str(dep.device),
+            "startup_s": fleet.startup_s, "close_s": fleet.close_s,
+            "n_requests": n_requests, "routers": routers,
+            "per_server": per_server, "killed_pid": killed,
+            "per_server_after_kill": after if killed is not None else None,
+            "retries": stats["retries"], "bitwise": True,
+            "leaked": leaked}
 
 
 def _scenario_report(dep: "Deployment", name: str) -> None:
@@ -586,6 +706,14 @@ def main(argv=None):
                          "winning TunedPlan into the written manifest")
     ap.add_argument("--tune-iters", type=int, default=5,
                     help="timing repetitions per measured candidate")
+    ap.add_argument("--real-fleet", action="store_true",
+                    help="launch the manifest's REAL multi-process fleet "
+                         "on localhost (n_servers worker processes on "
+                         "--device behind the configured router), verify "
+                         "socket-served actions are bitwise equal to "
+                         "in-process serving, and shut down cleanly")
+    ap.add_argument("--fleet-requests", type=int, default=8,
+                    help="requests served during the --real-fleet check")
     ap.add_argument("--scenario", default=None,
                     help="run the manifest through a registered serving "
                          "scenario (repro_torch.serving.scenario: seeded "
@@ -627,6 +755,9 @@ def main(argv=None):
         _verify_roundtrip(cfg, device=args.device)
         print("  verified: reloaded manifest reproduces identical encoder "
               "outputs and wire payloads")
+    if args.real_fleet:
+        _real_fleet_check(reloaded, n_requests=args.fleet_requests,
+                          device=args.device)
     if args.scenario:
         _scenario_report(dep, args.scenario)
 

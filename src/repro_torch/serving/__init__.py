@@ -1,5 +1,5 @@
 """Serving: the deployed half of the split-policy system (port of
-``repro.serving``, without the real multi-process fleet).
+``repro.serving``).
 
 Module map
 ----------
@@ -28,10 +28,22 @@ Module map
 ``client``
     ``EdgeClient`` (the deployment's ``edge_fn`` with single and batched
     measurement) and ``DecisionLoop`` (the paper's Figure-5 pipeline).
+``realfleet``
+    The fleet for real: ``RealFleet`` spawns ``n_servers``
+    continuous-batching ``WorkerServer`` processes from one manifest on
+    the deployment's device (localhost TCP, length-prefixed frames
+    carrying the wire codecs' payloads bitwise), fronted by
+    ``FleetClient``: the simulator's routers, per-request timeouts and
+    re-routing retries.  ``run_load`` drives the Table 6 open-loop
+    protocol against it; ``ShapingConfig`` / ``TokenBucket`` shape a
+    worker's request ingress.  Construct with ``Deployment.fleet``.
 
 The simulators are host-side float and numpy arithmetic fed with measured
 times as Python floats: equal inputs and seeds give the reference's
-numbers bit for bit.
+numbers bit for bit.  The real fleet's framing is the reference's, byte
+for byte, so its clients and workers interoperate with the reference's.
+Of what the serving side touches, only ``Deployment.export_best`` and
+training are not ported yet (see ROADMAP.md).
 """
 from repro_torch.serving.netsim import (LINK_KINDS, LinkTrace, LossyLink,
                                         MarkovLink, ShapedLink,
@@ -51,6 +63,12 @@ from repro_torch.serving.scenario import (ADAPTATIONS, SCENARIOS,
                                           get_adaptation, get_scenario,
                                           register_adaptation,
                                           register_scenario, scenario_names)
+from repro_torch.serving.realfleet import (FleetClient, FleetError,
+                                           FleetTimeout, LoadReport,
+                                           RealFleet, ShapingConfig,
+                                           TokenBucket, WorkerServer,
+                                           pack_payload, run_load,
+                                           unpack_payload)
 
 __all__ = ["ShapedLink", "LinkTrace", "TraceLink", "MarkovLink",
            "LossyLink", "StochasticJitterLink", "LINK_KINDS", "make_link",
@@ -62,4 +80,6 @@ __all__ = ["ShapedLink", "LinkTrace", "TraceLink", "MarkovLink",
            "SCENARIOS", "ScenarioFleetSim", "ScenarioReport",
            "AdaptationMode", "ADAPTATIONS", "register_scenario",
            "get_scenario", "scenario_names", "register_adaptation",
-           "get_adaptation"]
+           "get_adaptation", "FleetClient", "FleetError", "FleetTimeout",
+           "LoadReport", "RealFleet", "ShapingConfig", "TokenBucket",
+           "WorkerServer", "pack_payload", "run_load", "unpack_payload"]

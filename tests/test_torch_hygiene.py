@@ -53,7 +53,9 @@ def test_port_files_exist():
                 "serving/fleet.py", "serving/profiles.py",
                 "serving/scenario.py", "benchmarks/decision_latency.py",
                 "benchmarks/break_even.py", "benchmarks/scalability.py",
-                "examples/quickstart.py"):
+                "examples/quickstart.py", "serving/realfleet.py",
+                "benchmarks/realfleet.py", "benchmarks/sustained.py",
+                "benchmarks/scenarios.py", "examples/deploy_policy.py"):
         assert mod in names, mod
     assert len([n for n in names if n.startswith("configs/")]) == 11
     assert {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")} == \

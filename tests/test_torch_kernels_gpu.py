@@ -455,3 +455,18 @@ def test_attention_on_cuda_launches_k5_once(cuda, monkeypatch, dtype, tc):
     torch.cuda.synchronize()
     assert _counts() == (1, tc, 0)
     assert out.shape == x.shape and torch.isfinite(out.float()).all()
+
+
+def test_real_fleet_on_cuda_serves_bitwise(cuda):
+    """A 2-worker fleet of config A's ``fused`` build on the card: each
+    spawned worker serves on its own CUDA context with the parent's TF32
+    switches, and the actions equal in-process serving bit for bit through
+    every router and after a worker is killed, with no leaked worker."""
+    from repro_torch import deploy as t_deploy
+    cfg = t_deploy.DeploymentConfig.standard(
+        k=4, c_in=12, h=84, backend="fused", max_batch=4, n_servers=2,
+        router="least_loaded")
+    seen = t_deploy._real_fleet_check(cfg, n_requests=4, device="cuda")
+    assert seen["bitwise"] and seen["leaked"] == []
+    assert seen["device"] == "cuda" and min(seen["per_server"]) > 0
+    assert seen["per_server_after_kill"][1] >= 4

@@ -39,11 +39,14 @@ def test_registry_equals_reference():
     for name in NAMES:
         assert t_sc.get_scenario(name).to_dict() == \
             j_sc.get_scenario(name).to_dict()
-    # the package re-exports what the reference's package does, but the
-    # real multi-process fleet
+    # the package re-exports what the reference's package does, the real
+    # multi-process fleet included
+    from repro import serving as j_serving
+    from repro_torch.serving import realfleet as t_rf
     assert t_serving.SCENARIOS is t_sc.SCENARIOS
     assert t_serving.ScenarioFleetSim is t_sc.ScenarioFleetSim
-    assert not hasattr(t_serving, "RealFleet")
+    assert t_serving.RealFleet is t_rf.RealFleet
+    assert t_serving.__all__ == j_serving.__all__
 
 
 def _same_report(t, j):
