@@ -30,13 +30,20 @@ workers whose actions equal in-process serving bit for bit through every
 router and after one is killed, the measured p95 against the fleet
 simulator's at 1, 2 and 4 workers under every router and its gate, one
 cell with shaped ingress, Table 5's real-fleet row, and the edge kernel
-sustained for 2,000 frames.
+sustained for 2,000 frames.  Then it trains (``repro_torch.rl.train``):
+one update of each algorithm and 50 steps of each env held against the
+CPU, the paper's three pairings trained briefly on the card with the
+host syncs inside a steady chunk and a PPO rollout counted (none
+allowed) and a steady chunk traced, and the trained DDPG and SAC
+policies served from a ``fused`` manifest through K1 at 9 input
+channels, against the ``xla`` build.
 Each path runs with every launch count set to 0 just before it and read
 just after; the actions are checked against the eager ``xla`` build of
 the same manifest, and the LM's logits against its monolith and against
 the CPU's plain versions.
 
 Any failure ends the run with a non-zero exit code and no result line.
+Phase 14 prints its numbers as a ``{"training": ...}`` line.
 On success the line before the last is ``{"kernels": [...]}`` (one entry
 per kernel: launches on the served path, error, times and bound), and the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -50,6 +57,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from statistics import median
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -61,6 +69,11 @@ PEAK_BF16_FLOP_S = 989e12     # bf16 on the tensor cores, dense
 FEAT_TOL = 1e-5   # fp32 features: the kernel sums in another order
 Z_TOL = 1e-4      # projection: 484-term sums in another order
 ACT_TOL = 1e-3    # served actions: a uint8 code may flip by one at .5
+# PPO's 32-step update, card vs CPU: its losses are means over minibatches
+# taken at parameters that drift apart by rounding through Adam.  Sound
+# updates read 4.5e-6 to 1.05e-4, the two faults planted in the card's
+# draws 4.3e-3 to 6.4e-3 (PERF.md, the training findings)
+PPO_STEPS_RTOL = 3e-4
 ATTN_TOL = {"float32": 2e-4,  # K5 in f32: sums in another order
             "bfloat16": 1e-2}  # K5 in bf16 vs plain f32: its output rounding
 LM_SPLIT_TOL = 1e-2   # full-width bf16 split (float32 codec) vs monolith
@@ -202,6 +215,436 @@ def layer_ptxas(log):
     return out
 
 
+class SyncCounter:
+    """Counts the host synchronisations CUDA work makes while it is
+    entered (``torch.cuda.set_sync_debug_mode("warn")``), and where each
+    came from."""
+
+    def __enter__(self):
+        import warnings
+        import torch
+        self._w = warnings.catch_warnings(record=True)
+        self.records = self._w.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode(0)
+        self._w.__exit__(*exc)
+        # torch's words for a sync: "called a synchronizing CUDA
+        # operation" (its notice that the mode is a prototype is not one)
+        self.syncs = [f"{r.filename}:{r.lineno}: {r.message}"
+                      for r in self.records
+                      if "called a synchronizing" in str(r.message)]
+        return False
+
+
+def training_phase(dev, gen, miniconv_encoder, reset_counts):
+    """Phase 14: the RL training stack on the card.  (a) one update of
+    each algorithm and 50 steps of each env, card against CPU; (b) each
+    pairing trained through ``train(..., device="cuda")`` with its steady
+    chunk's host syncs counted, and a traced steady chunk; (c) the trained
+    DDPG and SAC policies served through K1.  Returns (the
+    ``{"training": ...}`` dict, K1 launches on the serving path)."""
+    import numpy as np
+    import torch
+    from repro_torch.benchmarks.lm_split import trace_decision
+    from repro_torch.deploy import Deployment, DeploymentConfig
+    from repro_torch.envs import REGISTRY as ENVS
+    from repro_torch.envs import make_pixel_env
+    from repro_torch.envs.wrappers import crop
+    from repro_torch.nn.module import tree_leaves, tree_map
+    from repro_torch.rl.agent import make_agent, move_state
+    from repro_torch.rl.ddpg import DDPGConfig
+    from repro_torch.rl.ppo import PPOConfig
+    from repro_torch.rl.rollout import (CHUNK, offpolicy_chunk_fn,
+                                        onpolicy_rollout)
+    from repro_torch.rl.sac import SACConfig
+    from repro_torch.rl.train import TASK_ALGO, _pipeline_encoder
+    from repro_torch.rl.train import train as rl_train
+
+    t_phase = time.perf_counter()
+    A = {"pendulum": 1, "hopper": 3, "walker": 6}
+    CFG = {"ddpg": DDPGConfig(), "sac": SACConfig(), "ppo": PPOConfig()}
+    out = {"tf32": {"cuda.matmul.allow_tf32":
+                    torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}}
+    print(f"training: TF32 in force: {out['tf32']}")
+
+    # ---- (a) card against CPU ------------------------------------------
+    def batch_for(algo, cfg, rng):
+        a = A[{v: k for k, v in TASK_ALGO.items()}[algo]]
+        if algo == "ppo":
+            T, N = cfg.n_steps, cfg.n_envs
+            return {"traj": {
+                "obs": rng.random((T, N, 84, 84, 9), np.float32),
+                "action": rng.standard_normal((T, N, a), np.float32),
+                "reward": rng.standard_normal((T, N), np.float32),
+                "done": rng.random((T, N)) < 0.02,
+                "logp": rng.standard_normal((T, N), np.float32) - 5,
+                "value": rng.standard_normal((T, N), np.float32)},
+                "last_obs": rng.random((N, 84, 84, 9), np.float32)}
+        B = cfg.batch_size
+        return {"obs": rng.random((B, 84, 84, 9), np.float32),
+                "next_obs": rng.random((B, 84, 84, 9), np.float32),
+                "actions": rng.uniform(-1, 1, (B, a)).astype(np.float32),
+                "rewards": rng.standard_normal(B, np.float32),
+                "dones": (rng.random(B) < 0.3).astype(np.float32)}
+
+    def card_vs_cpu(algo, cfg, seed, faults=None):
+        """One update from the same state, batch and draws on the CPU and
+        the card; ``faults`` maps a name to a change of the draws that
+        the card's update then runs, to read what the gate sees of it."""
+        a = A[{v: k for k, v in TASK_ALGO.items()}[algo]]
+        agents = {d: make_agent(algo, _pipeline_encoder("miniconv4", 9,
+                                                        device=d), a,
+                                cfg=cfg, device=d) for d in ("cpu", "cuda")}
+        state = agents["cpu"].init(gen(seed))
+        data = tree_map(lambda x: torch.from_numpy(np.asarray(x)),
+                        batch_for(algo, cfg, np.random.default_rng(seed)))
+        noise = agents["cpu"].draw_noise(gen(seed + 1), data)
+
+        def update(d, n):
+            if isinstance(n, torch.Tensor):
+                n = n.to(d)
+            elif n is not None:
+                n = tuple(x.to(d) for x in n)
+            return agents[d].update(move_state(state, d),
+                                    tree_map(lambda x: x.to(d), data),
+                                    noise=n)
+
+        (cs, cm), (gs, gm) = update("cpu", noise), update("cuda", noise)
+
+        def loss_rel(m):
+            # the smallest rtol under which |card - cpu| <= 1e-5 + rtol |cpu|
+            # holds for every metric
+            ex = [(max(abs(float(m[k]) - float(cm[k])) - 1e-5, 0.0),
+                   abs(float(cm[k]))) for k in cm]
+            return max(e / c if e else 0.0 for e, c in ex)
+
+        steps = int(cs.opt_state.step)
+        rtol = 1e-4 if steps == 1 else PPO_STEPS_RTOL
+        loss_err = loss_rel(gm)
+        grad_err = max(float((g.cpu() - w).abs().max())
+                       / max(float(w.abs().max()), 1e-30) for w, g in
+                       zip(tree_leaves(cs.opt_state.mu),
+                           tree_leaves(gs.opt_state.mu)))
+        param_err = max(float((g.cpu() - w).abs().max()) for w, g in
+                        zip(tree_leaves(cs.params), tree_leaves(gs.params)))
+        check(int(gs.opt_state.step) == steps, f"{algo}: Adam steps differ")
+        check(loss_err <= rtol, f"{algo} card vs CPU: losses differ by "
+              f"{loss_err:.3g} of the CPU's (tol 1e-5 + {rtol:g} |cpu|)")
+        check(param_err <= 2 * cfg.lr * steps, f"{algo} card vs CPU: params "
+              f"differ by {param_err:.3g} (tol 2 lr x {steps} steps)")
+        if steps == 1:
+            check(grad_err <= 1e-4, f"{algo} card vs CPU: gradients differ "
+                  f"by {grad_err:.3g} of a leaf's largest (tol 1e-4)")
+        planted = {}
+        for name, change in (faults or {}).items():
+            planted[name] = loss_rel(update("cuda", change(noise))[1])
+            check(planted[name] > rtol, f"{algo}: the loss gate (rtol "
+                  f"{rtol:g}) does not see a planted {name}: "
+                  f"{planted[name]:.3g}")
+        return dict(adam_steps=steps, loss_rtol=rtol, loss_rel_err=loss_err,
+                    grad_rel_err=grad_err if steps == 1 else None,
+                    param_abs_err=param_err, param_tol=2 * cfg.lr * steps,
+                    planted_faults=planted)
+
+    def dropped_minibatch(perms):
+        # epoch 0 trains its first minibatch twice and skips its second
+        mb = perms.shape[1] // CFG["ppo"].n_minibatches
+        perms = perms.clone()
+        perms[0, mb:2 * mb] = perms[0, :mb]
+        return perms
+
+    def swapped_epochs(perms):
+        # epochs 0 and 1 run each other's permutation
+        return perms[[1, 0, *range(2, perms.shape[0])]]
+
+    t0 = time.perf_counter()
+    upd = {}
+    for algo in ("ddpg", "sac"):
+        upd[algo] = card_vs_cpu(algo, CFG[algo], 40)
+    # PPO's 32 Adam steps on two seeds, and on the first the two planted
+    # faults the multi-step tolerance must see
+    upd["ppo"] = card_vs_cpu("ppo", CFG["ppo"], 40, faults={
+        "dropped minibatch": dropped_minibatch,
+        "swapped epochs": swapped_epochs})
+    upd["ppo_seed41"] = card_vs_cpu("ppo", CFG["ppo"], 41)
+    # PPO's gradients: one Adam step on the whole default rollout
+    upd["ppo_one_step"] = card_vs_cpu(
+        "ppo", dataclasses.replace(CFG["ppo"], n_epochs=1, n_minibatches=1),
+        43)
+    for k, v in upd.items():
+        print(f"training (a) update {k}, card vs CPU at 84x84x9: "
+              f"{v['adam_steps']} Adam steps, losses within "
+              f"{v['loss_rel_err']:.3g} of the CPU's (tol {v['loss_rtol']:g})"
+              + "".join(f", planted {n} {e:.3g}"
+                        for n, e in v["planted_faults"].items())
+              + ", gradients "
+              + ("not compared" if v["grad_rel_err"] is None
+                 else f"{v['grad_rel_err']:.3g} of a leaf's largest")
+              + f", params {v['param_abs_err']:.3g} "
+              f"(tol {v['param_tol']:.3g})")
+
+    envs = {}
+    for task in ("pendulum", "hopper", "walker"):
+        env = ENVS[task]
+        s_cpu = env.reset(gen(50), 8)
+        s_gpu = type(s_cpu)(*(x.to(dev) for x in s_cpu))
+        rng = np.random.default_rng(51)
+        st_err = rw_err = 0.0
+        for _ in range(50):
+            act = torch.from_numpy(rng.uniform(-1.2, 1.2, (8, env.action_dim))
+                                   .astype(np.float32))
+            s_cpu, r_c, d_c = env.step(s_cpu, act)
+            s_gpu, r_g, d_g = env.step(s_gpu, act.to(dev))
+            for w, g in zip(s_cpu, s_gpu):
+                e = (g.cpu().double() - w.double()).abs()
+                st_err = max(st_err, float((e / (1 + w.double().abs()))
+                                           .max()))
+            rw_err = max(rw_err, float((r_g.cpu() - r_c).abs().max()))
+            check(torch.equal(d_g.cpu(), d_c), f"{task}: dones differ")
+        check(st_err <= 1e-5 and rw_err <= 1e-5, f"{task}: card vs CPU "
+              f"states {st_err:.3g}, rewards {rw_err:.3g} (tol 1e-5)")
+        f_cpu = env.render(s_cpu)
+        f_gpu = env.render(type(s_cpu)(*(x.to(dev) for x in s_cpu)))
+        boundary = int(((f_gpu.cpu() - f_cpu).abs().amax(-1) > 0)
+                       .reshape(8, -1).sum(-1).max())
+        check(boundary <= 0.005 * 100 * 100, f"{task}: {boundary} pixels "
+              f"of a frame differ (tol 0.5%)")
+        oy = torch.randint(0, 17, (8,), device=dev)
+        ox = torch.randint(0, 17, (8,), device=dev)
+        check(torch.equal(crop(f_gpu, oy, ox),
+                          env.render(type(s_cpu)(*(x.to(dev) for x in s_cpu)),
+                                     (oy, ox, 84))),
+              f"{task}: the window render is not the crop")
+        envs[task] = dict(state_err=st_err, reward_err=rw_err,
+                          boundary_pixels=boundary)
+        print(f"training (a) env {task}, 8 envs x 50 steps card vs CPU: "
+              f"states {st_err:.3g} (relative to 1 + |x|), rewards "
+              f"{rw_err:.3g}, dones equal; {boundary} boundary pixels of a "
+              f"frame differ; window render = crop")
+    out["card_vs_cpu"] = {"updates": upd, "envs": envs,
+                          "seconds": time.perf_counter() - t0}
+
+    # ---- (b) train each pairing on the card ----------------------------
+    runs, trained = {}, {}
+    for task, algo in (("pendulum", "ddpg"), ("hopper", "sac"),
+                       ("walker", "ppo")):
+        cfg = CFG[algo]
+        if algo == "ppo":
+            budget = 2 * cfg.n_steps * cfg.n_envs
+            n_upd = cfg.n_epochs * cfg.n_minibatches
+        else:
+            budget = cfg.learning_starts + 2 * CHUNK * cfg.n_envs
+            n_upd = CHUNK * cfg.train_freq * cfg.n_envs
+        t0 = time.perf_counter()
+        res = rl_train(task, "miniconv4", total_steps=budget, seed=7,
+                       device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        leaves = tree_leaves(res.params)
+        check(all(x.device.type == "cuda" and torch.isfinite(x).all()
+                  and not x.requires_grad for x in leaves),
+              f"{task}: trained params not finite plain tensors on the card")
+        init = make_agent(algo, _pipeline_encoder("miniconv4", 9,
+                                                  device=dev),
+                          A[task], device=dev).init(gen(7))
+        moved = sum(not torch.equal(a, b) for a, b in
+                    zip(leaves, tree_leaves(init.params)))
+        check(moved > 0, f"{task}: no parameter moved")
+        losses = [{k: float(v) for k, v in m.items()}
+                  for _, _, m in res.phases if m]
+        check(losses and all(np.isfinite(v) for m in losses
+                             for v in m.values()),
+              f"{task}: a loss is not finite: {losses}")
+        n_steady = sum(p in [q for q, _, _ in res.phases[:i]]
+                       for i, (p, _, _) in enumerate(res.phases))
+        s = res.summary()
+        row = dict(algo=algo, budget=budget,
+                   plan=[list(p) for p, _, _ in res.phases],
+                   phase_s=[dt for _, dt, _ in res.phases], wall_s=wall,
+                   steady_env_steps_per_s=res.steady_steps_per_sec,
+                   updates_per_s=n_upd * n_steady / res.steady_wall_s,
+                   episodes_completed=s["episodes_completed"],
+                   episodes_truncated=s["episodes_truncated"],
+                   last_losses=losses[-1], params_moved=moved,
+                   params=len(leaves))
+        carry = res.carry
+        if algo != "ppo":
+            # the sync gate: one more steady chunk, the same function the
+            # engine runs, under the debug mode; its end-of-chunk copy of
+            # rewards and dones is outside the window
+            agent = make_agent(algo, _pipeline_encoder("miniconv4", 9,
+                                                       device=dev),
+                               A[task], device=dev)
+            chunk = offpolicy_chunk_fn(make_pixel_env(task), agent)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with SyncCounter() as sc:
+                carry = chunk(carry, n_steps=CHUNK, warmup=False)[0]
+            torch.cuda.synchronize()
+            row["steady_chunk_syncs"] = len(sc.syncs)
+            row["gated_chunk_env_steps_per_s"] = CHUNK * cfg.n_envs / (
+                time.perf_counter() - t0)
+            check(not sc.syncs, f"{task}: the steady chunk synchronised "
+                  f"with the host {len(sc.syncs)} times: {sc.syncs[:5]}")
+        runs[task] = row
+        trained[task] = (res, carry)
+        print(f"training (b) {task}+{algo}: plan {row['plan']}, phases "
+              + ", ".join(f"{x:.2f}" for x in row["phase_s"])
+              + f" s; steady {row['steady_env_steps_per_s']:.1f} env-steps/s"
+              f", {row['updates_per_s']:.1f} updates/s; episodes "
+              f"{row['episodes_completed']} completed, "
+              f"{row['episodes_truncated']} truncated; losses "
+              f"{row['last_losses']}; {moved}/{len(leaves)} params moved"
+              + (f"; one more steady chunk under the sync debug mode: "
+                 f"{row['steady_chunk_syncs']} host syncs, "
+                 f"{row['gated_chunk_env_steps_per_s']:.1f} env-steps/s"
+                 if "steady_chunk_syncs" in row else ""))
+
+    # ms a gradient update alone, and the PPO rollout's sync gate
+    for task, algo in (("pendulum", "ddpg"), ("hopper", "sac"),
+                       ("walker", "ppo")):
+        res, carry = trained[task]
+        env = make_pixel_env(task)
+        agent = make_agent(algo, _pipeline_encoder("miniconv4", 9,
+                                                   device=dev),
+                           A[task], device=dev)
+        if algo == "ppo":
+            with SyncCounter() as sc:
+                env_states, obs, traj = onpolicy_rollout(
+                    env, agent, carry, agent.cfg.n_steps)
+            runs[task]["rollout_syncs"] = len(sc.syncs)
+            check(not sc.syncs, f"the PPO rollout synchronised with the "
+                  f"host {len(sc.syncs)} times: {sc.syncs[:5]}")
+            data = {"traj": traj, "last_obs": obs}
+            n = agent.cfg.n_epochs * agent.cfg.n_minibatches
+
+            def one():
+                agent.update(carry.state, data, carry.gen)
+        else:
+            from repro_torch.rl.buffers import buffer_sample
+            batch = buffer_sample(carry.buf, agent.cfg.batch_size, carry.gen)
+            n = 1
+
+            def one():
+                st, _ = agent.update(carry.state, batch, carry.gen)
+                agent.target_update(st)
+        one()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            one()
+        torch.cuda.synchronize()
+        runs[task]["ms_per_update"] = (time.perf_counter() - t0) / (5 * n) \
+            * 1e3
+        print(f"training (b) {task}+{algo}: "
+              f"{runs[task]['ms_per_update']:.3f} ms a gradient update "
+              f"(host clock around synchronize)"
+              + (f"; the PPO rollout of {agent.cfg.n_steps} steps: "
+                 f"{runs[task]['rollout_syncs']} host syncs"
+                 if algo == "ppo" else ""))
+
+    # one traced steady chunk (DDPG, 16 vector steps) and PPO rollout
+    traces = {}
+    for task, algo in (("pendulum", "ddpg"), ("walker", "ppo")):
+        res, carry = trained[task]
+        env = make_pixel_env(task)
+        agent = make_agent(algo, _pipeline_encoder("miniconv4", 9,
+                                                   device=dev),
+                           A[task], device=dev)
+        box = [carry]
+        if algo == "ppo":
+            def fn():
+                onpolicy_rollout(env, agent, box[0], 16)
+        else:
+            chunk = offpolicy_chunk_fn(env, agent)
+
+            def fn():
+                box[0] = chunk(box[0], n_steps=16, warmup=False)[0]
+        t = trace_decision(fn)
+        if t["kernels"]:
+            traces[task] = dict(
+                steps=16, kernels=t["kernels"],
+                kernels_per_step=t["kernels"] / 16, busy_ms=t["busy_ms"],
+                traced_wall_ms=t["traced_wall_ms"],
+                busy_share=t["busy_ms"] / t["traced_wall_ms"],
+                top=[list(x) for x in t["top"]])
+            print(f"training (b) trace, {task}+{algo} "
+                  + ("rollout" if algo == "ppo" else "steady chunk")
+                  + f" of 16 vector steps: {t['kernels']} kernels "
+                  f"({t['kernels'] / 16:.1f} a step), device busy "
+                  f"{t['busy_ms']:.3f} ms of {t['traced_wall_ms']:.3f} ms "
+                  f"traced wall ({100 * t['busy_ms'] / t['traced_wall_ms']:.2f}"
+                  f"%); top: " + "; ".join(f"{k[:50]} x{c} {ms:.3f} ms"
+                                           for k, c, ms in t["top"]))
+        else:
+            traces[task] = None
+            print(f"training (b) trace, {task}: the profiler saw no device "
+                  f"time; busy share not measured")
+    out["runs"] = runs
+    out["traces"] = traces
+
+    # ---- (c) serve the trained policies through K1 ---------------------
+    serve = {}
+    k1_launches = 0
+    for task, algo in (("pendulum", "ddpg"), ("hopper", "sac")):
+        res, _ = trained[task]
+        cfg_f = DeploymentConfig.from_encoder_name("miniconv4", c_in=9,
+                                                   backend="fused")
+        dep_f = Deployment.build(cfg_f)
+        dep_x = Deployment.build(dataclasses.replace(cfg_f, backend="xla"))
+        dep_h = Deployment.build(dataclasses.replace(cfg_f,
+                                                     backend="fused+head"))
+        agent = make_agent(algo, dep_f.encoder, A[task], device=dev)
+        head = agent.policy_head(res.params)
+        _, obs = make_pixel_env(task, train=False).reset_batch(
+            torch.Generator(device=dev).manual_seed(60), 8)
+        client, server = dep_f.serving_pair(res.params, head=head)
+        client_x, server_x = dep_x.serving_pair(res.params, head=head)
+        reset_counts()
+        payloads = [client.encode_fn(obs[i:i + 1]) for i in range(8)]
+        actions = torch.stack(server.serve(payloads))
+        with torch.inference_mode():
+            z_h = dep_h.encoder.apply(res.params["encoder"], obs)
+        torch.cuda.synchronize()
+        launches = miniconv_encoder.launches
+        k1_launches += launches
+        check(launches == 9, f"{task}: the served trained policy launched "
+              f"K1 {launches} times; expected 9 (8 requests + one batch)")
+        payloads_x = [client_x.encode_fn(obs[i:i + 1]) for i in range(8)]
+        actions_x = torch.stack(server_x.serve(payloads_x))
+        with torch.inference_mode():
+            z_x = dep_x.encoder.apply(res.params["encoder"], obs)
+            float_actions = head(z_x)
+        act_err = (actions - actions_x).abs().max().item()
+        code_diff = max((p["data"].int() - q["data"].int()).abs().max()
+                        .item() for p, q in zip(payloads, payloads_x))
+        z_err = (z_h - z_x).abs().max().item()
+        q_err = (actions - float_actions).abs().max().item()
+        check(actions.shape == (8, A[task]) and act_err <= ACT_TOL
+              and code_diff <= 1, f"{task}: served trained actions vs xla "
+              f"{act_err} (tol {ACT_TOL}), codes within {code_diff}")
+        check(torch.allclose(z_h, z_x, atol=Z_TOL, rtol=Z_TOL),
+              f"{task}: fused+head z vs xla {z_err} (tol {Z_TOL})")
+        serve[task] = dict(algo=algo, k1_launches=launches,
+                           action_err=act_err, code_diff=code_diff,
+                           z_err=z_err, vs_float_policy=q_err)
+        print(f"training (c) {task}+{algo} trained policy served on fused: "
+              f"K1 launches {launches} (8 requests at (1,84,84,9), one "
+              f"(8,84,84,9) batch with the head); actions vs the xla build "
+              f"{act_err:.3g} (tol {ACT_TOL}), codes within {code_diff}, z "
+              f"{z_err:.3g} (tol {Z_TOL}), vs float policy {q_err:.3g}")
+    out["serve"] = serve
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"training: {out['seconds']:.2f} s")
+    return out, k1_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -334,6 +777,11 @@ def main() -> int:
         ("400x400", standard_spec(c_in=4, k=4), 2, 400, 400, None,
          "relu"),
         ("odd", odd, 3, 85, 83, 200, "sigmoid"),
+        # a trained policy's shapes: three stacked RGB frames (phase 14)
+        ("train served", standard_spec(c_in=9, k=4), 1, 84, 84, None,
+         "relu"),
+        ("train batch+head", standard_spec(c_in=9, k=4), 8, 84, 84, 512,
+         "relu"),
     ]
     k1_rows = {}
     for idx, (label, spec, B, H, W, D, act) in enumerate(cases):
@@ -375,7 +823,11 @@ def main() -> int:
         def plain():
             return miniconv_encoder_ref(x, ws, bs, plan, head_w=hw,
                                         head_b=hb, head_act=act)
-        ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+        # five event readings of each (a mean over 50 calls each); the
+        # median is the row's time, so one host stall does not set it
+        ms_reps = [cuda_ms(kern) for _ in range(5)]
+        plain_reps = [cuda_ms(plain) for _ in range(5)]
+        ms, plain_ms = median(ms_reps), median(plain_reps)
         lib_ms = cuda_ms(library_chain(x, ws, bs, plan, hw, hb, act))
         dev_us = kernel_device_us(kern, "encoder_kernel")
         dev_us = dev_us and dev_us[0]
@@ -390,11 +842,14 @@ def main() -> int:
               + (f" z {zerr:.3g} (tol {Z_TOL})" if zerr is not None else "")
               + f"; kernel {ms:.4f} ms (device "
               + ("not measured" if dev_us is None else f"{dev_us:.2f} us")
-              + f" a launch, traced), plain {plain_ms:.4f} ms, library "
+              + " a launch, traced; median of "
+              + "/".join(f"{t:.4f}" for t in ms_reps)
+              + f"), plain {plain_ms:.4f} ms, library "
               f"{lib_ms:.4f} ms (cuDNN chain"
               + (" + matmul head" if D else "") + f"), bound {b_ms:.5f} ms "
               f"({b_by})")
         k1_rows[label] = dict(max_abs_err=max(err, zerr or 0.0), ms=ms,
+                              ms_reps=ms_reps, plain_ms_reps=plain_reps,
                               device_us=dev_us, plain_ms=plain_ms,
                               bound_ms=b_ms, bound_by=b_by,
                               library_ms=lib_ms, shape=list(x.shape), head=D,
@@ -940,7 +1395,9 @@ def main() -> int:
               f"{err:.3g} (tol {tol}, vs plain in f32), repeats bit for bit; "
               f"kernel {ms:.4f} ms (device "
               + ("not measured" if dev_us is None else f"{dev_us:.2f} us")
-              + f" a launch, traced), plain {plain_ms:.4f} ms, library "
+              + " a launch, traced; median of "
+              + "/".join(f"{t:.4f}" for t in ms_reps)
+              + f"), plain {plain_ms:.4f} ms, library "
               f"{lib_ms:.4f} ms (scaled_dot_product_attention), bound "
               f"{b_ms:.5f} ms ({b_by}, {flops / 1e9:.4g} GFLOP); "
               f"{flops / t_ms / 1e9:.1f} TFLOP/s, "
@@ -1268,7 +1725,14 @@ def main() -> int:
     print(json.dumps({"real_fleet": real_fleet}, default=float))
     del setup
 
-    # ---- 14. results -------------------------------------------------------
+    # ---- 14. the RL training stack on the card ------------------------------
+    # cuDNN's and cuBLAS's TF32 stay off (phase 1): the card is held against
+    # the CPU in full fp32, and the trained policies train that way.
+    training, train_k1 = training_phase(dev, gen, miniconv_encoder,
+                                        reset_counts)
+    print(json.dumps({"training": training}, default=float))
+
+    # ---- 15. results -------------------------------------------------------
     k1 = k1_rows["served edge"]
     def layer_row(rows, dev_us):
         """The served frame's row, with the 400x400 and batch-8 times."""
@@ -1319,6 +1783,13 @@ def main() -> int:
                 for key in ("ms", "device_us", "library_ms", "bound_ms",
                             "tflops")}),
     ]
+    kernels[0]["training_serve_launches"] = train_k1
+    for label, key in (("train served", "train_served"),
+                       ("train batch+head", "train_batch_head")):
+        kernels[0][key] = {k: k1_rows[label][k] for k in (
+            "ms", "ms_reps", "device_us", "plain_ms", "plain_ms_reps",
+            "library_ms", "bound_ms",
+            "bound_by", "max_abs_err", "shape", "head", "tiles")}
     for k in kernels:
         if k["name"] == lat_kernel.__name__:
             k["latency_path_launches"] = lat_launches

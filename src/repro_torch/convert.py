@@ -40,4 +40,20 @@ def params_from_jax(tree, device: DeviceLike = None):
     return conv(tree)
 
 
-__all__ = ["params_from_jax"]
+def train_state_from_jax(state, device: DeviceLike = None):
+    """A reference ``TrainState(params, target, OptState(step, mu, nu))``
+    -> the port's, on ``device``: every tree through
+    :func:`params_from_jax` (a 0-d leaf such as ``log_alpha`` stays 0-d),
+    the step as a 0-d int32 tensor.  An update can then start from the
+    reference's own optimizer state."""
+    from repro_torch.rl.agent import TrainState
+    from repro_torch.train.optimizer import OptState
+    params, target, opt = state
+    step = params_from_jax(np.asarray(opt.step, dtype=np.int32), device)
+    return TrainState(params_from_jax(params, device),
+                      params_from_jax(target, device),
+                      OptState(step, params_from_jax(opt.mu, device),
+                               params_from_jax(opt.nu, device)))
+
+
+__all__ = ["params_from_jax", "train_state_from_jax"]

@@ -29,8 +29,10 @@ run the manifest through a registered serving scenario, and
 over localhost sockets, bitwise equal to in-process serving.  The
 manifest's fleet shape (``n_servers``, ``router``) drives
 :meth:`Deployment.fleet_sim`, :meth:`Deployment.scenario_sim` and the real
-:meth:`Deployment.fleet`.  Not ported yet (see ROADMAP.md):
-``export_best``, which comes with training.
+:meth:`Deployment.fleet`.  Training is ported (``repro_torch.rl.train``;
+its ``TrainResult.params`` serve through :meth:`Deployment.serving_pair`).
+Not ported yet (see ROADMAP.md): ``export_best``, which waits for
+populations (``rl/population.py``'s ``best_member``).
 """
 from __future__ import annotations
 

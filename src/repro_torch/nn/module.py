@@ -50,12 +50,36 @@ def orthogonal_init(scale: float = 1.0) -> Initializer:
     return init
 
 
-def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every leaf of a nested dict of tensors."""
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` to every leaf of a nested dict of tensors (leaf by leaf
+    across ``rest``, trees of the same structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict in ``jax.tree.leaves`` order: keys
+    sorted at every level."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """The tree shaped like ``like`` with ``leaves`` (in ``tree_leaves``
+    order) at its leaves."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        return next(it)
+
+    return build(like)
 
 
 __all__ = ["Initializer", "fan_in_init", "normal_init", "orthogonal_init",
-           "tree_map"]
+           "tree_leaves", "tree_map", "tree_unflatten"]

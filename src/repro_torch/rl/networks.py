@@ -10,8 +10,9 @@ policy/value heads (port of the serving part of ``repro.rl.networks``).
 * ``miniconv`` — the paper's on-device encoder; the conv stack is the
   *edge* half, the flatten + dense(512) belongs to the *server* half, so
   the wire tensor is exactly the K-channel feature map the paper sends.
-* Heads: Gaussian actor (mean and log-std), squashed-Gaussian actor mode,
-  deterministic actor, Q and V critics.  The samplers come with training.
+* Heads: Gaussian actor (mean and log-std), squashed-Gaussian actor
+  (its mode, and its sampler with the standard-normal draw as an
+  argument), deterministic actor, Q and V critics.
 """
 from __future__ import annotations
 
@@ -97,13 +98,39 @@ class Encoder:
     """Uniform encoder interface for the RL algorithms."""
 
     name: str
-    init: Any
+    init: Any                       # (gen) -> params on the device
     apply: Any                      # (params, obs) -> (B, 512)
     spec: MiniConvSpec | None = None
 
     def plan(self, h: int = 84, w: int = 84):
         """Compiled pass plan of the edge half."""
         return None if self.spec is None else self.spec.plan(h, w)
+
+
+def make_encoder(name: str, c_in: int = 9, *, use_kernel=False,
+                 fused_head: bool = False,
+                 device: DeviceLike = None) -> Encoder:
+    """name in {"full_cnn", "miniconv4", "miniconv16"}.
+
+    For MiniConv encoders a thin shim over
+    :meth:`repro_torch.deploy.Deployment.build`, the one pipeline
+    constructor: ``use_kernel`` picks the execution backend and
+    ``fused_head=True`` sets ``head_placement="fused"``.  ``full_cnn``
+    (the paper's server-only baseline) has no split pipeline.
+    """
+    dev = resolve_device(device)
+    if name == "full_cnn":
+        return Encoder("full_cnn",
+                       lambda gen: full_cnn_init(gen, c_in, device=dev),
+                       full_cnn_apply)
+    if name.startswith("miniconv"):
+        from repro_torch.deploy import (Deployment,  # lazy: deploy imports
+                                        DeploymentConfig)  # this module
+        cfg = DeploymentConfig.from_encoder_name(
+            name, c_in=c_in, backend=use_kernel,
+            head_placement="fused" if fused_head else "server")
+        return Deployment.build(cfg, device=dev).encoder
+    raise ValueError(f"unknown encoder {name}")
 
 
 # ---------------------------------------------------------------------------
@@ -157,6 +184,38 @@ def squashed_actor_mode(params, feats):
     return torch.tanh(mean)
 
 
+def softplus(x):
+    """``jax.nn.softplus``: ``max(x, 0) + log1p(exp(-|x|))``, with no
+    threshold (``F.softplus`` returns ``x`` above 20)."""
+    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
+def squashed_actor_sample(params, feats, eps):
+    """A tanh-squashed Gaussian action, its log-probability and the mode,
+    from the standard-normal draw ``eps`` (shape of the action)."""
+    out = mlp_apply(params["mlp"], feats)
+    mean, log_std = torch.chunk(out, 2, dim=-1)
+    log_std = torch.clamp(log_std, -10.0, 2.0)
+    std = torch.exp(log_std)
+    pre = mean + std * eps
+    action = torch.tanh(pre)
+    # log prob with tanh correction
+    logp = (-0.5 * (eps * eps + 2 * log_std
+                    + math.log(2 * math.pi))).sum(-1)
+    logp = logp - torch.sum(2 * (math.log(2.0) - pre - softplus(-2 * pre)),
+                            -1)
+    return action, logp, torch.tanh(mean)
+
+
+def squashed_actor_draw(params, feats, gen: torch.Generator):
+    """:func:`squashed_actor_sample` with its draw from ``gen``."""
+    mlp = params["mlp"]
+    action_dim = mlp[f"fc{len(mlp) - 1}"]["kernel"].shape[1] // 2
+    eps = torch.randn((*feats.shape[:-1], action_dim), generator=gen,
+                      device=gen.device)
+    return squashed_actor_sample(params, feats, eps)
+
+
 def q_critic_init(gen, feat_dim: int, action_dim: int, *,
                   device: DeviceLike = None):
     return {"mlp": mlp_init(gen, [feat_dim + action_dim, 256, 1],
@@ -187,7 +246,10 @@ def det_actor(params, feats):
 
 
 __all__ = ["Encoder", "FEATURE_DIM", "det_actor", "det_actor_init",
-           "full_cnn_apply", "full_cnn_init", "gaussian_actor", "gaussian_actor_init", "miniconv_edge_apply",
+           "full_cnn_apply", "full_cnn_init", "gaussian_actor",
+           "gaussian_actor_init", "make_encoder", "miniconv_edge_apply",
            "miniconv_encoder_init", "miniconv_server_apply", "mlp_apply",
-           "mlp_init", "q_critic", "q_critic_init", "squashed_actor_init",
-           "squashed_actor_mode", "v_critic", "v_critic_init"]
+           "mlp_init", "q_critic", "q_critic_init", "softplus",
+           "squashed_actor_draw", "squashed_actor_init",
+           "squashed_actor_mode", "squashed_actor_sample", "v_critic",
+           "v_critic_init"]

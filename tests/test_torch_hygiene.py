@@ -55,7 +55,13 @@ def test_port_files_exist():
                 "benchmarks/break_even.py", "benchmarks/scalability.py",
                 "examples/quickstart.py", "serving/realfleet.py",
                 "benchmarks/realfleet.py", "benchmarks/sustained.py",
-                "benchmarks/scenarios.py", "examples/deploy_policy.py"):
+                "benchmarks/scenarios.py", "examples/deploy_policy.py",
+                "train/__init__.py", "train/optimizer.py",
+                "envs/__init__.py", "envs/base.py", "envs/rendering.py",
+                "envs/pendulum.py", "envs/hopper.py", "envs/walker.py",
+                "envs/wrappers.py", "rl/buffers.py", "rl/agent.py",
+                "rl/ddpg.py", "rl/sac.py", "rl/ppo.py", "rl/rollout.py",
+                "rl/train.py", "examples/train_split_policy.py"):
         assert mod in names, mod
     assert len([n for n in names if n.startswith("configs/")]) == 11
     assert {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")} == \

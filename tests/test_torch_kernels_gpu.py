@@ -470,3 +470,86 @@ def test_real_fleet_on_cuda_serves_bitwise(cuda):
     assert seen["bitwise"] and seen["leaked"] == []
     assert seen["device"] == "cuda" and min(seen["per_server"]) > 0
     assert seen["per_server_after_kill"][1] >= 4
+
+
+# ------------------------------------------------------------- training
+@pytest.mark.parametrize("B,D", [(1, None), (8, 512)],
+                         ids=["served", "batch+head"])
+def test_encoder_kernel_at_the_training_channels(cuda, B, D):
+    """K1 at ``c_in = 9`` (three stacked RGB frames), the shapes a trained
+    policy is served at: one frame, and eight with the projection."""
+    spec = standard_spec(c_in=9, k=4)
+    plan, x, ws, bs, hw, hb = _case(spec, B, 84, 84, D, cuda, seed=3)
+    before = kmod.miniconv_encoder.launches
+    got = kmod.miniconv_encoder(x, ws, bs, plan, head_w=hw, head_b=hb)
+    want = miniconv_encoder_ref(x, ws, bs, plan, head_w=hw, head_b=hb)
+    torch.cuda.synchronize()
+    assert kmod.miniconv_encoder.launches == before + 1
+    if D is None:
+        got, want = (got, None), (want, None)
+    torch.testing.assert_close(got[0], want[0], atol=FEAT_TOL, rtol=FEAT_TOL)
+    if D is not None:
+        torch.testing.assert_close(got[1], want[1], atol=Z_TOL, rtol=Z_TOL)
+
+
+@pytest.mark.parametrize("algo", ["ddpg", "sac", "ppo"])
+def test_update_on_card_matches_cpu(cuda, algo):
+    """One update of each algorithm from the same TrainState, batch and
+    draws on the card and on the CPU: gradients (the first Adam moment
+    from zero) within 1e-4 of each leaf's largest element, parameters
+    within 2 * lr (Adam's first step is about lr * sign(g)), losses within
+    1e-4."""
+    import numpy as np
+
+    from repro_torch.nn.module import tree_leaves, tree_map
+    from repro_torch.rl.agent import make_agent, move_state
+    from repro_torch.rl.ddpg import DDPGConfig
+    from repro_torch.rl.ppo import PPOConfig
+    from repro_torch.rl.sac import SACConfig
+    from repro_torch.rl.train import _pipeline_encoder
+
+    A = {"ddpg": 1, "sac": 3, "ppo": 6}[algo]
+    cfg = {"ddpg": DDPGConfig(batch_size=16), "sac": SACConfig(batch_size=16),
+           "ppo": PPOConfig(n_envs=2, n_steps=8, n_epochs=1,
+                            n_minibatches=1)}[algo]
+    agents = {d: make_agent(algo, _pipeline_encoder("miniconv4", 9,
+                                                    device=d), A, cfg=cfg,
+                            device=d) for d in ("cpu", "cuda")}
+    state = agents["cpu"].init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    if algo == "ppo":
+        T, N = 8, 2
+        data = {"traj": {
+            "obs": rng.random((T, N, 84, 84, 9)).astype(np.float32),
+            "action": rng.standard_normal((T, N, A)).astype(np.float32),
+            "reward": rng.standard_normal((T, N)).astype(np.float32),
+            "done": rng.random((T, N)) < 0.2,
+            "logp": (rng.standard_normal((T, N)) - 5).astype(np.float32),
+            "value": rng.standard_normal((T, N)).astype(np.float32)},
+            "last_obs": rng.random((N, 84, 84, 9)).astype(np.float32)}
+    else:
+        B = 16
+        data = {"obs": rng.random((B, 84, 84, 9)).astype(np.float32),
+                "next_obs": rng.random((B, 84, 84, 9)).astype(np.float32),
+                "actions": rng.uniform(-1, 1, (B, A)).astype(np.float32),
+                "rewards": rng.standard_normal(B).astype(np.float32),
+                "dones": (rng.random(B) < 0.3).astype(np.float32)}
+    data = tree_map(lambda a: torch.from_numpy(np.asarray(a)), data)
+    noise = agents["cpu"].draw_noise(torch.Generator().manual_seed(2), data)
+    out = {}
+    for d in ("cpu", "cuda"):
+        move = (lambda t: t.to(d))  # noqa: E731
+        n = None if noise is None else (
+            noise.to(d) if isinstance(noise, torch.Tensor)
+            else tuple(move(x) for x in noise))
+        out[d] = agents[d].update(move_state(state, d), tree_map(move, data),
+                                  noise=n)
+    (cs, cm), (gs, gm) = out["cpu"], out["cuda"]
+    for k in cm:
+        torch.testing.assert_close(gm[k].cpu(), cm[k], rtol=1e-4, atol=1e-5)
+    for want, got in zip(tree_leaves(cs.opt_state.mu),
+                         tree_leaves(gs.opt_state.mu)):
+        scale = max(float(want.abs().max()), 1e-30)
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+    for want, got in zip(tree_leaves(cs.params), tree_leaves(gs.params)):
+        assert float((got.cpu() - want).abs().max()) <= 2 * cfg.lr
