@@ -36,14 +36,22 @@ CPU, the paper's three pairings trained briefly on the card with the
 host syncs inside a steady chunk and a PPO rollout counted (none
 allowed) and a steady chunk traced, and the trained DDPG and SAC
 policies served from a ``fused`` manifest through K1 at 9 input
-channels, against the ``xla`` build.
+channels, against the ``xla`` build.  Last it trains populations
+(``repro_torch.rl.population``): a 4-member DDPG population in exact and
+in batched (``torch.func.vmap``) lanes, whose bitwise gates run in a child
+process in deterministic mode (``python3 chip_smoke.py
+--population-gates``, which the script starts itself), the winner served
+through K1 by ``Deployment.export_best``, the aggregate throughput of
+populations of 1, 4 and 16 members against as many sequential runs, a
+traced chunk at 16 members, and ``benchmarks.learning --smoke``.
 Each path runs with every launch count set to 0 just before it and read
 just after; the actions are checked against the eager ``xla`` build of
 the same manifest, and the LM's logits against its monolith and against
 the CPU's plain versions.
 
 Any failure ends the run with a non-zero exit code and no result line.
-Phase 14 prints its numbers as a ``{"training": ...}`` line.
+Phase 14 prints its numbers as a ``{"training": ...}`` line, phase 15 as
+a ``{"population": ...}`` line.
 On success the line before the last is ``{"kernels": [...]}`` (one entry
 per kernel: launches on the served path, error, times and bound), and the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -53,6 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -534,14 +543,7 @@ def training_phase(dev, gen, miniconv_encoder, reset_counts):
             def one():
                 st, _ = agent.update(carry.state, batch, carry.gen)
                 agent.target_update(st)
-        one()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            one()
-        torch.cuda.synchronize()
-        runs[task]["ms_per_update"] = (time.perf_counter() - t0) / (5 * n) \
-            * 1e3
+        runs[task]["ms_per_update"] = host_ms(one) / n
         print(f"training (b) {task}+{algo}: "
               f"{runs[task]['ms_per_update']:.3f} ms a gradient update "
               f"(host clock around synchronize)"
@@ -645,6 +647,483 @@ def training_phase(dev, gen, miniconv_encoder, reset_counts):
     return out, k1_launches
 
 
+# Phase 15: populations.  The deterministic child's seeds, the eval seed
+# and the tolerances of its gates.
+POP_SEEDS = (70, 71)
+POP_EVAL_SEED = 72
+# vmap lanes against exact lanes after one update on the same batch (the
+# tests' CPU figures: losses 1.6e-6, gradients 6.1e-6 of a leaf's largest)
+POP_LOSS_RTOL = 1e-4
+POP_GRAD_RTOL = 1e-4
+# the vmap evaluator's 100 episodes against the exact one's, relative to
+# the returns' scale (its policy is batched: its convs sum in another
+# order)
+POP_EVAL_RTOL = 1e-4
+POP_PROBE_STEPS = 16       # the sync-gated chunk after training
+POP_TRACE_STEPS = 2        # the traced chunk at P=16 (the profiler's own
+                           # cost grows with the 12,000 kernels a step of
+                           # the exact lanes)
+
+
+def host_ms(fn, reps=5):
+    """Host ms a call of ``fn``, ``reps`` calls after one, around a
+    synchronize."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def card_name() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def population_gates(dev="cuda") -> int:
+    """Phase 15's gates, run in a child process started with cuBLAS's
+    deterministic workspace and ``torch.use_deterministic_algorithms``
+    (``python3 chip_smoke.py --population-gates``).  It trains the
+    4-member population once in each lane mode at phase 14's depth and
+    prints one ``{"population_gates": ...}`` line."""
+    import numpy as np
+    import torch
+    torch.use_deterministic_algorithms(True)
+    # determinism does not need new memory filled: that only costs a fill
+    # kernel an allocation
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.deploy import Deployment, DeploymentConfig
+    from repro_torch.envs import make_pixel_env
+    from repro_torch.kernels.miniconv_pass import miniconv_encoder
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.rl import population as pop
+    from repro_torch.rl.agent import make_agent
+    from repro_torch.rl.buffers import population_sample
+    from repro_torch.rl.ddpg import DDPGConfig
+    from repro_torch.rl.rollout import CHUNK
+    from repro_torch.rl.train import _pipeline_encoder
+    from repro_torch.rl.train import train as rl_train
+
+    t_phase = time.perf_counter()
+    card = card_name()
+    dev = torch.device(dev)
+    cfg = DDPGConfig()
+    budget = cfg.learning_starts + 2 * CHUNK * cfg.n_envs
+    spec = pop.PopulationSpec(tasks=("pendulum",), seeds=POP_SEEDS,
+                              variants=((), (("lr", 0.0),)),
+                              total_steps=budget)
+    out = {"card": card, "deterministic":
+           torch.are_deterministic_algorithms_enabled(),
+           "cublas_workspace": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
+           "budget": budget, "members": spec.n_members}
+
+    def equal(a, b):
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(torch.equal(x, y)
+                                          for x, y in zip(la, lb))
+
+    def max_diff(a, b):
+        return max(float((x - y).abs().max())
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    # ---- (a) population env rows against per-member calls --------------
+    env = make_pixel_env("pendulum")
+    seeds = (0, 1, 2, 3)
+    states, obs = env.reset_population(
+        [torch.Generator(device=dev).manual_seed(s) for s in seeds], 2)
+    refs = [env.reset_batch(torch.Generator(device=dev).manual_seed(s), 2)
+            for s in seeds]
+    rows_equal = all(torch.equal(r[1], obs[p]) for p, r in enumerate(refs))
+    act_gen = torch.Generator(device=dev).manual_seed(5)
+    for _ in range(20):
+        acts = torch.rand((4, 2, 1), generator=act_gen, device=dev) * 2 - 1
+        states, obs, rew, done = env.step_population(states, acts)
+        for p in range(4):
+            s, o, r, d = env.step_batch(refs[p][0], acts[p])
+            refs[p] = (s, o)
+            rows_equal &= (torch.equal(o, obs[p]) and torch.equal(r, rew[p])
+                           and torch.equal(d, done[p]))
+    check(rows_equal, "step_population rows differ from per-member "
+          "step_batch on the card")
+    out["env_rows_bitwise"] = rows_equal
+
+    # ---- (b) the population in each lane mode, and train() ------------
+    runs = {}
+    for mode in pop.LANE_MODES:
+        t0 = time.perf_counter()
+        with pop.vmap_fallbacks() as fb:
+            res = pop.train_population(spec, lane_mode=mode,
+                                       eval_episodes=100,
+                                       eval_seed=POP_EVAL_SEED, device=dev)
+            torch.cuda.synchronize()
+        runs[mode] = res
+        (run,) = res.runs
+        losses = [float(v) for _, _, m in run.phases for x in m.values()
+                  for v in x]
+        check(losses and all(np.isfinite(losses)), f"{mode}: a loss is not "
+              f"finite")
+        check(all(torch.isfinite(x).all() for m in res.members
+                  for x in tree_leaves(m.params)),
+              f"{mode}: trained params not finite")
+        check(not fb, f"{mode}: {len(fb)} ops fell back to vmap's "
+              f"per-member loop: {fb[:3]}")
+        steady = [(p, dt) for i, (p, dt, _) in enumerate(run.phases)
+                  if p in [q for q, _, _ in run.phases[:i]]]
+        out[mode] = dict(
+            wall_s=time.perf_counter() - t0,
+            program=res.program_stats[0],
+            phase_s=[dt for _, dt, _ in run.phases],
+            steady_env_steps_per_s=(
+                sum(p[1] * cfg.n_envs * len(res.members) for p, _ in steady)
+                / sum(dt for _, dt in steady)),
+            vmap_fallbacks=len(fb),
+            eval_final_100_mean=[m.final_100_mean for m in res.members],
+            last_losses={k: [float(x) for x in v]
+                         for k, v in run.phases[-1][2].items()})
+    t0 = time.perf_counter()
+    single = rl_train("pendulum", "miniconv4", total_steps=budget,
+                      seed=POP_SEEDS[0], device=dev)
+    out["single_wall_s"] = time.perf_counter() - t0
+    m0 = runs["exact"].members[0]
+    want = single.carry.state
+    member0 = dict(
+        params=equal(m0.params, want.params),
+        target=equal(m0.state.target, want.target),
+        opt_state=(torch.equal(m0.state.opt_state.step, want.opt_state.step)
+                   and equal(m0.state.opt_state.mu, want.opt_state.mu)
+                   and equal(m0.state.opt_state.nu, want.opt_state.nu)),
+        returns=(m0.episode_returns == single.episode_returns
+                 and m0.truncated_returns == single.truncated_returns))
+    check(all(member0.values()), f"exact member 0 is not train() at seed "
+          f"{POP_SEEDS[0]} bitwise: {member0}")
+    out["member0_bitwise"] = member0
+    agent = make_agent("ddpg", _pipeline_encoder("miniconv4", 9, device=dev),
+                       1, device=dev)
+    frozen = {}
+    for mode, res in runs.items():
+        for m in res.members:
+            if m.overrides == {"lr": 0.0}:
+                init = agent.init(torch.Generator().manual_seed(m.seed))
+                frozen[f"{mode} member {m.index}"] = equal(m.params,
+                                                           init.params)
+    check(all(frozen.values()), f"an lr=0 lane moved: {frozen}")
+    out["lr0_frozen"] = frozen
+    out["final_drift"] = [max_diff(e.params, v.params) for e, v in
+                          zip(runs["exact"].members, runs["vmap"].members)]
+
+    # ---- (c) the eval protocol -----------------------------------------
+    t0 = time.perf_counter()
+    eval_env = make_pixel_env("pendulum", train=False)
+    stacked = pop.stack_trees([m.params for m in runs["exact"].members])
+    exact_eval = pop.make_population_evaluator(eval_env, agent, 100,
+                                               lane_mode="exact")
+    again = exact_eval(stacked, POP_EVAL_SEED).cpu().numpy()
+    first = np.stack([m.eval_returns for m in runs["exact"].members])
+    check(np.array_equal(again, first), "the exact evaluator does not "
+          "replay bitwise")
+    batched = pop.make_population_evaluator(eval_env, agent, 100,
+                                            lane_mode="vmap")
+    with pop.vmap_fallbacks() as fb:
+        vrows = batched(stacked, POP_EVAL_SEED).cpu().numpy()
+    eval_err = float(np.abs(vrows - first).max() / np.abs(first).max())
+    check(eval_err <= POP_EVAL_RTOL and not fb, f"vmap evaluator rows "
+          f"{eval_err:.3g} of the exact ones' scale (tol {POP_EVAL_RTOL}), "
+          f"{len(fb)} fallbacks")
+    best = runs["exact"].best_member()
+    check(np.isfinite(best.final_100_mean), "best member's final_100_mean "
+          "is not finite")
+    out["eval"] = dict(episodes=100, steps=eval_env.env.max_steps,
+                       replay_bitwise=True, vmap_rel_err=eval_err,
+                       best_member=best.index,
+                       best_final_100_mean=best.final_100_mean,
+                       seconds=time.perf_counter() - t0)
+
+    # ---- (d) vmap against exact lanes at the first update --------------
+    # the vmap engine warms up (no update), then both lanes take one
+    # update of every member from that state on the same batch
+    hyper = spec.programs()[0].hyper_values()
+    enc = _pipeline_encoder("miniconv4", 9, device=dev)
+    engine = pop.make_population_engine(
+        env, "ddpg", enc, 1, cfg, hyper, 4, cfg.learning_starts + 2,
+        lane_mode="vmap", device=dev)
+    carry = engine.init([m.seed for m in runs["vmap"].members])
+    carry = engine.run(carry, engine.plan()[0])[0]
+    batch = population_sample(carry.buf, cfg.batch_size, carry.gen)
+    lanes = pop.BatchedLanes("ddpg", enc, 1, cfg, hyper, device=dev)
+    with pop.vmap_fallbacks() as fb:
+        vs, vm = lanes.update(carry.state, batch, None)
+    upd = {"loss_rel": 0.0, "grad_rel": 0.0, "param_abs": 0.0}
+    for p, lr in enumerate(hyper["lr"]):
+        a = make_agent("ddpg", enc, 1, device=dev,
+                       cfg=dataclasses.replace(cfg, lr=lr))
+        es, em = a.update(pop.member_tree(carry.state, p),
+                          pop.member_tree(batch, p))
+        es = a.target_update(es)
+        for k in em:
+            upd["loss_rel"] = max(upd["loss_rel"], max(
+                abs(float(vm[k][p]) - float(em[k])) - 1e-5, 0.0)
+                / abs(float(em[k])))
+        for w, g in zip(tree_leaves(es.opt_state.mu),
+                        tree_leaves(pop.member_tree(vs.opt_state.mu, p))):
+            upd["grad_rel"] = max(upd["grad_rel"], float(
+                (g - w).abs().max()) / max(float(w.abs().max()), 1e-30))
+        d = max_diff(es.params, pop.member_tree(vs.params, p))
+        upd["param_abs"] = max(upd["param_abs"], d / max(lr, 1e-30)
+                               if lr else d)
+        if lr == 0.0:
+            check(equal(pop.member_tree(vs.params, p),
+                        pop.member_tree(carry.state.params, p)),
+                  "the lr=0 member moved in the first update")
+    check(upd["loss_rel"] <= POP_LOSS_RTOL and upd["grad_rel"]
+          <= POP_GRAD_RTOL and upd["param_abs"] <= 2 and not fb,
+          f"vmap lanes vs exact at the first update: {upd} (tol losses "
+          f"{POP_LOSS_RTOL}, gradients {POP_GRAD_RTOL}, params 2 lr), "
+          f"{len(fb)} fallbacks")
+    out["first_update"] = dict(upd, param_unit="lr", vmap_fallbacks=len(fb))
+
+    # ---- (e) no host sync in one more chunk of each mode ---------------
+    syncs = {}
+    for mode, res in runs.items():
+        (run,) = res.runs
+        torch.cuda.synchronize()
+        with SyncCounter() as sc, pop.vmap_fallbacks() as fb:
+            run.engine.run(run.carry, ("train", POP_PROBE_STEPS))
+        torch.cuda.synchronize()
+        syncs[mode] = len(sc.syncs)
+        check(not sc.syncs and not fb, f"{mode}: the chunk synchronised "
+              f"with the host {len(sc.syncs)} times: {sc.syncs[:5]}; "
+              f"{len(fb)} fallbacks")
+    out["chunk_syncs"] = syncs
+
+    # ---- (f) serve the winner through K1 -------------------------------
+    cfg_f = DeploymentConfig.from_encoder_name("miniconv4", c_in=9,
+                                               backend="fused")
+    dep_f = Deployment.build(cfg_f, device=dev)
+    dep_x = Deployment.build(dataclasses.replace(cfg_f, backend="xla"),
+                             device=dev)
+    dep_h = Deployment.build(dataclasses.replace(cfg_f, backend="fused+head"),
+                             device=dev)
+    head = agent.policy_head(runs["exact"].best_params())
+    _, obs = eval_env.reset_batch(
+        torch.Generator(device=dev).manual_seed(60), 8)
+    client, server = dep_f.export_best(runs["exact"], head=head)
+    client_x, server_x = dep_x.export_best(runs["exact"], head=head)
+    miniconv_encoder.launches = 0
+    payloads = [client.encode_fn(obs[i:i + 1]) for i in range(8)]
+    actions = torch.stack(server.serve(payloads))
+    with torch.inference_mode():
+        z_h = dep_h.encoder.apply(best.params["encoder"], obs)
+    torch.cuda.synchronize()
+    launches = miniconv_encoder.launches
+    payloads_x = [client_x.encode_fn(obs[i:i + 1]) for i in range(8)]
+    actions_x = torch.stack(server_x.serve(payloads_x))
+    with torch.inference_mode():
+        z_x = dep_x.encoder.apply(best.params["encoder"], obs)
+    act_err = (actions - actions_x).abs().max().item()
+    code_diff = max((p["data"].int() - q["data"].int()).abs().max().item()
+                    for p, q in zip(payloads, payloads_x))
+    z_err = (z_h - z_x).abs().max().item()
+    check(launches == 9, f"export_best served through K1 {launches} times; "
+          f"expected 9 (8 requests + one batch)")
+    check(actions.shape == (8, 1) and act_err <= ACT_TOL and code_diff == 0,
+          f"export_best actions vs xla {act_err} (tol {ACT_TOL}), codes "
+          f"within {code_diff}")
+    check(z_err <= Z_TOL, f"fused+head z vs xla {z_err} (tol {Z_TOL})")
+    out["serve"] = dict(k1_launches=launches, action_err=act_err,
+                        code_diff=code_diff, z_err=z_err,
+                        best_member=best.index)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"population_gates": out}, default=float))
+    return 0
+
+
+def population_phase(dev, card):
+    """Phase 15: populations on the card.  (a) the deterministic child's
+    gates (:func:`population_gates`); (b) aggregate env-steps/s at P = 1,
+    4 and 16 in each lane mode against the sequential baseline, in the
+    collection regime (the vmap lanes' 3x gate at P=16) and with updates;
+    (c) a traced steady chunk at P=16 in each mode and the ms of a stacked
+    update; (d) exact member 0 against ``train()`` without deterministic
+    mode, at a cut depth; (e) ``benchmarks.learning --smoke``.  Returns
+    the ``{"population": ...}`` dict."""
+    import torch
+    from repro_torch.benchmarks import learning as bench_learning
+    from repro_torch.benchmarks import population as bench_pop
+    from repro_torch.benchmarks.lm_split import trace_decision
+    from repro_torch.envs import make_pixel_env
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.rl import population as pop
+    from repro_torch.rl.agent import make_agent
+    from repro_torch.rl.buffers import population_sample
+    from repro_torch.rl.ddpg import DDPGConfig
+    from repro_torch.rl.train import _pipeline_encoder
+    from repro_torch.rl.train import train as rl_train
+
+    t_phase = time.perf_counter()
+    say = lambda msg: print(f"population [{card}]: {msg}")  # noqa: E731
+    out = {"card": card}
+
+    # ---- (a) the gates, in a deterministic child -----------------------
+    t0 = time.perf_counter()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    child = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                            "--population-gates"], env=env, cwd=ROOT,
+                           capture_output=True, text=True, timeout=900)
+    check(child.returncode == 0, f"the deterministic child failed "
+          f"({child.returncode}): {child.stderr[-3000:]}")
+    gates = json.loads(child.stdout.strip().splitlines()[-1])[
+        "population_gates"]
+    gates["process_s"] = time.perf_counter() - t0
+    out["gates"] = gates
+    for mode in pop.LANE_MODES:
+        g = gates[mode]
+        say(f"(a) {mode} lanes, 4 members x {gates['budget']} steps in "
+            f"deterministic mode: {g['wall_s']:.2f} s (eval included), "
+            f"phases " + ", ".join(f"{x:.2f}" for x in g["phase_s"])
+            + f" s, steady {g['steady_env_steps_per_s']:.1f} aggregate "
+            f"env-steps/s, {g['vmap_fallbacks']} vmap fallbacks, "
+            f"final_100_mean {g['eval_final_100_mean']}")
+    say(f"(a) exact member 0 vs train() bitwise: {gates['member0_bitwise']};"
+        f" lr=0 lanes frozen: {gates['lr0_frozen']}; step_population rows "
+        f"bitwise: {gates['env_rows_bitwise']}; first update vmap vs exact:"
+        f" {gates['first_update']}; drift at the end "
+        f"{gates['final_drift']}; host syncs in one more chunk "
+        f"{gates['chunk_syncs']}; eval {gates['eval']}; export_best "
+        f"through K1 {gates['serve']}; child {gates['process_s']:.2f} s")
+
+    # ---- (b) aggregate throughput against the sequential baseline ------
+    t0 = time.perf_counter()
+    grids = {}
+    coll = bench_pop.run_grid((1, 4, 16), total_steps=64, n_envs=2,
+                              device=dev)
+    upd_cfg = DDPGConfig(learning_starts=DDPGConfig().batch_size)
+    upd_steps = upd_cfg.learning_starts + 8 * upd_cfg.n_envs
+    upd = bench_pop.run_grid((1, 4, 16), total_steps=upd_steps,
+                             n_envs=upd_cfg.n_envs, cfg=upd_cfg,
+                             regime="updates", device=dev)
+    for name, rows in (("collection", coll), ("updates", upd)):
+        grids[name] = rows
+        for r in rows:
+            say(f"(b) {name}: {r['lane_mode']} P={r['P']}: warm "
+                f"{r['steady_aggregate_steps_per_sec']:.1f} aggregate "
+                f"env-steps/s vs sequential "
+                f"{r['steady_sequential_steps_per_sec']:.1f}: "
+                f"{r['speedup_vs_sequential']:.2f}x; first passes "
+                f"{r['aggregate_steps_per_sec']:.1f} vs "
+                f"{r['sequential_steps_per_sec']:.1f}: "
+                f"{r['first_pass_speedup_vs_sequential']:.2f}x")
+    top = next(r for r in coll if r["lane_mode"] == "vmap" and r["P"] == 16)
+    check(top["speedup_vs_sequential"] >= bench_pop.SMOKE_SPEEDUP,
+          f"vmap lanes at P=16 collect {top['speedup_vs_sequential']:.2f}x "
+          f"the sequential baseline, warm (< {bench_pop.SMOKE_SPEEDUP:g}x)")
+    check(all(r["speedup_vs_sequential"] >= 1.0 for r in coll
+              if r["lane_mode"] == "vmap" and r["P"] > 1),
+          "vmap lanes slower than sequential in collection")
+    out["grids"] = grids
+    out["grids_s"] = time.perf_counter() - t0
+
+    # ---- (c) a traced steady chunk at P=16, and a stacked update -------
+    t0 = time.perf_counter()
+    pend = make_pixel_env("pendulum")
+    enc = _pipeline_encoder("miniconv4", 9, device=dev)
+    traces, updates = {}, {}
+    for mode in pop.LANE_MODES:
+        engine = pop.make_population_engine(
+            pend, "ddpg", enc, 1, upd_cfg, {}, 16, upd_steps,
+            lane_mode=mode, device=dev)
+        carry = engine.init(list(range(16)))
+        for phase in engine.plan():
+            carry = engine.run(carry, phase)[0]
+        box = [carry]
+
+        def chunk():
+            box[0] = engine.run(box[0], ("train", POP_TRACE_STEPS))[0]
+        t = trace_decision(chunk)
+        n = POP_TRACE_STEPS
+        traces[mode] = None if not t["kernels"] else dict(
+            members=16, steps=n, kernels=t["kernels"],
+            kernels_per_step=t["kernels"] / n, busy_ms=t["busy_ms"],
+            traced_wall_ms=t["traced_wall_ms"],
+            busy_share=t["busy_ms"] / t["traced_wall_ms"],
+            top=[list(x) for x in t["top"]])
+        say(f"(c) trace, {mode} lanes, 16 members, a steady chunk of {n} "
+            f"vector steps: " + ("the profiler saw no device time" if not
+                                 t["kernels"] else
+                                 f"{t['kernels']} kernels "
+                                 f"({t['kernels'] / n:.1f} a vector step), "
+                                 f"device busy {t['busy_ms']:.3f} ms of "
+                                 f"{t['traced_wall_ms']:.3f} ms "
+                                 f"({100 * t['busy_ms'] / t['traced_wall_ms']:.2f}"
+                                 f"%); top: " + "; ".join(
+                                     f"{k[:50]} x{c} {ms:.3f} ms"
+                                     for k, c, ms in t["top"])))
+        if mode == "vmap":
+            state = engine.state(box[0])
+            lanes = pop.BatchedLanes("ddpg", enc, 1, upd_cfg, {}, device=dev)
+            batch = population_sample(box[0].buf, upd_cfg.batch_size,
+                                      box[0].gen)
+            for P in (4, 16):
+                st = pop.member_tree(state, slice(0, P))
+                b = pop.member_tree(batch, slice(0, P))
+                updates[f"vmap_P{P}_ms"] = host_ms(
+                    lambda: lanes.update(st, b, None))
+            agent = make_agent("ddpg", enc, 1, cfg=upd_cfg, device=dev)
+            st1, b1 = pop.member_tree(state, 0), pop.member_tree(batch, 0)
+            updates["single_ms"] = host_ms(
+                lambda: agent.target_update(agent.update(st1, b1)[0]))
+    say(f"(c) ms a stacked update (update and target step, batch "
+        f"{upd_cfg.batch_size} a member, host clock around synchronize): "
+        f"vmap P=4 "
+        f"{updates['vmap_P4_ms']:.3f}, P=16 {updates['vmap_P16_ms']:.3f}; "
+        f"one member alone {updates['single_ms']:.3f} (x16 = "
+        f"{16 * updates['single_ms']:.3f})")
+    out["traces"] = traces
+    out["stacked_update"] = updates
+    out["trace_s"] = time.perf_counter() - t0
+
+    # ---- (d) member 0 without deterministic mode, at a cut depth --------
+    t0 = time.perf_counter()
+    cfg = DDPGConfig()
+    cut = cfg.learning_starts + 16 * cfg.n_envs
+    spec = pop.PopulationSpec(tasks=("pendulum",), seeds=POP_SEEDS,
+                              variants=((), (("lr", 0.0),)), total_steps=cut)
+    res = pop.train_population(spec, eval_episodes=0, device=dev)
+    single = rl_train("pendulum", "miniconv4", total_steps=cut,
+                      seed=POP_SEEDS[0], device=dev)
+    nondet = max(float((a - b).abs().max()) for a, b in
+                 zip(tree_leaves(res.members[0].params),
+                     tree_leaves(single.params)))
+    out["member0_nondeterministic"] = dict(
+        budget=cut, max_abs_diff=nondet,
+        seconds=time.perf_counter() - t0)
+    say(f"(d) exact member 0 vs train() WITHOUT deterministic mode, "
+        f"{cut} steps: params differ by at most {nondet:.3g}")
+
+    # ---- (e) the learning benchmark's smoke gate -----------------------
+    t0 = time.perf_counter()
+    doc = bench_learning.main(["--smoke", "--device", str(dev), "--json",
+                               str(ROOT / "build" / "learning.json")])
+    out["learning"] = dict(
+        conditions=[{k: c[k] for k in ("task", "algo", "best", "mean",
+                                       "final", "episodes_completed",
+                                       "steps_per_sec",
+                                       "steady_steps_per_sec")}
+                    for c in doc["conditions"]],
+        seconds=time.perf_counter() - t0)
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"learning --smoke {out['learning']['seconds']:.2f} s; phase "
+        f"{out['seconds']:.2f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -671,10 +1150,8 @@ def main() -> int:
     from repro_torch.rl.networks import (squashed_actor_init,
                                          squashed_actor_mode)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    card = card_name()
+    print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     # cuDNN defaults to TF32 for fp32 convolutions, which would make the
@@ -1732,7 +2209,13 @@ def main() -> int:
                                         reset_counts)
     print(json.dumps({"training": training}, default=float))
 
-    # ---- 15. results -------------------------------------------------------
+    # ---- 15. populations on the card ----------------------------------------
+    # The gates run in a deterministic child process (it resets and reads
+    # K1's count around its own serving path); TF32 stays off in both.
+    population = population_phase(dev, card)
+    print(json.dumps({"population": population}, default=float))
+
+    # ---- 16. results -------------------------------------------------------
     k1 = k1_rows["served edge"]
     def layer_row(rows, dev_us):
         """The served frame's row, with the 400x400 and batch-8 times."""
@@ -1784,6 +2267,8 @@ def main() -> int:
                             "tflops")}),
     ]
     kernels[0]["training_serve_launches"] = train_k1
+    kernels[0]["population_serve_launches"] = \
+        population["gates"]["serve"]["k1_launches"]
     for label, key in (("train served", "train_served"),
                        ("train batch+head", "train_batch_head")):
         kernels[0][key] = {k: k1_rows[label][k] for k in (
@@ -1805,4 +2290,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--population-gates"]:
+        sys.exit(population_gates())
     sys.exit(main())

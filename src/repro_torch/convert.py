@@ -56,4 +56,23 @@ def train_state_from_jax(state, device: DeviceLike = None):
                                params_from_jax(opt.nu, device)))
 
 
-__all__ = ["params_from_jax", "train_state_from_jax"]
+def stacked_train_state_from_jax(state, device: DeviceLike = None):
+    """A reference population's member-stacked ``TrainState`` (a leading
+    ``(P,)`` axis on every leaf, the step included, as its engine's carry
+    holds it) -> the port's stacked state, the layout the batched lanes of
+    ``repro_torch.rl.population`` carry: :func:`train_state_from_jax` leaf
+    by leaf, after checking that every leaf has the same member axis."""
+    from repro_torch.nn.module import tree_leaves
+    out = train_state_from_jax(state, device)
+    params, target, opt = out
+    leaves = [opt.step] + [x for t in (params, target, opt.mu, opt.nu)
+                           for x in tree_leaves(t)]
+    sizes = {x.shape[0] if x.dim() else None for x in leaves}
+    if len(sizes) != 1 or None in sizes:
+        raise ValueError(f"not a member-stacked TrainState: leading sizes "
+                         f"{sorted(sizes, key=str)}")
+    return out
+
+
+__all__ = ["params_from_jax", "stacked_train_state_from_jax",
+           "train_state_from_jax"]

@@ -30,9 +30,9 @@ over localhost sockets, bitwise equal to in-process serving.  The
 manifest's fleet shape (``n_servers``, ``router``) drives
 :meth:`Deployment.fleet_sim`, :meth:`Deployment.scenario_sim` and the real
 :meth:`Deployment.fleet`.  Training is ported (``repro_torch.rl.train``;
-its ``TrainResult.params`` serve through :meth:`Deployment.serving_pair`).
-Not ported yet (see ROADMAP.md): ``export_best``, which waits for
-populations (``rl/population.py``'s ``best_member``).
+its ``TrainResult.params`` serve through :meth:`Deployment.serving_pair`),
+and so are populations: :meth:`Deployment.export_best` serves a
+``PopulationResult``'s winner.
 """
 from __future__ import annotations
 
@@ -447,6 +447,21 @@ class Deployment:
                      ) -> tuple[EdgeClient, BatchingPolicyServer]:
         """The paper's Figure-5 pipeline, ready to measure."""
         return self.client(params), self.server(params, head)
+
+    def export_best(self, population, head: Optional[Callable] = None
+                    ) -> tuple[EdgeClient, BatchingPolicyServer]:
+        """Serving pair for a population run's winning member.
+
+        ``population`` is a
+        :class:`repro_torch.rl.population.PopulationResult`; the winner is
+        its ``best_member()`` — highest ``final_100_mean`` under the
+        deterministic eval protocol.  The member's trained params serve
+        through THIS manifest exactly like the single-run path
+        (:meth:`serving_pair` accepts ``TrainState.params`` directly), so
+        train-many / freeze-best / serve-on-fleet is one manifest
+        round-trip.
+        """
+        return self.serving_pair(population.best_params(), head=head)
 
     def fleet_sim(self, service_model: Callable[[int], float], *, uplink,
                   rate_hz: float = 10.0, horizon_s: float = 5.0,

@@ -35,11 +35,15 @@ class Env:
     max_steps: int
     resolution: int = 100
 
+    def draw(self, gen: torch.Generator, n: int) -> torch.Tensor:
+        """The ``(n, n_uniform)`` uniform draws of ``gen`` (on its device)
+        that :meth:`reset` maps to states."""
+        return torch.rand((n, self.n_uniform), generator=gen,
+                          device=gen.device)
+
     def reset(self, gen: torch.Generator, n: int) -> State:
-        """``n`` fresh states from uniform draws of ``gen`` (on its
-        device)."""
-        return self.reset_from(torch.rand((n, self.n_uniform), generator=gen,
-                                          device=gen.device))
+        """``n`` fresh states from uniform draws of ``gen``."""
+        return self.reset_from(self.draw(gen, n))
 
 
 def uniform(u: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:

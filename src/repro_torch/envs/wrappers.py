@@ -13,6 +13,12 @@ offsets and the auto-reset states of a step are drawn from it, or given
 Each step computes the reset of every env and selects it with
 ``torch.where``, as the reference does, so a step never reads the device
 from the host.
+
+A population (``repro_torch.rl.population``) steps P members' envs at
+once: states carry a ``(P, N, ...)`` axis and one generator a member,
+each member's draws come from its own generator, and the P·N envs step
+together through the batched functions.  Row p is bit for bit what
+``reset_batch``/``step_batch`` give member p alone.
 """
 from __future__ import annotations
 
@@ -62,6 +68,20 @@ def _select(done, a, b):
     return type(a)(*(pick(x, y) for x, y in zip(a, b)))
 
 
+def _map_state(fn, state: PixelEnvState, gen) -> PixelEnvState:
+    """``fn`` applied to every tensor of ``state``, with ``gen`` for its
+    generator(s)."""
+    return PixelEnvState(type(state.inner)(*map(fn, state.inner)),
+                         fn(state.frames), gen, fn(state.episode_return),
+                         fn(state.step_count))
+
+
+def _members(state: PixelEnvState, P: int) -> PixelEnvState:
+    """Split the leading P·N axis of a flat state into ``(P, N)``."""
+    return _map_state(lambda x: x.unflatten(0, (P, x.shape[0] // P)), state,
+                      state.gen)
+
+
 class PixelEnv:
     """Wraps a batched state-based Env into the paper's pixel pipeline."""
 
@@ -91,7 +111,11 @@ class PixelEnv:
         """``n`` fresh envs -> (states, (N, H, W, C) obs).  Draws the
         reset states, then the crop offsets, from ``gen``."""
         inner = self.env.reset(gen, n)
-        frame = self.frame(inner, self.offsets(gen, n))
+        return self._start(inner, self.offsets(gen, n), gen)
+
+    def _start(self, inner, offsets, gen):
+        frame = self.frame(inner, offsets)
+        n = frame.shape[0]
         frames = frame[:, None].expand(n, STACK, *frame.shape[1:])
         dev = frame.device
         state = PixelEnvState(inner, frames, gen,
@@ -126,6 +150,37 @@ class PixelEnv:
         new = PixelEnvState(inner, frames, gen, ep_ret,
                             steps.to(torch.int32))
         return new, _obs(frames), reward, done
+
+    # -- population-batched API ---------------------------------------------
+    def reset_population(self, gens, n: int):
+        """``n`` fresh envs for each of the P members whose generators are
+        ``gens`` -> (states with ``(P, N, ...)`` tensors and the
+        generators, ``(P, N, H, W, C)`` obs).  Member p draws its reset
+        states, then its crop offsets, from ``gens[p]``, as
+        ``reset_batch(gens[p], n)`` does."""
+        draws = [(self.env.draw(g, n), self.offsets(g, n)) for g in gens]
+        state, obs = self._start(
+            self.env.reset_from(torch.cat([u for u, _ in draws])),
+            torch.cat([o for _, o in draws]), tuple(gens))
+        return _members(state, len(gens)), obs.unflatten(0, (len(gens), n))
+
+    def step_population(self, states: PixelEnvState, actions: torch.Tensor):
+        """(population states, ``(P, N, A)`` actions) -> (states, ``(P, N,
+        H, W, C)`` obs, ``(P, N)`` reward, ``(P, N)`` done).  Member p
+        draws its crop offsets, then its reset states, from its own
+        generator, as ``step_batch`` does."""
+        P, n = actions.shape[:2]
+        draws = [(self.offsets(g, n), self.env.draw(g, n))
+                 for g in states.gen]
+        flat = _map_state(lambda x: x.flatten(0, 1), states, None)
+        new, obs, reward, done = self.step_batch(
+            flat, actions.flatten(0, 1),
+            offsets=torch.cat([o for o, _ in draws]),
+            reset_inner=self.env.reset_from(torch.cat([u for _, u in
+                                                       draws])))
+        new = _members(new._replace(gen=states.gen), P)
+        return (new, obs.unflatten(0, (P, n)), reward.unflatten(0, (P, n)),
+                done.unflatten(0, (P, n)))
 
     # -- deployment boundary -------------------------------------------------
     @staticmethod

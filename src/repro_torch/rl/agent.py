@@ -14,10 +14,14 @@ Contract
     (a CPU ``torch.Generator``, so a seed gives the same parameters on any
     device), target parameters (``{}`` for on-policy agents) and optimizer
     state.
-``act(params, obs, gen) -> (action, extras)``
-    The EXPLORATION policy over a leading env axis, its noise drawn from
-    ``gen`` (on the device).  ``extras`` holds what an on-policy update
-    needs stored in the trajectory (PPO: ``logp``/``value``).
+``act(params, obs, gen=None, *, noise=None) -> (action, extras)``
+    The EXPLORATION policy over a leading env axis.  Every algorithm's
+    exploration takes one standard-normal draw of shape ``(N,
+    action_dim)``: from ``gen`` (on the device), or given as ``noise``
+    (:func:`act_noise` makes it from ``gen`` the same way), so a
+    population's batched lanes can draw it outside ``torch.func.vmap``.
+    ``extras`` holds what an on-policy update needs stored in the
+    trajectory (PPO: ``logp``/``value``).
 ``update(state, data, gen=None, *, noise=None) -> (state, metrics)``
     One learning step.  Off-policy: ``data`` is a replay minibatch;
     on-policy: ``{"traj": ..., "last_obs": ...}``.  The randomness an
@@ -35,6 +39,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, NamedTuple
+
+import torch
 
 from repro_torch.rl.networks import Encoder
 
@@ -58,7 +64,8 @@ class Agent:
     action_dim: int
     on_policy: bool
     init: Callable                # (gen) -> TrainState
-    act: Callable                 # (params, obs, gen) -> (action, extras)
+    act: Callable                 # (params, obs, gen=None, *, noise=None)
+                                  # -> (action, extras)
     update: Callable              # (state, data, gen=None, *, noise=None)
     draw_noise: Callable          # (gen, data) -> the update's noise
     target_update: Callable       # (state) -> state
@@ -104,6 +111,12 @@ def no_noise(gen, data):
     return None
 
 
+def act_noise(gen, n: int, action_dim: int):
+    """The standard-normal draw ``Agent.act`` makes from ``gen`` for ``n``
+    observations (every algorithm's is one of shape ``(n, action_dim)``)."""
+    return torch.randn((n, action_dim), generator=gen, device=gen.device)
+
+
 def move_state(state: TrainState, device) -> TrainState:
     """A copy of ``state`` (params, target and optimizer state) on
     ``device``."""
@@ -115,4 +128,4 @@ def move_state(state: TrainState, device) -> TrainState:
                       type(opt)(*(tree_map(move, x) for x in opt)))
 
 
-__all__ = ["Agent", "TrainState", "make_agent", "move_state"]
+__all__ = ["Agent", "TrainState", "act_noise", "make_agent", "move_state"]

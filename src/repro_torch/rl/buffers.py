@@ -17,6 +17,12 @@ The ring is fixed-width: every insert writes the same number of rows
 it, so an insert never straddles the wrap.  The write cursor ``idx`` and
 the fill count ``size`` follow from the number of inserts alone, so they
 are host ints: inserting and sampling never read the device.
+
+A population's batched lanes (``repro_torch.rl.population``) keep one
+ring with a leading member axis, ``(P, capacity, ...)``: every member
+inserts at the same cursor (they share the static config), and
+:func:`population_sample` draws each member's indices from its own
+generator.
 """
 from __future__ import annotations
 
@@ -107,26 +113,30 @@ class DeviceReplayBuffer:
 
     @property
     def capacity(self) -> int:
-        return self.obs.shape[0]
+        return self.rewards.shape[-1]
 
 
 def device_buffer(capacity: int, obs_shape: tuple, action_dim: int, *,
-                  n_add: int = 1, device=None) -> DeviceReplayBuffer:
-    """Allocate an empty ring accepting ``n_add``-row inserts."""
+                  n_add: int = 1, device=None,
+                  members: int | None = None) -> DeviceReplayBuffer:
+    """Allocate an empty ring accepting ``n_add``-row inserts; with
+    ``members`` P, one ring a member of a population, ``(P, capacity,
+    ...)``."""
     if capacity % n_add != 0:
         raise ValueError(f"capacity {capacity} must be a multiple of the "
                          f"insert width n_add={n_add} (keeps the write "
                          f"cursor slice-aligned)")
     from repro_torch.device import resolve_device
     dev = resolve_device(device)
+    lead = (capacity,) if members is None else (members, capacity)
     return DeviceReplayBuffer(
-        obs=torch.zeros((capacity,) + tuple(obs_shape), dtype=torch.uint8,
+        obs=torch.zeros(lead + tuple(obs_shape), dtype=torch.uint8,
                         device=dev),
-        next_obs=torch.zeros((capacity,) + tuple(obs_shape),
-                             dtype=torch.uint8, device=dev),
-        actions=torch.zeros((capacity, action_dim), device=dev),
-        rewards=torch.zeros((capacity,), device=dev),
-        dones=torch.zeros((capacity,), device=dev),
+        next_obs=torch.zeros(lead + tuple(obs_shape), dtype=torch.uint8,
+                             device=dev),
+        actions=torch.zeros(lead + (action_dim,), device=dev),
+        rewards=torch.zeros(lead, device=dev),
+        dones=torch.zeros(lead, device=dev),
         idx=0, size=0, n_add=n_add)
 
 
@@ -151,18 +161,20 @@ def buffer_add_u8(buf: DeviceReplayBuffer, obs_u8, action, reward,
     The engine's hot path: consecutive env steps share a frame
     (``next_obs`` at t IS ``obs`` at t+1), so the engine quantises each
     frame ONCE and reuses it as the next transition's stored observation.
-    One slice write per tensor, never straddling the wrap.
+    One slice write per tensor, never straddling the wrap.  A
+    population's ring takes ``(P, n_add, ...)`` inserts.
     """
-    n = obs_u8.shape[0]
+    lead = buf.rewards.dim() - 1         # 1 for a population's ring
+    n = obs_u8.shape[lead]
     if n != buf.n_add:
         raise ValueError(f"insert width {n} != buffer's fixed n_add "
                          f"{buf.n_add}")
-    rows = slice(buf.idx, buf.idx + n)
+    rows = (slice(None),) * lead + (slice(buf.idx, buf.idx + n),)
     buf.obs[rows] = obs_u8
     buf.next_obs[rows] = next_obs_u8
     buf.actions[rows] = action
-    buf.rewards[rows] = reward.reshape(n)
-    buf.dones[rows] = done.to(torch.float32).reshape(n)
+    buf.rewards[rows] = reward.reshape(buf.rewards[rows].shape)
+    buf.dones[rows] = done.to(torch.float32).reshape(buf.dones[rows].shape)
     cap = buf.capacity
     return dataclasses.replace(buf, idx=(buf.idx + n) % cap,
                                size=min(buf.size + n, cap))
@@ -193,6 +205,20 @@ def buffer_sample(buf: DeviceReplayBuffer, batch: int,
     }
 
 
+def population_sample(buf: DeviceReplayBuffer, batch: int, gens) -> dict:
+    """:func:`buffer_sample` for every member of a population's ring, its
+    indices drawn from its own generator: ``(P, batch, ...)`` tensors."""
+    idxs = torch.stack([sample_indices(g, batch, buf.size) for g in gens])
+    rows = torch.arange(len(gens), device=idxs.device)[:, None]
+    return {
+        "obs": buf.obs[rows, idxs].to(torch.float32) / 255.0,
+        "next_obs": buf.next_obs[rows, idxs].to(torch.float32) / 255.0,
+        "actions": buf.actions[rows, idxs],
+        "rewards": buf.rewards[rows, idxs],
+        "dones": buf.dones[rows, idxs],
+    }
+
+
 __all__ = ["ReplayBuffer", "DeviceReplayBuffer", "device_buffer",
-           "buffer_add", "buffer_add_u8", "buffer_sample", "quantize_obs",
-           "sample_indices"]
+           "buffer_add", "buffer_add_u8", "buffer_sample",
+           "population_sample", "quantize_obs", "sample_indices"]

@@ -14,11 +14,11 @@ import torch
 from torch.func import grad_and_value
 
 from repro_torch.nn.module import tree_leaves, tree_map, tree_unflatten
-from repro_torch.rl.agent import Agent, TrainState, no_noise
+from repro_torch.rl.agent import Agent, TrainState, act_noise, no_noise
 from repro_torch.rl.networks import (FEATURE_DIM, Encoder, det_actor,
                                      det_actor_init, q_critic,
                                      q_critic_init)
-from repro_torch.train.optimizer import adam, ema_update
+from repro_torch.train.optimizer import adam, batched, ema_update
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,9 +45,12 @@ class DDPGConfig:
 
 def add_trees(a, b):
     """Leaf-by-leaf sum of two trees of one structure (one multi-tensor
-    add)."""
-    return tree_unflatten(a, torch._foreach_add(tree_leaves(a),
-                                                tree_leaves(b)))
+    add; leaf by leaf under ``torch.func.vmap``, where the multi-tensor
+    add has no batching rule)."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if batched(la):
+        return tree_unflatten(a, [x + y for x, y in zip(la, lb)])
+    return tree_unflatten(a, torch._foreach_add(la, lb))
 
 
 def init_ddpg(gen, encoder: Encoder, action_dim: int, device):
@@ -97,12 +100,12 @@ def make_ddpg_agent(encoder: Encoder, action_dim: int, cfg: DDPGConfig,
         return state._replace(target=ema_update(state.target, state.params,
                                                 cfg.tau))
 
-    def act(params, obs, gen):
+    def act(params, obs, gen=None, *, noise=None):
         feats = encoder.apply(params["encoder"], obs)
         a = det_actor(params["actor"], feats)
-        noise = cfg.action_noise * torch.randn(a.shape, generator=gen,
-                                               device=gen.device)
-        return torch.clamp(a + noise, -1, 1), {}
+        if noise is None:
+            noise = act_noise(gen, a.shape[0], action_dim)
+        return torch.clamp(a + cfg.action_noise * noise, -1, 1), {}
 
     def policy_head(params):
         actor = params["actor"]

@@ -207,15 +207,6 @@ def squashed_actor_sample(params, feats, eps):
     return action, logp, torch.tanh(mean)
 
 
-def squashed_actor_draw(params, feats, gen: torch.Generator):
-    """:func:`squashed_actor_sample` with its draw from ``gen``."""
-    mlp = params["mlp"]
-    action_dim = mlp[f"fc{len(mlp) - 1}"]["kernel"].shape[1] // 2
-    eps = torch.randn((*feats.shape[:-1], action_dim), generator=gen,
-                      device=gen.device)
-    return squashed_actor_sample(params, feats, eps)
-
-
 def q_critic_init(gen, feat_dim: int, action_dim: int, *,
                   device: DeviceLike = None):
     return {"mlp": mlp_init(gen, [feat_dim + action_dim, 256, 1],
@@ -250,6 +241,6 @@ __all__ = ["Encoder", "FEATURE_DIM", "det_actor", "det_actor_init",
            "gaussian_actor_init", "make_encoder", "miniconv_edge_apply",
            "miniconv_encoder_init", "miniconv_server_apply", "mlp_apply",
            "mlp_init", "q_critic", "q_critic_init", "softplus",
-           "squashed_actor_draw", "squashed_actor_init",
+           "squashed_actor_init",
            "squashed_actor_mode", "squashed_actor_sample", "v_critic",
            "v_critic_init"]

@@ -21,7 +21,7 @@ from typing import ClassVar, FrozenSet
 import torch
 from torch.func import grad_and_value
 
-from repro_torch.rl.agent import Agent, TrainState
+from repro_torch.rl.agent import Agent, TrainState, act_noise
 from repro_torch.rl.networks import (FEATURE_DIM, Encoder, gaussian_actor,
                                      gaussian_actor_init, mlp_apply,
                                      v_critic, v_critic_init)
@@ -105,10 +105,11 @@ def make_ppo_agent(encoder: Encoder, action_dim: int, cfg: PPOConfig,
         params = init_ppo(gen, encoder, action_dim, device)
         return TrainState(params, {}, opt.init(params))
 
-    def act(params, obs, gen):
+    def act(params, obs, gen=None, *, noise=None):
         mean, log_std, value = _policy(params, encoder, obs)
-        action = mean + torch.exp(log_std) * torch.randn(
-            mean.shape, generator=gen, device=gen.device)
+        if noise is None:
+            noise = act_noise(gen, mean.shape[0], action_dim)
+        action = mean + torch.exp(log_std) * noise
         return action, {"logp": _logp(mean, log_std, action),
                         "value": value}
 

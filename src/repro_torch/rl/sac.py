@@ -20,11 +20,10 @@ import torch
 from torch.func import grad_and_value
 
 from repro_torch.nn.module import tree_map
-from repro_torch.rl.agent import Agent, TrainState
+from repro_torch.rl.agent import Agent, TrainState, act_noise
 from repro_torch.rl.ddpg import add_trees
 from repro_torch.rl.networks import (FEATURE_DIM, Encoder, q_critic,
-                                     q_critic_init, squashed_actor_draw,
-                                     squashed_actor_init,
+                                     q_critic_init, squashed_actor_init,
                                      squashed_actor_mode,
                                      squashed_actor_sample)
 from repro_torch.train.optimizer import adam, ema_update
@@ -130,9 +129,11 @@ def make_sac_agent(encoder: Encoder, action_dim: int, cfg: SACConfig,
             cfg.tau)
         return state._replace(target=new_target)
 
-    def act(params, obs, gen):
+    def act(params, obs, gen=None, *, noise=None):
         feats = encoder.apply(params["encoder"], obs)
-        a, _, _ = squashed_actor_draw(params["actor"], feats, gen)
+        if noise is None:
+            noise = act_noise(gen, feats.shape[0], action_dim)
+        a, _, _ = squashed_actor_sample(params["actor"], feats, noise)
         return a, {}
 
     def policy_head(params):

@@ -229,4 +229,14 @@ def train(task: str, encoder_name: str, *, total_steps: int = 20_000,
                        steady_wall_s=steady_s, phases=phases, carry=carry)
 
 
-__all__ = ["TASK_ALGO", "TrainResult", "train"]
+def train_population(spec, **kwargs):
+    """Population driver — P members a program, in exact or batched
+    lanes.  Thin re-export; see
+    :func:`repro_torch.rl.population.train_population` (imported lazily:
+    population composes this module's helpers)."""
+    from repro_torch.rl.population import \
+        train_population as _train_population
+    return _train_population(spec, **kwargs)
+
+
+__all__ = ["TASK_ALGO", "TrainResult", "train", "train_population"]

@@ -42,8 +42,8 @@ The simulators are host-side float and numpy arithmetic fed with measured
 times as Python floats: equal inputs and seeds give the reference's
 numbers bit for bit.  The real fleet's framing is the reference's, byte
 for byte, so its clients and workers interoperate with the reference's.
-Of what the serving side touches, only ``Deployment.export_best`` and
-training are not ported yet (see ROADMAP.md).
+Training (``repro_torch.rl``) and ``Deployment.export_best`` (a
+population's winner) feed this side the parameters it serves.
 """
 from repro_torch.serving.netsim import (LINK_KINDS, LinkTrace, LossyLink,
                                         MarkovLink, ShapedLink,

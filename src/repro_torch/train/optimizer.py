@@ -8,6 +8,14 @@ device from the host.  The arithmetic is the reference's, operation by
 operation in float32 (the bias corrections ``1 - b ** step`` included);
 each runs as one multi-tensor (``torch._foreach_*``) call over every leaf,
 so an update costs a few launches whatever the number of leaves.
+
+Under ``torch.func.vmap`` (a population's batched lanes,
+``repro_torch.rl.population``) the leaves are batched tensors, for which
+the multi-tensor ops have no batching rule.  There each function packs
+the leaves into one vector a member (one concatenation), runs the same
+arithmetic on it, and hands back views in the leaves' shapes: the norm
+and the clip are then each member's own, and a hyperparameter such as
+``lr`` may be a 0-d tensor that differs between members.
 """
 from __future__ import annotations
 
@@ -53,18 +61,44 @@ def cosine_schedule(peak: float, warmup: int, total: int,
     return sched
 
 
+def batched(leaves: list) -> bool:
+    """Whether ``leaves`` are batched tensors inside ``torch.func.vmap``."""
+    return bool(leaves) and torch._C._functorch.is_batchedtensor(leaves[0])
+
+
+def pack(leaves: list) -> torch.Tensor:
+    """The leaves as one float32 vector (per member under vmap)."""
+    return torch.cat([x.reshape(-1).to(torch.float32) for x in leaves])
+
+
+def unpack(flat: torch.Tensor, like: list) -> list:
+    """Views of ``flat`` in the shapes and dtypes of ``like``."""
+    out, i = [], 0
+    for x in like:
+        out.append(flat[i:i + x.numel()].reshape(x.shape).to(x.dtype))
+        i += x.numel()
+    return out
+
+
 def global_norm(tree: Params) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32.  One
     multi-tensor norm: the same value as the reference's sum of per-leaf
     sums up to float32 rounding."""
     leaves = [x.to(torch.float32) for x in tree_leaves(tree)]
+    if batched(leaves):
+        return torch.linalg.vector_norm(pack(leaves))
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(leaves)))
 
 
+def _clip_scale(norm, max_norm):
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(tree: Params, max_norm: float) -> Params:
-    norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = _clip_scale(global_norm(tree), max_norm)
     leaves = tree_leaves(tree)
+    if batched(leaves):
+        return tree_unflatten(tree, [x * scale for x in leaves])
     return tree_unflatten(tree, torch._foreach_mul(leaves, scale))
 
 
@@ -89,6 +123,9 @@ def adam(lr: float | Schedule, *, b1: float = 0.9, b2: float = 0.999,
                         _zeros_state(params))
 
     def update(params, state, grads):
+        p = tree_leaves(params)
+        if batched(p):
+            return _packed_update(params, state, grads)
         if clip_norm is not None:
             grads = clip_by_global_norm(grads, clip_norm)
         step = state.step + 1
@@ -100,7 +137,6 @@ def adam(lr: float | Schedule, *, b1: float = 0.9, b2: float = 0.999,
         g = [x.to(torch.float32) for x in tree_leaves(grads)]
         m = tree_leaves(state.mu)
         v = tree_leaves(state.nu)
-        p = tree_leaves(params)
         mu = torch._foreach_add(torch._foreach_mul(m, b1),
                                 torch._foreach_mul(g, 1 - b1))
         nu = torch._foreach_add(torch._foreach_mul(v, b2),
@@ -119,6 +155,28 @@ def adam(lr: float | Schedule, *, b1: float = 0.9, b2: float = 0.999,
         return (tree_unflatten(params, new),
                 OptState(step, tree_unflatten(params, mu),
                          tree_unflatten(params, nu)))
+
+    def _packed_update(params, state, grads):
+        """The same arithmetic on one packed vector a member (under
+        vmap): the clip reads each member's own norm."""
+        p = tree_leaves(params)
+        g = pack(tree_leaves(grads))
+        if clip_norm is not None:
+            g = g * _clip_scale(torch.linalg.vector_norm(g), clip_norm)
+        step = state.step + 1
+        lr_t = sched(step)
+        stepf = step.to(torch.float32)
+        b1c = 1 - torch.pow(b1, stepf)
+        b2c = 1 - torch.pow(b2, stepf)
+        mu = pack(tree_leaves(state.mu)) * b1 + g * (1 - b1)
+        nu = pack(tree_leaves(state.nu)) * b2 + g * g * (1 - b2)
+        delta = mu / b1c * lr_t / (torch.sqrt(nu / b2c) + eps)
+        pf = pack(p)
+        if weight_decay:
+            delta = delta + pf * (lr_t * weight_decay)
+        return (tree_unflatten(params, unpack(pf - delta, p)),
+                OptState(step, tree_unflatten(params, unpack(mu, p)),
+                         tree_unflatten(params, unpack(nu, p))))
 
     return Optimizer(init=init, update=update)
 
@@ -158,10 +216,13 @@ def ema_update(avg: Params, new: Params, tau: float) -> Params:
     ``new`` may hold more entries than ``avg``; only ``avg``'s are read."""
     a = tree_leaves(avg)
     n = tree_leaves(tree_map(lambda _, x: x, avg, new))
+    if batched(a):
+        out = pack(a) * (1 - tau) + pack(n) * tau
+        return tree_unflatten(avg, unpack(out, a))
     return tree_unflatten(avg, torch._foreach_add(
         torch._foreach_mul(a, 1 - tau), torch._foreach_mul(n, tau)))
 
 
-__all__ = ["OptState", "Optimizer", "adam", "adamw", "clip_by_global_norm",
-           "constant_schedule", "cosine_schedule", "ema_update",
-           "global_norm", "sgd"]
+__all__ = ["OptState", "Optimizer", "adam", "adamw", "batched",
+           "clip_by_global_norm", "constant_schedule", "cosine_schedule",
+           "ema_update", "global_norm", "pack", "sgd", "unpack"]

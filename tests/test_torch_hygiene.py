@@ -61,7 +61,9 @@ def test_port_files_exist():
                 "envs/pendulum.py", "envs/hopper.py", "envs/walker.py",
                 "envs/wrappers.py", "rl/buffers.py", "rl/agent.py",
                 "rl/ddpg.py", "rl/sac.py", "rl/ppo.py", "rl/rollout.py",
-                "rl/train.py", "examples/train_split_policy.py"):
+                "rl/train.py", "examples/train_split_policy.py",
+                "rl/population.py", "benchmarks/population.py",
+                "benchmarks/learning.py"):
         assert mod in names, mod
     assert len([n for n in names if n.startswith("configs/")]) == 11
     assert {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")} == \

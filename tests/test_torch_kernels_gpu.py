@@ -553,3 +553,92 @@ def test_update_on_card_matches_cpu(cuda, algo):
         assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
     for want, got in zip(tree_leaves(cs.params), tree_leaves(gs.params)):
         assert float((got.cpu() - want).abs().max()) <= 2 * cfg.lr
+
+
+# ------------------------------------------------------------ populations
+@pytest.mark.parametrize("algo", ["ddpg", "sac", "ppo"])
+def test_batched_lanes_on_card_have_no_vmap_fallbacks(cuda, algo):
+    """The population's batched act and update at 84x84x9 on the card:
+    every op has a batching rule (no per-member fallback loop), every
+    loss is finite, and an ``lr = 0`` member keeps its parameters."""
+    import numpy as np
+
+    from repro_torch.nn.module import tree_leaves, tree_map
+    from repro_torch.rl import population as pop
+    from repro_torch.rl.ddpg import DDPGConfig
+    from repro_torch.rl.ppo import PPOConfig
+    from repro_torch.rl.sac import SACConfig
+    from repro_torch.rl.train import _pipeline_encoder
+
+    A = {"ddpg": 1, "sac": 3, "ppo": 6}[algo]
+    cfg = {"ddpg": DDPGConfig(batch_size=16), "sac": SACConfig(batch_size=16),
+           "ppo": PPOConfig(n_envs=2, n_steps=8, n_epochs=1,
+                            n_minibatches=2)}[algo]
+    lanes = pop.BatchedLanes(algo, _pipeline_encoder("miniconv4", 9,
+                                                     device=cuda),
+                             A, cfg, {"lr": [3e-4, 1e-3, 0.0]}, device=cuda)
+    state = pop.stack_trees([lanes.agent.init(
+        torch.Generator().manual_seed(p)) for p in range(3)])
+    rng = np.random.default_rng(1)
+    if algo == "ppo":
+        T, N = 8, 2
+        data = {"traj": {
+            "obs": rng.random((3, T, N, 84, 84, 9)),
+            "action": rng.standard_normal((3, T, N, A)),
+            "reward": rng.standard_normal((3, T, N)),
+            "done": rng.random((3, T, N)) < 0.2,
+            "logp": rng.standard_normal((3, T, N)) - 5,
+            "value": rng.standard_normal((3, T, N))},
+            "last_obs": rng.random((3, N, 84, 84, 9))}
+        obs = data["traj"]["obs"][:, 0]
+    else:
+        data = {"obs": rng.random((3, 16, 84, 84, 9)),
+                "next_obs": rng.random((3, 16, 84, 84, 9)),
+                "actions": rng.uniform(-1, 1, (3, 16, A)),
+                "rewards": rng.standard_normal((3, 16)),
+                "dones": (rng.random((3, 16)) < 0.3).astype(np.float32)}
+        obs = data["obs"][:, :2]
+    def to(a):
+        a = np.asarray(a)
+        return torch.from_numpy(a.astype(np.float32) if a.dtype == np.float64
+                                else a).to(cuda)
+
+    data, obs = tree_map(to, data), to(obs)
+    gens = [torch.Generator(device=cuda).manual_seed(p) for p in range(3)]
+    with pop.vmap_fallbacks() as found:
+        action, _ = lanes.act(state.params, obs,
+                              lanes.act_noise(gens, obs.shape[1]))
+        new, metrics = lanes.update(state, data,
+                                    lanes.update_noise(gens, data))
+        torch.cuda.synchronize()
+    assert found == []
+    assert action.shape == (3, obs.shape[1], A)
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    for a, b in zip(tree_leaves(state.params), tree_leaves(new.params)):
+        assert torch.equal(a[2], b[2])
+
+
+def test_exact_member0_bitwise_on_card_in_deterministic_mode(cuda):
+    """Member 0 of a P=2 population (exact lanes, with updates) against
+    ``train()`` at its seed on the card, in a process started with
+    cuBLAS's deterministic workspace and
+    ``torch.use_deterministic_algorithms(True)``."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    code = ("import json, torch\n"
+            "torch.use_deterministic_algorithms(True)\n"
+            "from repro_torch.benchmarks.population import "
+            "check_member0_parity\n"
+            "print(json.dumps(check_member0_parity(device='cuda')))\n")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=str(root / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    row = json.loads(out.stdout.strip().splitlines()[-1])
+    assert row["bitwise"], row
