@@ -244,5 +244,11 @@ def miniconv_apply(params, spec: MiniConvSpec, x, *, use_kernel=False,
     return x
 
 
+def miniconv_feature_shape(spec: MiniConvSpec, h: int, w: int) -> tuple:
+    """(H', W', C) of the encoder's feature map for an (h, w) input."""
+    return spec.plan(h, w).feature_shape
+
+
 __all__ = ["LayerSpec", "MiniConvSpec", "PI_ZERO_BUDGET", "ShaderBudget",
+           "miniconv_feature_shape",
            "miniconv_apply", "miniconv_init", "standard_spec"]

@@ -17,6 +17,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.core.wire import WireCodec, get_codec
+from repro_torch.device import DeviceLike
 
 Params = Any
 
@@ -80,4 +81,29 @@ def make_split_policy(edge_apply, server_apply, *, codec: str = "uint8",
                       quantize_in_train=quantize_in_train)
 
 
-__all__ = ["SplitModel", "make_split_policy", "straight_through"]
+def make_miniconv_split(spec, server_apply, *, h: int,
+                        w: Optional[int] = None, codec: str = "uint8",
+                        use_kernel="fused", quantize_in_train: bool = False,
+                        device: DeviceLike = None) -> SplitModel:
+    """Split policy whose edge half is a MiniConv encoder compiled to a
+    :class:`~repro_torch.core.passplan.PassPlan`, on ``device``.
+
+    .. deprecated::
+        Thin shim over :meth:`repro_torch.deploy.Deployment.build`, the
+        one canonical pipeline constructor.  The built deployment's split
+        is returned with ``server_apply`` substituted, so custom server
+        halves keep working; new code should construct a
+        :class:`repro_torch.deploy.DeploymentConfig` and use
+        ``Deployment.build(cfg).split`` directly.
+    """
+    from repro_torch.deploy import Deployment, DeploymentConfig  # layering
+
+    cfg = DeploymentConfig(spec=spec, in_h=h, in_w=h if w is None else w,
+                           backend=use_kernel, codec=codec,
+                           quantize_in_train=quantize_in_train)
+    dep = Deployment.build(cfg, device=device)
+    return dataclasses.replace(dep.split, server_apply=server_apply)
+
+
+__all__ = ["SplitModel", "make_miniconv_split", "make_split_policy",
+           "straight_through"]

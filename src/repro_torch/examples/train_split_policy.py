@@ -88,7 +88,8 @@ def main(argv=None) -> dict:
                sp.median_latency(100) * 1e3)
         rows.append(row)
         print(f"{row[0]:>6} {row[1]:>16.1f} {row[2]:>10.1f}")
-    return {"summary": s, "edge_s": j, "server_s": srv, "rows": rows}
+    return {"summary": s, "edge_s": j, "server_s": srv, "rows": rows,
+            "wire_bytes": client.wire_bytes, "frame_bytes": frame_bytes}
 
 
 if __name__ == "__main__":

@@ -4,7 +4,9 @@
 
 Given CPU tensors it computes with the kernel's plain PyTorch version
 (``kernels.ref.attention_ref``, on K/V heads repeated to H).  Given CUDA
-tensors it launches the kernel or raises; nothing falls back.  Three
+tensors it launches the kernel or raises; nothing falls back.  The kernel
+has no backward pass, so CUDA inputs that require grad (in grad mode) are
+refused.  Three
 plain integers count what a run did, for a run to reset and read:
 ``flash_attention.launches`` (every launch), ``flash_attention.tc_launches``
 (launches on the tensor-core route) and ``flash_attention.copies`` (inputs
@@ -113,6 +115,13 @@ def flash_attention(q, k, v, *, causal: bool = True,
                              causal=causal, sliding_window=sliding_window)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention: K5 has no backward pass (nor has the "
+            "reference's kernel), and its output would carry no autograd "
+            "history; compute a differentiable core with the eager "
+            "branches (nn.attention.attention does so itself)")
 
     q, k, v = _addressable(q), _addressable(k), _addressable(v)
     # (B, S, H, D) storage seen as (B, H, S, D)

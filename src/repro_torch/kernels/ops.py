@@ -10,7 +10,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.passplan import same_pads
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.miniconv_pass import (miniconv_layer_grouped,
+from repro_torch.kernels.miniconv_pass import (miniconv_encoder,
+                                               miniconv_layer_grouped,
                                                miniconv_pass)
 
 
@@ -72,4 +73,6 @@ def causal_attention(q, k, v, *, sliding_window: Optional[int] = None,
                            block_q=block_q, block_k=block_k)
 
 
-__all__ = ["causal_attention", "miniconv_layer", "same_pad"]
+__all__ = ["miniconv_layer", "causal_attention", "miniconv_pass",
+           "miniconv_layer_grouped", "miniconv_encoder", "flash_attention",
+           "same_pad"]

@@ -1,10 +1,10 @@
 """Transformer blocks composed by ``repro_torch.models.transformer``
 according to ``ArchConfig.pattern``, as in ``repro.models.blocks``: the
-``attn`` and ``swa`` blocks with every MLP kind.
+``attn`` and ``swa`` blocks with every MLP kind, their full-sequence
+forward, their KV cache and their one-token decode.
 
 The RG-LRU (``rec``) and Mamba-2 (``ssm``) blocks and MoE MLPs raise
-``NotImplementedError``: they come with ROADMAP queue 1, item 10, after
-the decode path and training.
+``NotImplementedError``: they come with ROADMAP queue 1, item 2.3.
 """
 from __future__ import annotations
 
@@ -12,7 +12,9 @@ import torch
 
 from repro_torch.device import DeviceLike
 from repro_torch.models.config import ArchConfig
-from repro_torch.nn.attention import AttentionConfig, attention, attention_init
+from repro_torch.nn.attention import (AttentionConfig, attention,
+                                     attention_init, decode_attention,
+                                     init_kv_cache)
 from repro_torch.nn.layers import (dense, gelu, gelu_mlp, gelu_mlp_init,
                                    layernorm, layernorm_init, rmsnorm,
                                    rmsnorm_init, swiglu, swiglu_init)
@@ -77,7 +79,7 @@ def mlp_apply(cfg: ArchConfig, p, x):
 
 
 # ---------------------------------------------------------------------------
-# block init / apply
+# block init / apply / decode / cache
 # ---------------------------------------------------------------------------
 
 def _check_kind(cfg: ArchConfig, kind: str) -> None:
@@ -112,5 +114,27 @@ def block_apply(params, cfg: ArchConfig, kind: str, x, *,
     return x + y, {}
 
 
-__all__ = ["attn_config", "block_apply", "block_init", "mlp_apply",
-           "mlp_init", "norm_apply", "norm_init"]
+def block_init_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                     dtype, device: DeviceLike = None):
+    _check_kind(cfg, kind)
+    return init_kv_cache(attn_config(cfg, kind), batch, max_len, dtype,
+                         device)
+
+
+def block_decode(params, cfg: ArchConfig, kind: str, x, cache, index, *,
+                 long_ctx: bool = False):
+    """One-token decode.  Returns (x, cache), the cache written in place
+    (``nn.attention.decode_attention``)."""
+    _check_kind(cfg, kind)
+    acfg = attn_config(cfg, kind, long_ctx=long_ctx)
+    h, cache = decode_attention(params["attn"], acfg,
+                                norm_apply(cfg, params["norm1"], x),
+                                cache, index)
+    x = x + h
+    y = mlp_apply(cfg, params["mlp"], norm_apply(cfg, params["norm2"], x))
+    return x + y, cache
+
+
+__all__ = ["attn_config", "block_apply", "block_decode", "block_init",
+           "block_init_cache", "mlp_apply", "mlp_init", "norm_apply",
+           "norm_init"]

@@ -1,14 +1,16 @@
-"""--arch <id> -> model instance, as in ``repro.models.registry``.
+"""--arch <id> -> model instance, as in ``repro.models.registry``, and
+the input shapes' helpers (``text_len``, ``long_ctx``, ``SHAPE_IDS``).
 
 Dense and VLM-backbone configs build a :class:`DecoderModel`.  Audio
 (Whisper), MoE, SSM and hybrid (RG-LRU) families raise
-``NotImplementedError``: they come with ROADMAP queue 1, item 10.
-``input_specs`` is ``jax.eval_shape``-specific and has no counterpart yet.
+``NotImplementedError``: they come with ROADMAP queue 1, item 2.3 (and
+Whisper with item 2.4).  ``abstract_params`` and ``input_specs(_for)``,
+the dry-run's allocation-free stand-ins, come with item 2.5.
 """
 from __future__ import annotations
 
 from repro_torch.configs import get_config
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, ShapeConfig
 from repro_torch.models.transformer import DecoderModel
 
 _NOT_PORTED = ("audio", "moe", "ssm", "hybrid")
@@ -16,9 +18,10 @@ _NOT_PORTED = ("audio", "moe", "ssm", "hybrid")
 
 def build_model(cfg: ArchConfig) -> DecoderModel:
     if cfg.family in _NOT_PORTED:
+        item = "2.4" if cfg.family == "audio" else "2.3"
         raise NotImplementedError(
             f"{cfg.arch_id}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP queue 1, item 10)")
+            f"(ROADMAP queue 1, item {item})")
     return DecoderModel(cfg)
 
 
@@ -30,4 +33,22 @@ def get_model(arch_id: str, *, reduced: bool = False) -> tuple[ArchConfig,
     return cfg, build_model(cfg)
 
 
-__all__ = ["build_model", "get_model"]
+def text_len(cfg: ArchConfig, shape: ShapeConfig) -> int:
+    """Token positions left for text once frontend tokens are prepended.
+
+    VLM patch tokens share the sequence budget; the audio encoder's frames
+    live in the encoder, so whisper keeps the full decoder length.
+    """
+    if cfg.family == "vlm":
+        return shape.seq_len - cfg.n_frontend_tokens
+    return shape.seq_len
+
+
+def long_ctx(shape_id: str) -> bool:
+    return shape_id == "long_500k"
+
+
+SHAPE_IDS = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+
+__all__ = ["SHAPE_IDS", "build_model", "get_model", "long_ctx",
+           "text_len"]

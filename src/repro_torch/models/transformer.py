@@ -1,23 +1,30 @@
 """Decoder-only model composed from ArchConfig block patterns, as in
-``repro.models.transformer``: init, the full-sequence forward, and the
-split into an edge half and a server half.
+``repro.models.transformer``: init, the full-sequence forward, the
+next-token loss, the split into an edge half and a server half, the KV
+cache and one-token decode.
 
 Layer weights are stacked per super-block (one repetition of
 ``cfg.pattern``) under ``params["scan"]``, each leaf with a leading
 ``n_pattern`` axis, exactly as the reference stacks them; a Python loop
-over that axis takes the place of ``lax.scan``.  The remainder blocks are
-unrolled.  The loss, the KV cache and decode wait (ROADMAP queue 1).
+over that axis takes the place of ``lax.scan``.  Each leaf is unbound
+once into its super-blocks (``torch.unbind``), so a backward pass stacks
+each leaf's gradient once instead of summing one zero-padded full-size
+tensor a super-block.  Caches stack the same way under ``"scan"``.  The
+remainder blocks are unrolled.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.blocks import (block_apply, block_init, norm_apply,
+from repro_torch.models.blocks import (block_apply, block_decode, block_init,
+                                       block_init_cache, norm_apply,
                                        norm_init)
 from repro_torch.models.config import ArchConfig
+from repro_torch.nn.losses import softmax_cross_entropy
 from repro_torch.nn.layers import dense, dense_init, embed, embedding_init, \
     unembed
 from repro_torch.nn.module import tree_map
@@ -32,6 +39,14 @@ def _n_segments(scan) -> int:
     while isinstance(scan, dict):
         scan = next(iter(scan.values()))
     return scan.shape[0]
+
+
+def _unstack(scan) -> list:
+    """The super-blocks of a ``"scan"`` subtree: one ``torch.unbind`` per
+    leaf (views; the backward of each is one ``stack``)."""
+    n = _n_segments(scan)
+    per_leaf = tree_map(lambda t: t.unbind(0), scan)
+    return [tree_map(lambda u: u[s], per_leaf) for s in range(n)]
 
 
 def _stack(trees: list):
@@ -82,13 +97,23 @@ class DecoderModel:
             parts.append(embed(params["embed"], tokens))
         return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
-    def _segments(self, x, scan, long_ctx: bool):
-        """Run every stacked super-block of ``scan`` in order."""
-        for s in range(_n_segments(scan)):
-            seg = tree_map(lambda t: t[s], scan)
-            for i, kind in enumerate(self.pattern):
-                x, _ = block_apply(seg[_seg_key(i, kind)], self.cfg, kind, x,
-                                   long_ctx=long_ctx)
+    def _super_apply(self, seg, x, long_ctx: bool):
+        """One super-block (one repetition of ``cfg.pattern``)."""
+        for i, kind in enumerate(self.pattern):
+            x, _ = block_apply(seg[_seg_key(i, kind)], self.cfg, kind, x,
+                               long_ctx=long_ctx)
+        return x
+
+    def _segments(self, x, scan, long_ctx: bool, remat: bool = False):
+        """Run every stacked super-block of ``scan`` in order.  With
+        ``remat`` each super-block is a ``torch.utils.checkpoint`` region
+        (its activations recomputed in the backward pass)."""
+        for seg in _unstack(scan):
+            if remat:
+                x = checkpoint(self._super_apply, seg, x, long_ctx,
+                               use_reentrant=False)
+            else:
+                x = self._super_apply(seg, x, long_ctx)
         return x
 
     def _head(self, params, x):
@@ -97,22 +122,44 @@ class DecoderModel:
             return unembed(params["embed"], x)
         return dense(params["lm_head"], x)
 
-    def forward(self, params, tokens=None, *, frontend_embeds=None,
-                long_ctx: bool = False):
-        """Full-sequence forward.  Returns (logits, aux)."""
-        x = self._embed_inputs(params, tokens, frontend_embeds)
-        if self.n_pattern > 0:
-            x = self._segments(x, params["scan"], long_ctx)
-        for i, kind in enumerate(self.remainder):
-            x, _ = block_apply(params[f"rem{i}_{kind}"], self.cfg, kind, x,
-                               long_ctx=long_ctx)
-        logits = self._head(params, x)
+    def _softcap(self, logits):
         if self.cfg.logit_softcap:
             c = self.cfg.logit_softcap
             logits = c * torch.tanh(logits / c)
+        return logits
+
+    def forward(self, params, tokens=None, *, frontend_embeds=None,
+                long_ctx: bool = False, remat: bool = False):
+        """Full-sequence forward.  Returns (logits, aux)."""
+        x = self._embed_inputs(params, tokens, frontend_embeds)
+        if self.n_pattern > 0:
+            x = self._segments(x, params["scan"], long_ctx, remat)
+        for i, kind in enumerate(self.remainder):
+            x, _ = block_apply(params[f"rem{i}_{kind}"], self.cfg, kind, x,
+                               long_ctx=long_ctx)
+        logits = self._softcap(self._head(params, x))
         # no MoE block is ported, so the auxiliary loss is zero
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return logits, {"moe_aux_loss": aux}
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, params, batch, *, remat: bool = True):
+        """Next-token cross-entropy.  batch: tokens (B,S) integer, optional
+        frontend_embeds (B,T,D); loss over token positions only.  Returns
+        (total, {"ce", "moe_aux_loss"}); ``remat`` recomputes each
+        super-block's activations in the backward pass and changes no
+        number."""
+        tokens = batch["tokens"]
+        fe = batch.get("frontend_embeds")
+        logits, aux = self.forward(params, tokens, frontend_embeds=fe,
+                                   remat=remat)
+        n_front = fe.shape[1] if fe is not None else 0
+        # predict tokens[t+1] from sequence position n_front + t
+        logits = logits[:, n_front:-1]
+        targets = tokens[:, 1:]
+        ce = softmax_cross_entropy(logits, targets).mean()
+        total = ce + 0.01 * aux["moe_aux_loss"]
+        return total, {"ce": ce, **aux}
 
     # ------------------------------------------------------------ split (§2)
     # The paper's technique: partition the network at a block boundary,
@@ -148,6 +195,51 @@ class DecoderModel:
             x, _ = block_apply(params[f"rem{i}_{kind}"], self.cfg, kind, x,
                                long_ctx=long_ctx)
         return self._head(params, x)
+
+    # ----------------------------------------------------------------- cache
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device: DeviceLike = None):
+        """Zero caches on ``device`` (CUDA by default): the super-blocks'
+        stacked under ``"scan"`` with a leading ``n_pattern`` axis, as the
+        reference stacks them, the remainder's by name."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        caches = {}
+        if self.n_pattern > 0:
+            proto = {_seg_key(i, kind): block_init_cache(
+                cfg, kind, batch, max_len, dtype, dev)
+                for i, kind in enumerate(self.pattern)}
+            caches["scan"] = tree_map(
+                lambda t: t.new_zeros((self.n_pattern,) + t.shape), proto)
+        for i, kind in enumerate(self.remainder):
+            caches[f"rem{i}_{kind}"] = block_init_cache(cfg, kind, batch,
+                                                        max_len, dtype, dev)
+        return caches
+
+    # ----------------------------------------------------------------- decode
+    @torch.no_grad()
+    def decode_step(self, params, token, caches, index, *,
+                    long_ctx: bool = False):
+        """token: (B, 1) integer; index: the position, a Python int or a
+        0-d integer tensor (keep it on the device to spare a copy a step).
+        Returns (logits (B, 1, V), caches): inference, without autograd;
+        every layer writes its K/V row into ``caches`` in place
+        (``nn.attention.decode_attention``)."""
+        cfg = self.cfg
+        x = embed(params["embed"], token)
+        index = torch.as_tensor(index, device=x.device)
+        if self.n_pattern > 0:
+            for seg, seg_cache in zip(_unstack(params["scan"]),
+                                      _unstack(caches["scan"])):
+                for i, kind in enumerate(self.pattern):
+                    k = _seg_key(i, kind)
+                    x, _ = block_decode(seg[k], cfg, kind, x, seg_cache[k],
+                                        index, long_ctx=long_ctx)
+        for i, kind in enumerate(self.remainder):
+            k = f"rem{i}_{kind}"
+            x, _ = block_decode(params[k], cfg, kind, x, caches[k], index,
+                                long_ctx=long_ctx)
+        return self._softcap(self._head(params, x)), caches
 
 
 __all__ = ["DecoderModel"]

@@ -3,12 +3,15 @@ windows, as in ``repro.nn.attention``: the full-sequence (training /
 prefill) path.
 
 Shapes follow the (B, S, H, D) convention internally; the public API takes
-(B, S, d_model).  The core goes through K5 (``kernels.ops.
-causal_attention``) where :func:`flash_eligible` says so, and through the
-reference's two eager branches (``_scores_to_out``, ``chunked_attention``)
-otherwise.  The reference's sharding annotations have no counterpart: one
-card, no mesh.  Cross-attention and the decode path wait for the modules
-that use them.
+(B, S, d_model).  The full-sequence core goes through K5 (``kernels.ops.
+causal_attention``) where :func:`flash_eligible` says so and autograd will
+not need q, k and v (:func:`needs_autograd`: K5, like the reference's
+kernel, has no backward pass), and through the reference's two eager
+branches (``_scores_to_out``, ``chunked_attention``) otherwise.  The rule
+reads the config, the shape and autograd's state, never the device, so the
+CPU takes the branch the card takes.  Cross-attention and the one-token
+decode step over a KV cache are the reference's, eager.  The reference's
+sharding annotations have no counterpart: one card, no mesh.
 """
 from __future__ import annotations
 
@@ -17,9 +20,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ops import causal_attention
 from repro_torch.nn.layers import dense, dense_init, rmsnorm, rmsnorm_init
+from repro_torch.nn.module import tree_leaves
 from repro_torch.nn.rotary import apply_rope
 
 FLASH_BLOCK = 128   # K5's public tile: S must be a multiple of min(128, S)
@@ -43,12 +47,14 @@ class AttentionConfig:
                                     # chunked path replaces naive S^2 scores
     block_q: int = 512
     block_k: int = 512
-    # decode knobs, kept so a config equals the reference's; the decode
-    # path waits
+    # decode with a sliding window gathers only the window from the cache
+    # instead of masking the full S_max scores
     windowed_decode_gather: bool = False
     # skip fully-masked KV chunks in the chunked path (causal upper
     # triangle / outside the sliding-window band)
     skip_masked_blocks: bool = False
+    # the reference's masked where() cache update (its form for a sharded
+    # cache): no write at an out-of-range index, where the default clamps
     masked_cache_update: bool = False
 
 
@@ -92,18 +98,29 @@ def _repeat_kv(x, n_rep: int):
 
 
 def _scores_to_out(cfg, q, k, v, mask):
-    """q: (B,Sq,H,D); k,v: (B,Skv,H,D); mask broadcastable to (B,H,Sq,Skv)."""
+    """q: (B,Sq,H,D); k,v: (B,Skv,H_kv,D) with H a multiple of H_kv; mask
+    broadcastable to (B,H,Sq,Skv).
+
+    Query head h reads KV head h // (H // H_kv), the head ``_repeat_kv``
+    would put there: the query heads are seen as H_kv groups, so k and v
+    are never repeated (the reference passes them repeated, H_kv = H)."""
+    B, Sq, H, D = q.shape
+    G, Skv = k.shape[2], k.shape[1]
     scale = cfg.head_dim ** -0.5
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    qg = q.reshape(B, Sq, G, H // G, D)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k).float() * scale
+    logits = logits.reshape(B, H, Sq, Skv)
     if cfg.attn_logit_softcap is not None:
         c = cfg.attn_logit_softcap
         logits = c * torch.tanh(logits / c)
     if mask is not None:
         logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
-    m = logits.amax(dim=-1, keepdim=True)
+    # the max is a constant to autograd, as the reference's stop_gradient
+    m = logits.amax(dim=-1, keepdim=True).detach()
     p = torch.exp(logits - m)
     probs = (p / p.sum(dim=-1, keepdim=True)).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    probs = probs.reshape(B, G, H // G, Sq, Skv)
+    return torch.einsum("bgrqk,bkgd->bqgrd", probs, v).reshape(B, Sq, H, D)
 
 
 def make_attention_mask(cfg: AttentionConfig, q_len: int, kv_len: int,
@@ -127,6 +144,15 @@ def flash_eligible(cfg: AttentionConfig, S: int, mask) -> bool:
             and S % min(FLASH_BLOCK, S) == 0)
 
 
+def needs_autograd(params, x) -> bool:
+    """Whether autograd will need q, k and v: grad mode is on and ``x`` or
+    a projection parameter requires grad (under ``torch.func.grad`` too).
+    K5 has no backward pass, so such a core takes the eager branches, as
+    the reference's always do."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in tree_leaves(params)))
+
+
 def attention(params, cfg: AttentionConfig, x, *, positions=None,
               mask=None):
     """Full-sequence self-attention (training / prefill)."""
@@ -134,7 +160,7 @@ def attention(params, cfg: AttentionConfig, x, *, positions=None,
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     q, k, v = _project_qkv(params, cfg, x, positions)
-    if flash_eligible(cfg, S, mask):
+    if flash_eligible(cfg, S, mask) and not needs_autograd(params, x):
         # K5 reads the (B, S, H, D) projections in place as (B, H, S, D)
         # views and maps each query head to its KV head; on the card its
         # output is (B, S, H, D) storage, so the reshape below is a view
@@ -142,15 +168,14 @@ def attention(params, cfg: AttentionConfig, x, *, positions=None,
                                v.transpose(1, 2),
                                sliding_window=cfg.sliding_window)
         out = out.transpose(1, 2)
+    elif S > cfg.chunked_threshold and mask is None:
+        n_rep = cfg.n_heads // cfg.n_kv_heads
+        out = chunked_attention(cfg, q, _repeat_kv(k, n_rep),
+                                _repeat_kv(v, n_rep))
     else:
-        k = _repeat_kv(k, cfg.n_heads // cfg.n_kv_heads)
-        v = _repeat_kv(v, cfg.n_heads // cfg.n_kv_heads)
-        if S > cfg.chunked_threshold and mask is None:
-            out = chunked_attention(cfg, q, k, v)
-        else:
-            if mask is None:
-                mask = make_attention_mask(cfg, S, S, device=x.device)
-            out = _scores_to_out(cfg, q, k, v, mask)
+        if mask is None:
+            mask = make_attention_mask(cfg, S, S, device=x.device)
+        out = _scores_to_out(cfg, q, k, v, mask)
     return dense(params["wo"], out.reshape(B, S, -1))
 
 
@@ -234,5 +259,115 @@ def chunked_attention(cfg: AttentionConfig, q, k, v):
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Cross attention (Whisper decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attention(params, cfg: AttentionConfig, x, kv_src=None, *,
+                    k=None, v=None):
+    """kv_src: (B, S_enc, d_model) encoder output (no rope, no mask), or
+    precomputed k/v (decode path reuses cached cross-KV)."""
+    B, Sq, _ = x.shape
+    q = dense(params["wq"], x).reshape(B, Sq, cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q)
+    if k is None:
+        k, v = cross_kv(params, cfg, kv_src)
+    out = _scores_to_out(cfg, q, k, v, None)
+    return dense(params["wo"], out.reshape(B, Sq, -1))
+
+
+def cross_kv(params, cfg: AttentionConfig, kv_src):
+    B, Skv, _ = kv_src.shape
+    k = dense(params["wk"], kv_src).reshape(B, Skv, cfg.n_kv_heads,
+                                            cfg.head_dim)
+    v = dense(params["wv"], kv_src).reshape(B, Skv, cfg.n_kv_heads,
+                                            cfg.head_dim)
+    if cfg.qk_norm:
+        k = rmsnorm(params["k_norm"], k)
+    return k, v
+
+
+# ---------------------------------------------------------------------------
+# Decode path with KV cache
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: AttentionConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device: DeviceLike = None):
+    """{"k", "v"} of (batch, max_len, KV, D) zeros, bf16 by default (for
+    an f32 model too, as in the reference), on ``device`` (CUDA by
+    default)."""
+    dev = resolve_device(device)
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+@torch.no_grad()
+def decode_attention(params, cfg: AttentionConfig, x, cache, index):
+    """One-token decode step.
+
+    x: (B, 1, d_model); cache: {"k","v"} of (B, S_max, KV, D); index: the
+    position of the new token, a Python int, a 0-d integer tensor or a
+    ``(B,)`` one (which must hold one element: as in the reference, the
+    rope positions take it per row but a single index writes the cache).
+    Returns (out, cache).
+
+    Decode is inference: it runs without autograd and writes the new K/V
+    row into ``cache`` in place (the reference returns a new cache; a
+    copy a token would move the whole cache).  Like the reference's
+    dynamic update slice, the write clamps the row to [0, S_max - 1];
+    with ``masked_cache_update`` (the reference's where() over every
+    position) it writes the row whose position equals ``index``, none when
+    it is out of range, touching that one row.  The index stays on the
+    device: nothing here reads it on the host.
+    """
+    B, S1, _ = x.shape
+    assert S1 == 1, "decode_attention processes exactly one new token"
+    index = torch.as_tensor(index, device=x.device)
+    positions = (index.reshape(1, 1).expand(B, 1) if index.dim() == 0
+                 else index.reshape(B, 1))
+    q, k_new, v_new = _project_qkv(params, cfg, x, positions.to(torch.int32))
+
+    idx = index.to(torch.int64).reshape(())
+    k_cache, v_cache = cache["k"], cache["v"]
+    S_max = k_cache.shape[1]
+    row = idx.clamp(0, S_max - 1).reshape(1)
+    k_row, v_row = k_new.to(k_cache.dtype), v_new.to(v_cache.dtype)
+    if cfg.masked_cache_update:
+        # the reference's where() over every position writes the row at
+        # ``index`` and none when it is out of range: the same function,
+        # computed on the one row the write can touch
+        inside = (idx >= 0) & (idx < S_max)
+        k_row = torch.where(inside, k_row, k_cache.index_select(1, row))
+        v_row = torch.where(inside, v_row, v_cache.index_select(1, row))
+    k_cache.index_copy_(1, row, k_row)
+    v_cache.index_copy_(1, row, v_row)
+
+    if (cfg.windowed_decode_gather and cfg.sliding_window is not None
+            and S_max > cfg.sliding_window):
+        # read only the live window from the cache instead of scoring
+        # (and masking) all S_max cached positions
+        W = cfg.sliding_window
+        start = (idx - W + 1).clamp(0, S_max - W)
+        kv_pos = start + torch.arange(W, device=x.device)
+        k_cmp = k_cache.index_select(1, kv_pos)
+        v_cmp = v_cache.index_select(1, kv_pos)
+    else:
+        k_cmp, v_cmp = k_cache, v_cache
+        kv_pos = torch.arange(S_max, device=x.device)
+    valid = kv_pos <= idx
+    if cfg.sliding_window is not None:
+        valid &= kv_pos > idx - cfg.sliding_window
+    mask = valid[None, None, None, :]  # (1,1,1,S_kv)
+
+    # the query heads read their KV heads in groups (_scores_to_out): the
+    # cache is never repeated to H heads
+    out = _scores_to_out(cfg, q, k_cmp.to(q.dtype), v_cmp.to(q.dtype), mask)
+    return dense(params["wo"], out.reshape(B, 1, -1)), cache
+
+
 __all__ = ["AttentionConfig", "attention", "attention_init",
-           "chunked_attention", "flash_eligible", "make_attention_mask"]
+           "chunked_attention", "cross_attention", "cross_kv",
+           "decode_attention", "flash_eligible", "init_kv_cache",
+           "make_attention_mask", "needs_autograd"]

@@ -12,7 +12,7 @@ parameters instead (``repro_torch.convert``).
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Any, Callable, Iterator
 
 import torch
 
@@ -81,5 +81,39 @@ def tree_unflatten(like, leaves):
     return build(like)
 
 
-__all__ = ["Initializer", "fan_in_init", "normal_init", "orthogonal_init",
-           "tree_leaves", "tree_map", "tree_unflatten"]
+# ---------------------------------------------------------------------------
+# Pytree helpers (``repro.nn.module``'s)
+# ---------------------------------------------------------------------------
+
+def param_count(params) -> int:
+    return sum(x.numel() for x in tree_leaves(params))
+
+
+def param_bytes(params) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(params))
+
+
+def tree_paths(params, prefix: str = "") -> Iterator[tuple[str, Any]]:
+    """Yield ('a/b/c', leaf) pairs for a nested dict (lists and tuples
+    index by position), in ``jax.tree_util.tree_flatten_with_path``'s
+    order and with its key strings: checkpoints key on them."""
+    if isinstance(params, dict):
+        items = ((str(k), params[k]) for k in sorted(params))
+    elif isinstance(params, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(params))
+    else:
+        yield prefix, params
+        return
+    for k, v in items:
+        yield from tree_paths(v, f"{prefix}/{k}" if prefix else k)
+
+
+def cast_tree(params, dtype):
+    """Every floating-point leaf cast to ``dtype``; the others kept."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    params)
+
+
+__all__ = ["Initializer", "cast_tree", "fan_in_init", "normal_init",
+           "orthogonal_init", "param_bytes", "param_count", "tree_leaves",
+           "tree_map", "tree_paths", "tree_unflatten"]

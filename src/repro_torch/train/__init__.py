@@ -1,2 +1,2 @@
 """Training substrate of the port (``repro.train`` counterparts): the
-optimizers."""
+optimizers, checkpoints and the LM trainer."""

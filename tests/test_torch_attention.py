@@ -41,6 +41,11 @@ from repro_torch.nn import attention as t_attn
 from repro_torch.nn import layers as t_layers
 from repro_torch.nn.rotary import apply_rope
 
+# One intra-op thread a process: the suite runs a pytest worker a core,
+# and torch's default (a thread a core in every worker) oversubscribes
+# the host many times over.
+torch.set_num_threads(1)
+
 
 def _rand(shape, seed, scale=1.0):
     return (np.random.default_rng(seed).standard_normal(shape)

@@ -26,6 +26,11 @@ from repro_torch.core.tuning import TunedPlan
 from repro_torch.rl import networks as t_networks
 from repro_torch.schema import SchemaVersionError
 
+# One intra-op thread a process: the suite runs a pytest worker a core,
+# and torch's default (a thread a core in every worker) oversubscribes
+# the host many times over.
+torch.set_num_threads(1)
+
 ACT_TOL = 1e-4
 
 

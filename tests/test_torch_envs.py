@@ -34,6 +34,11 @@ from repro_torch.envs import make_pixel_env
 from repro_torch.envs import pendulum as t_pendulum
 from repro_torch.envs import wrappers as t_wrappers
 
+# One intra-op thread a process: the suite runs a pytest worker a core,
+# and torch's default (a thread a core in every worker) oversubscribes
+# the host many times over.
+torch.set_num_threads(1)
+
 TASKS = ["pendulum", "hopper", "walker"]
 N = 4
 DYN_TOL = 1e-5

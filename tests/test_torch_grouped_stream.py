@@ -32,6 +32,11 @@ from repro_torch.kernels import miniconv_pass as t_kernels
 from repro_torch.kernels import ops as t_ops
 from repro_torch.rl import networks as t_networks
 
+# One intra-op thread a process: the suite runs a pytest worker a core,
+# and torch's default (a thread a core in every worker) oversubscribes
+# the host many times over.
+torch.set_num_threads(1)
+
 FEAT_TOL = 1e-5
 Z_TOL = 1e-4
 ACT_TOL = 1e-4

@@ -642,3 +642,86 @@ def test_exact_member0_bitwise_on_card_in_deterministic_mode(cuda):
     assert out.returncode == 0, out.stderr[-2000:]
     row = json.loads(out.stdout.strip().splitlines()[-1])
     assert row["bitwise"], row
+
+
+# ---------------------------------------------------------------------------
+# The LM decode path and training on the card (reduced qwen3-0.6b, f32)
+# ---------------------------------------------------------------------------
+
+def test_flash_kernel_refuses_inputs_that_require_grad(cuda):
+    """K5 has no backward pass: a CUDA input that requires grad is refused
+    before anything launches; under no_grad the same inputs run."""
+    gen = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn((1, 4, 128, 64), generator=gen).to(cuda)
+               for _ in range(3))
+    q.requires_grad_()
+    before = fmod.flash_attention.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        fmod.flash_attention(q, k, v)
+    assert fmod.flash_attention.launches == before
+    with torch.no_grad():
+        fmod.flash_attention(q, k, v)
+    assert fmod.flash_attention.launches == before + 1
+
+
+def test_lm_decode_and_train_step_on_card(cuda):
+    """Decode over an f32 cache against the card's forward (1e-4) and the
+    CPU's decode (1e-4) with no K5 launch; one Trainer step against the
+    CPU's (gradients 1e-4 of each leaf's largest, parameters 2 lr, loss
+    1e-4), also with no K5 launch, and non-zero q/k/v gradients."""
+    from repro_torch.data import lm_batches
+    from repro_torch.models.registry import get_model
+    from repro_torch.nn.module import (tree_leaves, tree_map, tree_paths,
+                                       tree_unflatten)
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    cfg, model = get_model("qwen3-0.6b", reduced=True)
+    p_cpu = model.init(torch.Generator().manual_seed(3), device="cpu")
+    p_gpu = tree_map(lambda t: t.to(cuda), p_cpu)
+    tok = torch.randint(3, cfg.vocab, (1, 32),
+                        generator=torch.Generator().manual_seed(4))
+
+    def decode(p, device):
+        c = model.init_cache(1, 32, torch.float32, device=device)
+        i = torch.zeros((), dtype=torch.int64, device=device)
+        out = []
+        for t in range(32):
+            lg, c = model.decode_step(p, tok[:, t:t + 1].to(device), c, i)
+            i += 1
+            out.append(lg)
+        return torch.cat(out, 1)
+
+    with torch.no_grad():
+        full, _ = model.forward(p_gpu, tok.to(cuda))
+    before = fmod.flash_attention.launches
+    dec = decode(p_gpu, cuda)
+    assert fmod.flash_attention.launches == before
+    torch.testing.assert_close(dec, full, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(dec.cpu(), decode(p_cpu, "cpu"), atol=1e-4,
+                               rtol=1e-4)
+
+    lr = 1e-3
+    batch = next(lm_batches(cfg.vocab, 2, 32, seed=5, device="cpu"))
+
+    def step(p, device):
+        b = {k: v.to(device) for k, v in batch.items()}
+        leaves = [x.detach().requires_grad_() for x in tree_leaves(p)]
+        loss, _ = model.loss(tree_unflatten(p, leaves), b)
+        grads = torch.autograd.grad(loss, leaves)
+        tr = Trainer(cfg, TrainConfig(batch=2, steps=10, lr=lr, warmup=1),
+                     device=device)
+        new, _, m = tr.step(p, tr.optimizer.init(p), b)
+        return grads, new, float(m["loss"])
+
+    before = fmod.flash_attention.launches
+    g_gpu, new_gpu, l_gpu = step(p_gpu, cuda)
+    assert fmod.flash_attention.launches == before
+    g_cpu, new_cpu, l_cpu = step(p_cpu, "cpu")
+    assert abs(l_gpu - l_cpu) <= 1e-4
+    for a, b in zip(g_gpu, g_cpu):
+        assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max()
+    for a, b in zip(tree_leaves(new_gpu), tree_leaves(new_cpu)):
+        assert (a.cpu() - b).abs().max() <= 2 * lr
+    named = dict(zip([n for n, _ in tree_paths(p_cpu)], g_gpu))
+    for n in ("wq", "wk", "wv"):
+        g = named[f"scan/b0_attn/attn/{n}/kernel"]
+        assert (g.abs().flatten(1).amax(1) > 0).all()

@@ -28,6 +28,11 @@ from repro_torch.examples import quickstart
 from repro_torch.rl import networks as t_networks
 from repro_torch.serving import server as t_srv
 
+# One intra-op thread a process: the suite runs a pytest worker a core,
+# and torch's default (a thread a core in every worker) oversubscribes
+# the host many times over.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 CNN_TOL = 1e-4
 

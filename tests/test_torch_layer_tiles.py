@@ -27,6 +27,11 @@ from repro_torch.core import passplan as pp
 from repro_torch.core.miniconv import LayerSpec, MiniConvSpec, standard_spec
 from repro_torch.kernels.miniconv_pass import layer_args, tap_stride
 
+# One intra-op thread a process: the suite runs a pytest worker a core,
+# and torch's default (a thread a core in every worker) oversubscribes
+# the host many times over.
+torch.set_num_threads(1)
+
 ODD = MiniConvSpec((LayerSpec(4, 2, 12, 16, "relu"),
                     LayerSpec(3, 2, 16, 16, "sigmoid"),
                     LayerSpec(3, 2, 16, 6, "linear")))

@@ -10,11 +10,17 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.benchmarks import learning, population
 from repro_torch.rl.ddpg import DDPGConfig
 from repro_torch.rl.ppo import PPOConfig
 from repro_torch.rl.sac import SACConfig
+
+# One intra-op thread a process: the suite runs a pytest worker a core,
+# and torch's default (a thread a core in every worker) oversubscribes
+# the host many times over.
+torch.set_num_threads(1)
 
 CPU = "cpu"
 

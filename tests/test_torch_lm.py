@@ -36,6 +36,11 @@ from repro_torch.models.transformer import DecoderModel
 from repro_torch.serving.client import DecisionLoop
 from repro_torch.serving.netsim import shaped
 
+# One intra-op thread a process: the suite runs a pytest worker a core,
+# and torch's default (a thread a core in every worker) oversubscribes
+# the host many times over.
+torch.set_num_threads(1)
+
 ARCH = "qwen3-0.6b"
 
 

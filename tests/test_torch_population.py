@@ -67,6 +67,11 @@ from repro_torch.rl.ppo import PPOConfig as TPPO
 from repro_torch.rl.sac import SACConfig as TSAC
 from repro_torch.train import optimizer as t_opt
 
+# One intra-op thread a process: the suite runs a pytest worker a core,
+# and torch's default (a thread a core in every worker) oversubscribes
+# the host many times over.
+torch.set_num_threads(1)
+
 t_train = importlib.import_module("repro_torch.rl.train")
 
 CPU = "cpu"

@@ -44,6 +44,11 @@ from repro_torch.serving.realfleet import (MSG_REQ, MSG_RESP, MSG_SHUTDOWN,
                                            _send_frame, pack_payload,
                                            run_load, unpack_payload)
 
+# One intra-op thread a process: the suite runs a pytest worker a core,
+# and torch's default (a thread a core in every worker) oversubscribes
+# the host many times over.
+torch.set_num_threads(1)
+
 
 # ------------------------------------------------------------------ framing
 def _bits(v):

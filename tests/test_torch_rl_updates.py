@@ -50,6 +50,11 @@ from repro_torch.rl.ppo import gae as t_gae
 from repro_torch.rl.sac import SACConfig as TSAC
 from repro_torch.train import optimizer as t_opt
 
+# One intra-op thread a process: the suite runs a pytest worker a core,
+# and torch's default (a thread a core in every worker) oversubscribes
+# the host many times over.
+torch.set_num_threads(1)
+
 CPU = "cpu"
 H = 24          # miniconv4 at 24x24: a 3x3x4 feature map, a 36x512 projection
 GRAD_RTOL = 1e-4

@@ -17,6 +17,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch import deploy as t_deploy
 from repro_torch.benchmarks import (decision_latency, realfleet, scalability,
@@ -24,6 +25,11 @@ from repro_torch.benchmarks import (decision_latency, realfleet, scalability,
 from repro_torch.examples import deploy_policy
 from repro_torch.serving.fleet import router_names
 from repro_torch.serving.scenario import scenario_names
+
+# One intra-op thread a process: the suite runs a pytest worker a core,
+# and torch's default (a thread a core in every worker) oversubscribes
+# the host many times over.
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 

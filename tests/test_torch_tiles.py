@@ -37,6 +37,11 @@ from repro_torch.core.miniconv import (_ACTS, LayerSpec, MiniConvSpec,
 from repro_torch.kernels.miniconv_pass import encoder_desc, head_parts
 from repro_torch.kernels.ref import miniconv_encoder_ref
 
+# One intra-op thread a process: the suite runs a pytest worker a core,
+# and torch's default (a thread a core in every worker) oversubscribes
+# the host many times over.
+torch.set_num_threads(1)
+
 FEAT_TOL = 1e-5
 Z_TOL = 1e-4
 

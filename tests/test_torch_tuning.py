@@ -15,6 +15,7 @@ import json
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro.core import tuning as j_tuning
 from repro.deploy import DeploymentConfig as JConfig
@@ -24,6 +25,11 @@ from repro_torch.core import tuning as t_tuning
 from repro_torch.core.backends import backend_names
 from repro_torch.core.miniconv import LayerSpec, MiniConvSpec
 from repro_torch.core.tuning import Candidate, TunedPlan
+
+# One intra-op thread a process: the suite runs a pytest worker a core,
+# and torch's default (a thread a core in every worker) oversubscribes
+# the host many times over.
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 

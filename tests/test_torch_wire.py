@@ -14,6 +14,11 @@ import torch
 from repro.core import wire as j_wire
 from repro_torch.core import wire as t_wire
 
+# One intra-op thread a process: the suite runs a pytest worker a core,
+# and torch's default (a thread a core in every worker) oversubscribes
+# the host many times over.
+torch.set_num_threads(1)
+
 SHAPES = [(1, 11, 11, 4), (1, 13, 13, 16), (1, 6, 9, 5)]
 
 
