@@ -50,7 +50,14 @@ against the K5 forward, 32 greedy tokens twice bit for bit, one step at a
 32,768-deep cache at batch 1 and 8, decode and one ``Trainer`` step held
 against the CPU (no K5 launch in a step: it has no backward pass), then
 ``python -m repro_torch.launch.train --full`` for 8 steps and a checkpoint
-restored bit for bit.
+restored bit for bit.  Last it serves and decodes the MoE, Mamba-2 and
+RG-LRU families at their published widths (qwen2-moe-a2.7b, 14 B
+parameters, K5 on its 24 attention cores; mamba2-130m; recurrentgemma-9b):
+one split decision each (the float32 codec's split bit for bit the
+monolith), a 128-token prompt decoded into a bf16 cache against the
+forward and 32 greedy tokens, each family's reduced config card against
+CPU, K5 held at the MoE's shape, and ``launch.train --arch mamba2-130m
+--full`` for 4 steps with one step's gradients held against the CPU.
 Each path runs with every launch count set to 0 just before it and read
 just after; the actions are checked against the eager ``xla`` build of
 the same manifest, and the LM's logits against its monolith and against
@@ -58,7 +65,8 @@ the CPU's plain versions.
 
 Any failure ends the run with a non-zero exit code and no result line.
 Phase 14 prints its numbers as a ``{"training": ...}`` line, phase 15 as
-a ``{"population": ...}`` line, phase 16 as a ``{"lm": ...}`` line.
+a ``{"population": ...}`` line, phase 16 as a ``{"lm": ...}`` line,
+phase 17 as a ``{"families": ...}`` line.
 On success the line before the last is ``{"kernels": [...]}`` (one entry
 per kernel: launches on the served path, error, times and bound), and the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -1535,6 +1543,497 @@ def lm_phase(dev, gen, reset_counts, counts):
     return lm
 
 
+# Phase 17: the MoE, Mamba-2 (SSM) and RG-LRU (hybrid) decoder families at
+# their published widths.  Gates: one split decision's K5 launches (one
+# per attention block whose core K5 admits: recurrentgemma-9b's logit
+# softcap keeps its cores eager, as in the reference); the float32-codec
+# split bit for bit the monolith (the server half leaves the softcap out,
+# as the reference's, so the softcap is applied to it first); init's peak
+# memory within FAM_INIT_PEAK of the parameters' bytes; decode against
+# the forward (the MoE's at a capacity that drops nothing: a decode step
+# routes one token, the forward 128, and drops some at the default
+# capacity) in f32 over an f32 cache, the reference's own setting, within
+# LM_DECODE_TOL with top-1 agreement >= FAM_TOP1, and in bf16, the served
+# precision, within LM_BF16_FLOOR times the bf16 forward's own distance
+# from the f32 forward (phase 16's rule: any two bf16 computations of the
+# 24-38 layers part by more than 2e-2, and their top-1 agreement falls
+# below 0.95 on these near-flat random-weight logits; this phase prints
+# it); the card against the CPU on each family's 2-layer f32 reduced()
+# config, logits of the forward and of 16 decode steps within FAM_CPU_TOL
+# of their largest, the MoE's expert indices equal and its moe_aux_loss
+# within FAM_AUX_TOL; K5 at the MoE's shape against its plain version
+# (ATTN_TOL); mamba2-130m training losses finite, one step's gradients
+# card against CPU within FAM_GRAD_TOL of each leaf's largest.
+FAM_TOP1 = 0.95
+FAM_CPU_TOL = 1e-5
+FAM_AUX_TOL = 1e-6
+FAM_GRAD_TOL = 1e-5
+FAM_INIT_PEAK = 1.25
+# cheapest first: (arch, K5 launches a split decision)
+FAMILIES = (("mamba2-130m", 0), ("recurrentgemma-9b", 0),
+            ("qwen2-moe-a2.7b", 24))
+
+
+def cast_in_place(tree, dtype):
+    """``tree`` with every floating leaf cast to ``dtype``, one leaf at a
+    time, each replaced in its dict as it is cast (the old leaf is freed
+    once nothing else holds it)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            cast_in_place(v, dtype)
+        elif v.is_floating_point():
+            tree[k] = v.to(dtype)
+    return tree
+
+
+def families_phase(dev, gen, reset_counts, counts):
+    """Phase 17: the MoE, SSM and RG-LRU families at full width.  For each
+    of mamba2-130m, recurrentgemma-9b and qwen2-moe-a2.7b, from seed 0 on
+    the card: (a) one split decision through ``launch.serve.build_split``
+    (uint8 codec, 1 x 128 tokens): edge, server and monolith ms by the host
+    clock and CUDA events, a traced decision's kernels and busy share, the
+    weights' bytes bound, and the float32 codec's split against the
+    monolith; (b) a 128-token prompt decoded one token at a time into a
+    256-deep bf16 cache against the forward, then 32 greedy tokens: ms,
+    kernels and busy share a token, and the bytes bound; then the same
+    prompt in f32 (the parameters cast in place) against the f32 forward,
+    which also measures the bf16 decode's and forward's distance from it;
+    (c) each family's
+    2-layer f32 ``reduced()`` config card against CPU; (d) K5 held at the
+    MoE's shape, (1,16/16,128,128) bf16 views, against its plain version;
+    (e) ``launch.train --arch mamba2-130m --full`` for 4 steps at batch 4 x
+    256, and one step's gradients card against CPU at 2 full-width f32
+    layers.  Returns the ``{"families": ...}`` dict."""
+    import gc
+    import math
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.benchmarks.lm_split import timed, trace_decision
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import DecoderModel
+    from repro_torch.nn.module import (param_bytes, param_count,
+                                       tree_leaves, tree_map, tree_paths,
+                                       tree_unflatten)
+    from repro_torch.nn.moe import moe_apply
+
+    t_phase = time.perf_counter()
+    fam = {}
+    P, MAX, NEW = 128, 256, 32
+
+    def max_err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    def routed(fn):
+        """``fn()``'s result and each MoE call's routing record."""
+        moe_apply.trace = []
+        try:
+            out = fn()
+            return out, moe_apply.trace
+        finally:
+            moe_apply.trace = None
+
+    def ample(cfg):
+        """The config at a capacity that drops nothing (C = G)."""
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+    def full_width(arch, k5_want):
+        """(a) and (b) for one config; every tensor it makes is freed when
+        it returns."""
+        t_arch = time.perf_counter()
+        row = {}
+        cfg, model = get_model(arch, reduced=False)
+        check(cfg == get_config(arch) and cfg.dtype == "bfloat16",
+              f"{arch}: not its published config")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = serve_cli.init_params(model, dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() - base
+        n_params, w_bytes = param_count(params), param_bytes(params)
+        print(f"{arch} full width ({cfg.n_layers} layers {cfg.blocks()[:3]}"
+              f"..., d {cfg.d_model}, vocab {cfg.vocab}, bf16): {n_params} "
+              f"parameters, {w_bytes} B, drawn on the card from seed 0 in "
+              f"{init_s:.2f} s; init's peak {init_peak} B above the "
+              f"{base} B held before it = {init_peak / w_bytes:.4f}x the "
+              f"parameters' bytes (limit {FAM_INIT_PEAK}x); "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+        check(init_peak <= FAM_INIT_PEAK * w_bytes,
+              f"{arch}: init's peak {init_peak} B over {FAM_INIT_PEAK}x the "
+              f"parameters' {w_bytes} B")
+
+        # ---- (a) one split decision ----------------------------------------
+        (_, edge_fn, server_fn, mono_fn, _, wire,
+         raw) = serve_cli.build_split(arch, reduced=False, edge_segments=1,
+                                      codec_name="uint8", batch=1, seq=P,
+                                      params=params)
+        prompt = torch.randint(3, cfg.vocab, (1, P), generator=gen(13)) \
+            .to(dev, torch.int32)
+        reset_counts()
+        payload = edge_fn(prompt)
+        logits = server_fn(payload)
+        torch.cuda.synchronize()
+        dec_counts = counts()
+        reset_counts()
+        mono = mono_fn(prompt)
+        torch.cuda.synchronize()
+        mono_counts = counts()
+        check(dec_counts == (0, 0, 0, 0, k5_want)
+              and mono_counts == dec_counts,
+              f"{arch}: a split decision launched K1..K5 {dec_counts}, the "
+              f"monolith {mono_counts}; expected (0, 0, 0, 0, {k5_want})")
+        check(logits.shape == (1, P, cfg.vocab)
+              and logits.dtype == torch.bfloat16
+              and torch.isfinite(logits.float()).all(),
+              f"{arch}: bad logits {logits.dtype} {tuple(logits.shape)}")
+        top1_split = (model._softcap(logits).argmax(-1) == mono.argmax(-1)) \
+            .float().mean().item()
+        times = {}
+        for name, fn, arg in (("edge", edge_fn, prompt),
+                              ("server", server_fn, payload),
+                              ("monolith", mono_fn, prompt)):
+            times[f"{name}_ms"], times[f"{name}_cpu_ms"] = timed(fn, arg,
+                                                                 iters=10)
+            times[f"{name}_event_ms"] = cuda_ms(lambda: fn(arg), iters=5,
+                                                warmup=1)
+        tr = trace_decision(lambda: server_fn(edge_fn(prompt)))
+        busy = (None if not tr["kernels"]
+                else tr["busy_ms"] / tr["traced_wall_ms"])
+        bound_ms = w_bytes / PEAK_BYTES_S * 1e3
+        (_, edge32, server32, *_) = serve_cli.build_split(
+            arch, reduced=False, edge_segments=1, codec_name="float32",
+            batch=1, seq=P, params=params)
+        split32 = model._softcap(server32(edge32(prompt)))
+        torch.cuda.synchronize()
+        bitwise = torch.equal(split32, mono)
+        print(f"{arch} split@1 codec=uint8, 1x{P} tokens: K1..K5 launches "
+              f"{dec_counts} a decision (the monolith {mono_counts}); logits "
+              f"{tuple(logits.shape)} finite, top-1 agreement with the "
+              f"monolith {top1_split:.4f}; edge {times['edge_ms']:.4f} ms "
+              f"server {times['server_ms']:.4f} ms monolith "
+              f"{times['monolith_ms']:.4f} ms by the host clock (thread CPU "
+              f"{times['edge_cpu_ms']:.4f} / {times['server_cpu_ms']:.4f} / "
+              f"{times['monolith_cpu_ms']:.4f}), CUDA events "
+              f"{times['edge_event_ms']:.4f} / {times['server_event_ms']:.4f}"
+              f" / {times['monolith_event_ms']:.4f} ms; wire {wire} B raw "
+              f"{raw} B; a traced decision {tr['kernels']} kernels, device "
+              f"busy {tr['busy_ms']:.4f} ms of {tr['traced_wall_ms']:.4f} ms ("
+              + ("not measured" if busy is None else f"{100 * busy:.2f}%")
+              + f"); weights' bytes bound {bound_ms:.4f} ms; float32 codec: "
+              f"split bit for bit the monolith {bitwise} (max_abs_err "
+              f"{max_err(split32, mono):.3g})")
+        print(f"  top kernels: " + "; ".join(
+            f"{k[:60]} x{n} {ms:.4f} ms" for k, n, ms in tr["top"]))
+        check(bitwise, f"{arch}: the float32-codec split differs from the "
+              f"monolith by {max_err(split32, mono)}")
+        row["decision"] = dict(
+            params=n_params, weight_bytes=w_bytes, init_s=init_s,
+            init_peak_bytes=init_peak, launches=list(dec_counts),
+            top1_vs_monolith=top1_split, wire=wire, raw=raw, **times,
+            traced_kernels=tr["kernels"], traced_busy_ms=tr["busy_ms"],
+            traced_wall_ms=tr["traced_wall_ms"], busy_share=busy,
+            top=tr["top"], bound_ms=bound_ms, f32_split_bitwise=bitwise)
+        del edge_fn, server_fn, mono_fn, edge32, server32, payload, logits
+        del split32
+
+        # ---- (b) decode over a bf16 cache, then in f32 ---------------------
+        def decode_prompt(m, p, dtype):
+            c = m.init_cache(1, MAX, dtype, device=dev)
+            i = torch.zeros((), dtype=torch.int64, device=dev)
+            out = []
+            for t in range(P):
+                lg, c = m.decode_step(p, prompt[:, t:t + 1], c, i)
+                i += 1
+                out.append(lg)
+            return torch.cat(out, 1), c
+
+        reset_counts()
+        dec, caches = decode_prompt(model, params, torch.bfloat16)
+        torch.cuda.synchronize()
+        decode_counts = counts()
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(caches))
+        drops = pairs = None
+        oracle_cfg = cfg if cfg.moe is None else ample(cfg)
+        if cfg.moe is not None:
+            with torch.inference_mode():
+                full, trace = routed(lambda: DecoderModel(oracle_cfg)
+                                     .forward(params, prompt)[0])
+                check(all(bool(r["keep"].all()) for r in trace),
+                      f"{arch}: the forward at capacity C = G dropped pairs")
+                _, trace = routed(lambda: model.forward(params, prompt))
+            drops = sum(int((~r["keep"]).sum()) for r in trace)
+            pairs = sum(r["keep"].numel() for r in trace)
+        else:
+            full = mono
+
+        def greedy(c):
+            i = torch.full((), P, dtype=torch.int64, device=dev)
+            tok = dec[:, -1:].argmax(-1).to(torch.int32)
+            toks = []
+            for _ in range(NEW):
+                lg, c = model.decode_step(params, tok, c, i)
+                i += 1
+                toks.append(tok)
+                tok = lg.argmax(-1).to(torch.int32)
+            return torch.cat(toks, 1)
+
+        after_prompt = tree_map(lambda t: t.clone(), caches)
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        toks = greedy(caches)
+        ev1.record()
+        ev1.synchronize()
+        tok_host_ms = (time.perf_counter() - t0) * 1e3 / NEW
+        tok_ev_ms = ev0.elapsed_time(ev1) / NEW
+        i3 = torch.full((), P, dtype=torch.int64, device=dev)
+        trd = trace_decision(lambda: model.decode_step(
+            params, toks[:, :1], after_prompt, i3))
+        busy_d = (None if not trd["kernels"]
+                  else trd["busy_ms"] / trd["traced_wall_ms"])
+        tok_bound = (w_bytes + cache_bytes) / PEAK_BYTES_S * 1e3
+        del caches, after_prompt, mono
+
+        # the f32 copy, cast leaf by leaf in place (the MoE's 56 GB of f32
+        # fit beside no second copy), decoded over an f32 cache
+        gc.collect()
+        params32 = cast_in_place(params, torch.float32)
+        del params
+        model32 = DecoderModel(dataclasses.replace(oracle_cfg,
+                                                   dtype="float32"))
+        with torch.inference_mode():
+            full32 = model32.forward(params32, prompt)[0]
+        dec32, _ = decode_prompt(model32, params32, torch.float32)
+        err32 = max_err(dec32, full32)
+        top1_32 = (dec32.argmax(-1) == full32.argmax(-1)).float().mean() \
+            .item()
+        err = max_err(dec, full)
+        top1 = (dec.argmax(-1) == full.argmax(-1)).float().mean().item()
+        err_truth = max_err(dec, full32)
+        floor = max_err(full, full32)
+        top1_truth = (dec.argmax(-1) == full32.argmax(-1)).float().mean() \
+            .item()
+        top1_floor = (full.argmax(-1) == full32.argmax(-1)).float().mean() \
+            .item()
+        print(f"{arch} decode B=1, {P} prompt tokens one at a time into a "
+              f"{MAX}-deep bf16 cache ({cache_bytes} B; recurrent states "
+              f"f32), against the forward"
+              + (" at capacity_factor = n_experts / top_k (the default "
+                 f"forward drops {drops} of {pairs} (token, k) pairs)"
+                 if drops is not None else "")
+              + f": f32 model and cache max_abs_err {err32:.4g} (tol "
+              f"{LM_DECODE_TOL}), top-1 {top1_32:.4f} (limit {FAM_TOP1}); "
+              f"bf16 max_abs_err {err:.4g}, top-1 {top1:.4f} against the "
+              f"bf16 forward; {err_truth:.4g} and top-1 {top1_truth:.4f} "
+              f"against the f32 forward, where the bf16 forward is "
+              f"{floor:.4g} and {top1_floor:.4f} (limit {LM_BF16_FLOOR}x); "
+              f"K1..K5 launches while decoding {decode_counts}; {NEW} greedy "
+              f"tokens {toks[0].tolist()}; {tok_ev_ms:.4f} ms a token by "
+              f"CUDA events, {tok_host_ms:.4f} ms by the host clock; a "
+              f"traced step {trd['kernels']} kernels, busy "
+              f"{trd['busy_ms']:.4f} ms of {trd['traced_wall_ms']:.4f} ms ("
+              + ("not measured" if busy_d is None else f"{100 * busy_d:.2f}%")
+              + f"); bytes bound {tok_bound:.4f} ms a token (weights + "
+              f"cache once)")
+        check(decode_counts == (0,) * 5, f"{arch}: decoding launched K1..K5 "
+              f"{decode_counts}")
+        check(err32 <= LM_DECODE_TOL and top1_32 >= FAM_TOP1,
+              f"{arch}: f32 decode differs from the forward by {err32} (tol "
+              f"{LM_DECODE_TOL}), top-1 {top1_32} (limit {FAM_TOP1})")
+        check(err_truth <= LM_BF16_FLOOR * floor,
+              f"{arch}: bf16 decode is {err_truth} from the f32 forward, "
+              f"more than {LM_BF16_FLOOR} x the bf16 forward's {floor}")
+        row["decode"] = dict(
+            prompt=P, new_tokens=NEW, cache_len=MAX, cache_bytes=cache_bytes,
+            f32_max_abs_err=err32, f32_top1=top1_32, tol=LM_DECODE_TOL,
+            bf16_max_abs_err=err, bf16_top1=top1,
+            bf16_vs_f32_err=err_truth, bf16_vs_f32_top1=top1_truth,
+            bf16_forward_vs_f32_err=floor,
+            bf16_forward_vs_f32_top1=top1_floor,
+            forward_drops=drops, forward_pairs=pairs,
+            launches=list(decode_counts), greedy_tokens=toks[0].tolist(),
+            ms_per_token_events=tok_ev_ms, ms_per_token_host=tok_host_ms,
+            traced_kernels=trd["kernels"], traced_busy_ms=trd["busy_ms"],
+            traced_wall_ms=trd["traced_wall_ms"], busy_share=busy_d,
+            top=trd["top"], bound_ms_per_token=tok_bound)
+        row["seconds"] = time.perf_counter() - t_arch
+        print(f"{arch}: {row['seconds']:.2f} s")
+        return row
+
+    for arch, k5_want in FAMILIES:
+        fam[arch] = full_width(arch, k5_want)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- (c) the card against the CPU, 2-layer f32 reduced() configs -------
+    for arch, _ in FAMILIES:
+        cfg_r = get_config(arch).reduced()
+        model_r = DecoderModel(cfg_r)
+        p_cpu = model_r.init(gen(31), device="cpu")
+        p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+        tok = torch.randint(3, cfg_r.vocab, (1, 64), generator=gen(32)) \
+            .to(torch.int32)
+        with torch.inference_mode():
+            (fc, ac), rc = routed(lambda: model_r.forward(p_cpu, tok))
+            (fg, ag), rg = routed(lambda: model_r.forward(p_gpu,
+                                                          tok.to(dev)))
+
+        def decode16(p, device):
+            c = model_r.init_cache(1, 16, torch.float32, device=device)
+            out = []
+            for t in range(16):
+                lg, c = model_r.decode_step(p, tok[:, t:t + 1].to(device), c,
+                                            t)
+                out.append(lg)
+            return torch.cat(out, 1)
+
+        dc, dg = decode16(p_cpu, "cpu"), decode16(p_gpu, dev).cpu()
+        e_fwd = max_err(fg.cpu(), fc) / fc.abs().max().item()
+        e_dec = max_err(dg, dc) / dc.abs().max().item()
+        e_aux = abs(float(ag["moe_aux_loss"]) - float(ac["moe_aux_loss"]))
+        same_idx = all(torch.equal(a["expert_idx"].cpu(), b["expert_idx"])
+                       for a, b in zip(rg, rc)) and len(rg) == len(rc)
+        line = (f"{arch} card vs CPU, reduced f32 ({cfg_r.n_layers} layers "
+                f"{cfg_r.blocks()}, d {cfg_r.d_model}) at (1,64): forward "
+                f"logits {e_fwd:.3g} of their largest, 16 decode steps "
+                f"{e_dec:.3g} (tol {FAM_CPU_TOL})")
+        if cfg_r.moe is not None:
+            line += (f"; expert indices of {len(rc)} layers equal "
+                     f"{same_idx}, moe_aux_loss {float(ag['moe_aux_loss']):.6f}"
+                     f" differs by {e_aux:.3g} (tol {FAM_AUX_TOL})")
+            if not same_idx:
+                s = torch.sort(rc[0]["probs"], -1, descending=True).values
+                k = cfg_r.moe.top_k
+                line += (f"; smallest top-k margin on the CPU "
+                         f"{(s[..., :k] - s[..., 1:k + 1]).min().item():.3g}")
+        print(line)
+        check(e_fwd <= FAM_CPU_TOL and e_dec <= FAM_CPU_TOL,
+              f"{arch} reduced: card vs CPU forward {e_fwd}, decode {e_dec}")
+        check(cfg_r.moe is None or (same_idx and e_aux <= FAM_AUX_TOL),
+              f"{arch} reduced: expert indices equal {same_idx}, aux loss "
+              f"{e_aux}")
+        fam[arch]["card_vs_cpu"] = dict(forward_err=e_fwd, decode_err=e_dec,
+                                        tol=FAM_CPU_TOL, aux_err=e_aux,
+                                        expert_idx_equal=same_idx)
+        del p_cpu, p_gpu
+
+    # ---- (d) K5 at the MoE's shape -----------------------------------------
+    q, k, v = (torch.randn((1, 128, 16, 128), generator=gen(50 + i))
+               .to(dev, torch.bfloat16).transpose(1, 2) for i in range(3))
+    reset_counts()
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    k5_counts = counts()
+    want = attention_ref(q.float(), k.float(), v.float(), causal=True)
+    k5_err = max_err(got, want)
+    ms_reps = [cuda_ms(lambda: flash_attention(q, k, v, causal=True))
+               for _ in range(5)]
+    k5_ms = median(ms_reps)
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    flops = 4 * 128 * attention_pairs(128, None) * 16
+    b_ms, b_by = bound(nbytes(q, k, v, got), flops, PEAK_BF16_FLOP_S)
+    print(f"K5 flash_attention at qwen2-moe-a2.7b's shape (1,16/16 heads,"
+          f"128,128) bf16 as (B,S,H,D) views: launches {k5_counts[4]}, "
+          f"max_abs_err {k5_err:.3g} (tol {ATTN_TOL['bfloat16']}, vs plain in "
+          f"f32); kernel {k5_ms:.4f} ms (median of "
+          + "/".join(f"{t:.4f}" for t in ms_reps)
+          + f"), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+          f"(scaled_dot_product_attention), bound {b_ms:.5f} ms ({b_by})")
+    check(k5_counts == (0, 0, 0, 0, 1) and torch.isfinite(got.float()).all()
+          and k5_err <= ATTN_TOL["bfloat16"],
+          f"K5 at the MoE's shape: launches {k5_counts}, error {k5_err}")
+    k5_moe = dict(shape=[1, 16, 128, 128], kv_heads=16, dtype="bfloat16",
+                  views=True, max_abs_err=k5_err, ms=k5_ms, ms_reps=ms_reps,
+                  plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                  bound_by=b_by,
+                  decision_launches=fam["qwen2-moe-a2.7b"]["decision"][
+                      "launches"][4])
+    del q, k, v, got, want
+
+    # ---- (e) mamba2-130m training -------------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--full", "--arch", "mamba2-130m", "--steps", "4", "--batch",
+            "4", "--seq", "256", "--device", "cuda"]
+    rep = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    rc_train = train_cli.main(argv, report=rep)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = rep["history"]
+    losses = [h["loss"] for h in hist]
+    first, last = hist[0], hist[-1]
+    step_ms = ((last["wall_s"] - first["wall_s"])
+               / (last["step"] - first["step"]) * 1e3)
+    tokens_s = 4 * 256 / (step_ms / 1e3)
+    del rep
+
+    cfg_t = dataclasses.replace(get_config("mamba2-130m"), n_layers=2,
+                                n_pattern=2, dtype="float32")
+    model_t = DecoderModel(cfg_t)
+    p_cpu = model_t.init(gen(41), device="cpu")
+    p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+    batch = next(lm_batches(cfg_t.vocab, 2, 256, seed=4, device="cpu"))
+
+    def grads(p, device):
+        b = {key: val.to(device) for key, val in batch.items()}
+        leaves = [x.detach().requires_grad_() for x in tree_leaves(p)]
+        loss, _ = model_t.loss(tree_unflatten(p, leaves), b)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    l_g, g_g = grads(p_gpu, dev)
+    l_c, g_c = grads(p_cpu, "cpu")
+    names = [n for n, _ in tree_paths(p_cpu)]
+    g_errs = {n: (a.cpu() - b).abs().max().item()
+              / max(b.abs().max().item(), 1e-30)
+              for n, a, b in zip(names, g_g, g_c)}
+    worst = max(g_errs, key=g_errs.get)
+    finite = all(torch.isfinite(g).all() for g in g_g)
+    print(f"mamba2-130m training, launch.train {' '.join(argv)}: exit "
+          f"{rc_train}; losses at steps {[h['step'] for h in hist]}: "
+          f"{losses}; {step_ms:.4f} ms a step after the first "
+          f"({tokens_s:.1f} tokens/s), first step "
+          f"{first['wall_s'] * 1e3:.4f} ms; peak device memory {peak} B; "
+          f"K1..K5 launches {train_counts}; {train_s:.2f} s.  One step card "
+          f"vs CPU at 2 full-width f32 layers, batch (2,256): loss "
+          f"{float(l_g):.6f} vs {float(l_c):.6f}; gradients finite "
+          f"{finite}, worst {g_errs[worst]:.3g} of its leaf's largest "
+          f"({worst}; tol {FAM_GRAD_TOL})")
+    check(all(math.isfinite(x) for x in losses), f"mamba2-130m training "
+          f"losses {losses}")
+    check(finite and g_errs[worst] <= FAM_GRAD_TOL,
+          f"mamba2-130m step card vs CPU: gradients finite {finite}, worst "
+          f"{g_errs[worst]} ({worst})")
+    fam["mamba2-130m"]["train"] = dict(
+        argv=argv, rc=rc_train, steps=[h["step"] for h in hist],
+        losses=losses, ms_per_step=step_ms,
+        first_step_ms=first["wall_s"] * 1e3, tokens_per_s=tokens_s,
+        peak_bytes=peak, launches=list(train_counts), seconds=train_s,
+        card_vs_cpu_loss_err=abs(float(l_g) - float(l_c)),
+        card_vs_cpu_grad_err=g_errs[worst], grad_tol=FAM_GRAD_TOL)
+    out = {"configs": fam, "k5_moe": k5_moe,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"families phase: {out['seconds']:.2f} s (target 90 s)")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2637,7 +3136,13 @@ def main() -> int:
     lm = lm_phase(dev, gen, reset_counts, counts)
     print(json.dumps({"lm": lm}, default=float))
 
-    # ---- 17. results -------------------------------------------------------
+    # ---- 17. the MoE, SSM and RG-LRU families at full width -----------------
+    # Each model is freed before the next; K5 runs the MoE's 24 attention
+    # cores a decision, and no core of the other two.
+    families = families_phase(dev, gen, reset_counts, counts)
+    print(json.dumps({"families": families}, default=float))
+
+    # ---- 18. results -------------------------------------------------------
     k1 = k1_rows["served edge"]
     def layer_row(rows, dev_us):
         """The served frame's row, with the 400x400 and batch-8 times."""
@@ -2690,6 +3195,11 @@ def main() -> int:
     ]
     kernels[4]["lm_decode_oracle_launches"] = lm["decode"][
         "oracle_k5_launches"]
+    kernels[4]["moe_decision_launches"] = families["k5_moe"][
+        "decision_launches"]
+    for key in ("ms", "ms_reps", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err", "shape", "kv_heads", "views"):
+        kernels[4][f"moe_{key}"] = families["k5_moe"][key]
     kernels[0]["training_serve_launches"] = train_k1
     kernels[0]["population_serve_launches"] = \
         population["gates"]["serve"]["k1_launches"]

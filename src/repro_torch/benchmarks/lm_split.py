@@ -1,18 +1,19 @@
-"""One split decision of Qwen3-0.6B at full width on the card: edge,
-server and monolith time per decision, and what a trace of one decision
-shows.
+"""One split decision of an LM at full width on the card: edge, server
+and monolith time per decision, and what a trace of one decision shows.
 
-    python -m repro_torch.benchmarks.lm_split
+    python -m repro_torch.benchmarks.lm_split [--arch qwen2-moe-a2.7b]
 
-It builds ``launch.serve.build_split("qwen3-0.6b", reduced=False,
+It builds ``launch.serve.build_split(arch, reduced=False,
 edge_segments=1, codec_name="uint8", batch=1, seq=128)`` on CUDA (random
-weights from seed 0), then three times measures the edge, the server
-half and the monolith in turn, each over 20 calls after a warm-up, ended
-by a synchronize: the wall clock (``*_ms``, as ``PolicyServer.measure``
-reads it) and the calling thread's CPU time (``*_cpu_ms``).  The
-decision is host-bound, and on a host shared with other jobs the wall
-clock also counts the time the thread waits for a core; its CPU time
-does not.
+weights from seed 0; ``--arch`` defaults to qwen3-0.6b and takes any
+config but whisper-medium, which is not ported, and
+llama4-scout-17b-a16e, which no single card holds), then three times
+measures the edge, the server half and the monolith in turn, each over 20
+calls after a warm-up, ended by a synchronize: the wall clock (``*_ms``,
+as ``PolicyServer.measure`` reads it) and the calling thread's CPU time
+(``*_cpu_ms``).  The decision is host-bound, and on a host shared with
+other jobs the wall clock also counts the time the thread waits for a
+core; its CPU time does not.
 
 Last it traces one decision (edge + server) with ``trace_decision``,
 which ``chip_smoke.py`` uses too.  It prints one line a repeat, then one
@@ -24,12 +25,15 @@ one: ``PYTHONPATH=<other>/src python <this file>``.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
 import torch
 
-ARCH, SEQ, REPEATS = "qwen3-0.6b", 128, 3
+from repro_torch.configs import ARCHS
+
+SEQ, REPEATS = 128, 3
 
 
 def trace_decision(fn) -> dict:
@@ -76,13 +80,16 @@ def timed(fn, arg, iters: int = 20) -> tuple[float, float]:
             (time.thread_time() - c0) / iters * 1e3)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", choices=sorted(ARCHS), default="qwen3-0.6b")
+    arch = ap.parse_args(argv).arch
     if not torch.cuda.is_available():
         raise SystemExit("lm_split: CUDA is not available")
     from repro_torch.launch import serve
 
     _, edge_fn, server_fn, mono_fn, _, _, _ = serve.build_split(
-        ARCH, reduced=False, edge_segments=1, codec_name="uint8", batch=1,
+        arch, reduced=False, edge_segments=1, codec_name="uint8", batch=1,
         seq=SEQ)
     gen = torch.Generator().manual_seed(13)
     tokens = torch.randint(3, 1000, (1, SEQ), generator=gen).to(
@@ -100,7 +107,7 @@ def main() -> int:
                                           for k, v in row.items()),
               flush=True)
     traced = trace_decision(lambda: server_fn(edge_fn(tokens)))
-    print(json.dumps(dict(arch=ARCH, seq=SEQ,
+    print(json.dumps(dict(arch=arch, seq=SEQ,
                           device=torch.cuda.get_device_name(0),
                           repeats=rows, trace=traced)))
     return 0

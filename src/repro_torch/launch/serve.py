@@ -4,8 +4,11 @@
 Partitions a transformer at a super-block boundary, quantises the
 boundary activation with a wire codec, and measures end-to-end decision
 latency for split vs server-only execution across a bandwidth sweep — the
-paper's Table 5 protocol with the model as the workload.  Every attention
-layer's core runs through K5 on the card (``nn.attention.flash_eligible``).
+paper's Table 5 protocol with the model as the workload.  Dense, MoE,
+SSM and hybrid configs serve; every attention core that
+``nn.attention.flash_eligible`` admits runs through K5 on the card (a
+logit softcap, as recurrentgemma-9b's, keeps its cores eager, as in the
+reference).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --edge-segments 1 --codec uint8 --bandwidths 10,25,50,100
@@ -31,10 +34,20 @@ from repro_torch.serving.netsim import shaped
 from repro_torch.serving.server import PolicyServer
 
 
+def init_params(model, device: DeviceLike = None):
+    """``build_split``'s random weights: seed 0 of a generator on the
+    device the parameters go to (a 14 B-parameter model is drawn in
+    seconds there, in minutes on the host)."""
+    dev = resolve_device(device)
+    return model.init(torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
+
+
 def build_split(arch: str, *, reduced: bool, edge_segments: int,
                 codec_name: str, batch: int, seq: int,
-                device: DeviceLike = None):
-    """The split model with random weights from seed 0, on ``device``.
+                device: DeviceLike = None, params=None):
+    """The split model with random weights from seed 0 (:func:`init_params`),
+    on ``device``; a caller that already holds them may pass ``params``.
 
     Returns ``(cfg, edge_fn, server_fn, monolith_fn, tokens, wire, raw)``:
     ``edge_fn(tokens) -> payload``, ``server_fn(payload) -> logits``,
@@ -43,7 +56,8 @@ def build_split(arch: str, *, reduced: bool, edge_segments: int,
     """
     dev = resolve_device(device)
     cfg, model = get_model(arch, reduced=reduced)
-    params = model.init(torch.Generator().manual_seed(0), device=dev)
+    if params is None:
+        params = init_params(model, dev)
     edge_p, server_p = model.split_params(params, edge_segments)
     codec = get_codec(codec_name)
 
@@ -124,7 +138,7 @@ def main(argv=None) -> int:
     return 0
 
 
-__all__ = ["build_split", "latency_table", "main"]
+__all__ = ["build_split", "init_params", "latency_table", "main"]
 
 
 if __name__ == "__main__":

@@ -1,26 +1,32 @@
 """Transformer blocks composed by ``repro_torch.models.transformer``
 according to ``ArchConfig.pattern``, as in ``repro.models.blocks``: the
-``attn`` and ``swa`` blocks with every MLP kind, their full-sequence
-forward, their KV cache and their one-token decode.
+``attn`` and ``swa`` blocks (with every MLP kind or an MoE), the RG-LRU
+``rec`` block and the Mamba-2 ``ssm`` block, each with its full-sequence
+forward, its cache and its one-token decode.
 
-The RG-LRU (``rec``) and Mamba-2 (``ssm``) blocks and MoE MLPs raise
-``NotImplementedError``: they come with ROADMAP queue 1, item 2.3.
+Decode writes each cache in place, the KV row
+(``nn.attention.decode_attention``) and the ``rec``/``ssm`` states
+alike, where the reference returns new caches:
+``DecoderModel.decode_step`` keeps the caches it was given.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import DeviceLike
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, SSMArch
 from repro_torch.nn.attention import (AttentionConfig, attention,
                                      attention_init, decode_attention,
                                      init_kv_cache)
 from repro_torch.nn.layers import (dense, gelu, gelu_mlp, gelu_mlp_init,
                                    layernorm, layernorm_init, rmsnorm,
                                    rmsnorm_init, swiglu, swiglu_init)
-
-_LATER = ("is not ported yet (ROADMAP queue 1, item 10: MoE, SSM and "
-          "RG-LRU come after the decode path and training)")
+from repro_torch.nn.moe import MoEConfig, moe_apply, moe_init
+from repro_torch.nn.rglru import (RGLRUConfig, rglru_decode_step,
+                                  rglru_forward, rglru_init,
+                                  rglru_init_state)
+from repro_torch.nn.ssm import (SSMConfig, ssm_decode_step, ssm_forward,
+                                ssm_init, ssm_init_state)
 
 
 def attn_config(cfg: ArchConfig, kind: str, *,
@@ -41,6 +47,34 @@ def attn_config(cfg: ArchConfig, kind: str, *,
         skip_masked_blocks=cfg.attn_skip_masked_blocks,
         windowed_decode_gather=cfg.windowed_decode_gather,
         masked_cache_update=cfg.masked_cache_update)
+
+
+def moe_config(cfg: ArchConfig) -> MoEConfig:
+    e = cfg.moe
+    pad = 0
+    if cfg.moe_pad_experts:
+        pad = -(-e.n_experts // 16) * 16   # next multiple of the data axis
+    return MoEConfig(d_model=cfg.d_model, d_ff_expert=cfg.d_ff,
+                     n_experts=e.n_experts, top_k=e.top_k,
+                     n_shared_experts=e.n_shared_experts,
+                     shared_expert_gate=e.shared_expert_gate,
+                     capacity_factor=e.capacity_factor,
+                     group_size=cfg.moe_group_size,
+                     pad_experts_to=pad,
+                     expert_parallel=cfg.moe_expert_parallel,
+                     dispatch_bf16=cfg.moe_dispatch_bf16)
+
+
+def ssm_config(cfg: ArchConfig) -> SSMConfig:
+    s = cfg.ssm or SSMArch()
+    return SSMConfig(d_model=cfg.d_model, d_state=s.d_state,
+                     head_dim=s.head_dim, expand=s.expand,
+                     n_groups=s.n_groups, conv_width=s.conv_width,
+                     chunk=s.chunk)
+
+
+def rglru_config(cfg: ArchConfig) -> RGLRUConfig:
+    return RGLRUConfig(d_model=cfg.d_model, d_rnn=cfg.rnn_width)
 
 
 # ---------------------------------------------------------------------------
@@ -82,59 +116,115 @@ def mlp_apply(cfg: ArchConfig, p, x):
 # block init / apply / decode / cache
 # ---------------------------------------------------------------------------
 
-def _check_kind(cfg: ArchConfig, kind: str) -> None:
-    if kind in ("rec", "ssm"):
-        raise NotImplementedError(f"block kind {kind!r} {_LATER}")
-    if kind not in ("attn", "swa"):
-        raise ValueError(kind)
-    if cfg.moe is not None:
-        raise NotImplementedError(f"MoE MLP of {cfg.arch_id} {_LATER}")
-
-
 def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str, dtype,
                device: DeviceLike = None):
-    _check_kind(cfg, kind)
-    return {
-        "norm1": norm_init(cfg, dtype, device),
-        "attn": attention_init(gen, attn_config(cfg, kind), dtype=dtype,
-                               device=device),
-        "norm2": norm_init(cfg, dtype, device),
-        "mlp": mlp_init(gen, cfg, dtype, device),
-    }
+    if kind in ("attn", "swa"):
+        p = {
+            "norm1": norm_init(cfg, dtype, device),
+            "attn": attention_init(gen, attn_config(cfg, kind), dtype=dtype,
+                                   device=device),
+            "norm2": norm_init(cfg, dtype, device),
+        }
+        if cfg.moe is not None:
+            p["moe"] = moe_init(gen, moe_config(cfg), dtype=dtype,
+                                device=device)
+        else:
+            p["mlp"] = mlp_init(gen, cfg, dtype, device)
+        return p
+    if kind == "rec":
+        return {
+            "norm1": norm_init(cfg, dtype, device),
+            "rglru": rglru_init(gen, rglru_config(cfg), dtype=dtype,
+                                device=device),
+            "norm2": norm_init(cfg, dtype, device),
+            "mlp": mlp_init(gen, cfg, dtype, device),
+        }
+    if kind == "ssm":
+        return {
+            "norm": norm_init(cfg, dtype, device),
+            "ssm": ssm_init(gen, ssm_config(cfg), dtype=dtype, device=device),
+        }
+    raise ValueError(kind)
 
 
 def block_apply(params, cfg: ArchConfig, kind: str, x, *,
                 long_ctx: bool = False):
-    """Full-sequence forward.  Returns (x, aux)."""
-    _check_kind(cfg, kind)
-    acfg = attn_config(cfg, kind, long_ctx=long_ctx)
-    x = x + attention(params["attn"], acfg,
-                      norm_apply(cfg, params["norm1"], x))
-    y = mlp_apply(cfg, params["mlp"], norm_apply(cfg, params["norm2"], x))
-    return x + y, {}
+    """Full-sequence forward.  Returns (x, aux); aux holds the MoE's
+    ``moe_aux_loss`` and ``router_entropy``, else nothing."""
+    aux = {}
+    if kind in ("attn", "swa"):
+        acfg = attn_config(cfg, kind, long_ctx=long_ctx)
+        x = x + attention(params["attn"], acfg,
+                          norm_apply(cfg, params["norm1"], x))
+        h = norm_apply(cfg, params["norm2"], x)
+        if cfg.moe is not None:
+            y, aux = moe_apply(params["moe"], moe_config(cfg), h)
+        else:
+            y = mlp_apply(cfg, params["mlp"], h)
+        return x + y, aux
+    if kind == "rec":
+        x = x + rglru_forward(params["rglru"], rglru_config(cfg),
+                              norm_apply(cfg, params["norm1"], x))
+        y = mlp_apply(cfg, params["mlp"], norm_apply(cfg, params["norm2"], x))
+        return x + y, aux
+    if kind == "ssm":
+        return x + ssm_forward(params["ssm"], ssm_config(cfg),
+                               norm_apply(cfg, params["norm"], x)), aux
+    raise ValueError(kind)
 
 
 def block_init_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                      dtype, device: DeviceLike = None):
-    _check_kind(cfg, kind)
-    return init_kv_cache(attn_config(cfg, kind), batch, max_len, dtype,
-                         device)
+    """A zero cache: the KV cache in ``dtype`` for attention, the f32
+    recurrent state and conv buffer for ``rec`` and ``ssm``."""
+    if kind in ("attn", "swa"):
+        return init_kv_cache(attn_config(cfg, kind), batch, max_len, dtype,
+                             device)
+    if kind == "rec":
+        return rglru_init_state(rglru_config(cfg), batch, torch.float32,
+                                device)
+    if kind == "ssm":
+        return ssm_init_state(ssm_config(cfg), batch, torch.float32, device)
+    raise ValueError(kind)
+
+
+def _write_state(cache, new):
+    """Copy a recurrent block's new state into its cache's own tensors."""
+    for k, t in new.items():
+        cache[k].copy_(t)
+    return cache
 
 
 def block_decode(params, cfg: ArchConfig, kind: str, x, cache, index, *,
                  long_ctx: bool = False):
-    """One-token decode.  Returns (x, cache), the cache written in place
-    (``nn.attention.decode_attention``)."""
-    _check_kind(cfg, kind)
-    acfg = attn_config(cfg, kind, long_ctx=long_ctx)
-    h, cache = decode_attention(params["attn"], acfg,
-                                norm_apply(cfg, params["norm1"], x),
-                                cache, index)
-    x = x + h
-    y = mlp_apply(cfg, params["mlp"], norm_apply(cfg, params["norm2"], x))
-    return x + y, cache
+    """One-token decode.  Returns (x, cache), the cache written in place:
+    the KV row (``nn.attention.decode_attention``), or the ``rec``/``ssm``
+    state and its shifted conv buffer."""
+    if kind in ("attn", "swa"):
+        acfg = attn_config(cfg, kind, long_ctx=long_ctx)
+        h, cache = decode_attention(params["attn"], acfg,
+                                    norm_apply(cfg, params["norm1"], x),
+                                    cache, index)
+        x = x + h
+        hh = norm_apply(cfg, params["norm2"], x)
+        if cfg.moe is not None:
+            y, _ = moe_apply(params["moe"], moe_config(cfg), hh)
+        else:
+            y = mlp_apply(cfg, params["mlp"], hh)
+        return x + y, cache
+    if kind == "rec":
+        h, new = rglru_decode_step(params["rglru"], rglru_config(cfg),
+                                   norm_apply(cfg, params["norm1"], x), cache)
+        x = x + h
+        y = mlp_apply(cfg, params["mlp"], norm_apply(cfg, params["norm2"], x))
+        return x + y, _write_state(cache, new)
+    if kind == "ssm":
+        h, new = ssm_decode_step(params["ssm"], ssm_config(cfg),
+                                 norm_apply(cfg, params["norm"], x), cache)
+        return x + h, _write_state(cache, new)
+    raise ValueError(kind)
 
 
 __all__ = ["attn_config", "block_apply", "block_decode", "block_init",
-           "block_init_cache", "mlp_apply", "mlp_init", "norm_apply",
-           "norm_init"]
+           "block_init_cache", "mlp_apply", "mlp_init", "moe_config",
+           "norm_apply", "norm_init", "rglru_config", "ssm_config"]

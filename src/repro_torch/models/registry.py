@@ -1,11 +1,11 @@
 """--arch <id> -> model instance, as in ``repro.models.registry``, and
 the input shapes' helpers (``text_len``, ``long_ctx``, ``SHAPE_IDS``).
 
-Dense and VLM-backbone configs build a :class:`DecoderModel`.  Audio
-(Whisper), MoE, SSM and hybrid (RG-LRU) families raise
-``NotImplementedError``: they come with ROADMAP queue 1, item 2.3 (and
-Whisper with item 2.4).  ``abstract_params`` and ``input_specs(_for)``,
-the dry-run's allocation-free stand-ins, come with item 2.5.
+Dense, MoE, SSM, hybrid (RG-LRU) and VLM-backbone configs build a
+:class:`DecoderModel`.  Audio (Whisper) raises ``NotImplementedError``:
+it comes with ROADMAP queue 1, item 2.4.  ``abstract_params`` and
+``input_specs(_for)``, the dry-run's allocation-free stand-ins, come with
+item 2.5.
 """
 from __future__ import annotations
 
@@ -13,15 +13,12 @@ from repro_torch.configs import get_config
 from repro_torch.models.config import ArchConfig, ShapeConfig
 from repro_torch.models.transformer import DecoderModel
 
-_NOT_PORTED = ("audio", "moe", "ssm", "hybrid")
-
 
 def build_model(cfg: ArchConfig) -> DecoderModel:
-    if cfg.family in _NOT_PORTED:
-        item = "2.4" if cfg.family == "audio" else "2.3"
+    if cfg.family == "audio":
         raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP queue 1, item {item})")
+            f"{cfg.arch_id}: the audio family is not ported yet (ROADMAP "
+            f"queue 1, item 2.4)")
     return DecoderModel(cfg)
 
 

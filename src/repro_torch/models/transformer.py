@@ -49,11 +49,22 @@ def _unstack(scan) -> list:
     return [tree_map(lambda u: u[s], per_leaf) for s in range(n)]
 
 
-def _stack(trees: list):
-    """Stack a list of same-shaped nested dicts leaf by leaf (axis 0)."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _add(a, b):
+    """a + b where None stands for "no term"."""
+    return b if a is None else a if b is None else a + b
+
+
+def _draw_stacked(draw, n: int):
+    """``n`` trees from ``draw()``, in turn, stacked leaf by leaf on a new
+    leading axis: each draw is copied into the stacked leaves and dropped,
+    so the peak is the stack plus one tree."""
+    first = draw()
+    out = tree_map(lambda t: t.new_empty((n,) + t.shape), first)
+    tree_map(lambda o, t: o[0].copy_(t), out, first)
+    del first
+    for i in range(1, n):
+        tree_map(lambda o, t: o[i].copy_(t), out, draw())
+    return out
 
 
 class DecoderModel:
@@ -66,7 +77,8 @@ class DecoderModel:
     # ------------------------------------------------------------------ init
     def init(self, gen: torch.Generator, device: DeviceLike = None) -> Any:
         """Random parameters drawn in turn from ``gen``, each tensor moved
-        to ``device`` (CUDA by default) as soon as it is drawn."""
+        to ``device`` (CUDA by default) as soon as it is drawn; each
+        super-block is copied into the stacked leaves as it is drawn."""
         cfg = self.cfg
         dtype = cfg.torch_dtype
         dev = resolve_device(device)
@@ -78,8 +90,7 @@ class DecoderModel:
         params = {"embed": embedding_init(gen, cfg.vocab, cfg.d_model,
                                           dtype=dtype, device=dev)}
         if self.n_pattern > 0:
-            params["scan"] = _stack([seg_init()
-                                     for _ in range(self.n_pattern)])
+            params["scan"] = _draw_stacked(seg_init, self.n_pattern)
         for i, kind in enumerate(self.remainder):
             params[f"rem{i}_{kind}"] = block_init(gen, cfg, kind, dtype, dev)
         params["final_norm"] = norm_init(cfg, dtype, dev)
@@ -98,23 +109,30 @@ class DecoderModel:
         return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
     def _super_apply(self, seg, x, long_ctx: bool):
-        """One super-block (one repetition of ``cfg.pattern``)."""
+        """One super-block (one repetition of ``cfg.pattern``).  Returns
+        (x, the sum of its blocks' MoE auxiliary losses, None without an
+        MoE block)."""
+        aux = None
         for i, kind in enumerate(self.pattern):
-            x, _ = block_apply(seg[_seg_key(i, kind)], self.cfg, kind, x,
+            x, a = block_apply(seg[_seg_key(i, kind)], self.cfg, kind, x,
                                long_ctx=long_ctx)
-        return x
+            aux = _add(aux, a.get("moe_aux_loss"))
+        return x, aux
 
     def _segments(self, x, scan, long_ctx: bool, remat: bool = False):
         """Run every stacked super-block of ``scan`` in order.  With
         ``remat`` each super-block is a ``torch.utils.checkpoint`` region
-        (its activations recomputed in the backward pass)."""
+        (its activations recomputed in the backward pass).  Returns (x,
+        the MoE auxiliary loss summed over the super-blocks, or None)."""
+        aux = None
         for seg in _unstack(scan):
             if remat:
-                x = checkpoint(self._super_apply, seg, x, long_ctx,
-                               use_reentrant=False)
+                x, a = checkpoint(self._super_apply, seg, x, long_ctx,
+                                  use_reentrant=False)
             else:
-                x = self._super_apply(seg, x, long_ctx)
-        return x
+                x, a = self._super_apply(seg, x, long_ctx)
+            aux = _add(aux, a)
+        return x, aux
 
     def _head(self, params, x):
         x = norm_apply(self.cfg, params["final_norm"], x)
@@ -132,14 +150,16 @@ class DecoderModel:
                 long_ctx: bool = False, remat: bool = False):
         """Full-sequence forward.  Returns (logits, aux)."""
         x = self._embed_inputs(params, tokens, frontend_embeds)
+        aux = None
         if self.n_pattern > 0:
-            x = self._segments(x, params["scan"], long_ctx, remat)
+            x, aux = self._segments(x, params["scan"], long_ctx, remat)
         for i, kind in enumerate(self.remainder):
-            x, _ = block_apply(params[f"rem{i}_{kind}"], self.cfg, kind, x,
+            x, a = block_apply(params[f"rem{i}_{kind}"], self.cfg, kind, x,
                                long_ctx=long_ctx)
+            aux = _add(aux, a.get("moe_aux_loss"))
         logits = self._softcap(self._head(params, x))
-        # no MoE block is ported, so the auxiliary loss is zero
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if aux is None:     # no MoE block
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return logits, {"moe_aux_loss": aux}
 
     # ------------------------------------------------------------------ loss
@@ -184,13 +204,13 @@ class DecoderModel:
                      long_ctx: bool = False):
         """Embed + the first n_edge super-blocks -> boundary hidden."""
         x = self._embed_inputs(params, tokens, frontend_embeds)
-        return self._segments(x, params["scan"], long_ctx)
+        return self._segments(x, params["scan"], long_ctx)[0]
 
     def server_forward(self, params, hidden, *, long_ctx: bool = False):
         """Remaining super-blocks + remainder + head <- boundary hidden.
         As in the reference, no logit softcap is applied here."""
         x = hidden.to(self.cfg.torch_dtype)
-        x = self._segments(x, params["scan"], long_ctx)
+        x = self._segments(x, params["scan"], long_ctx)[0]
         for i, kind in enumerate(self.remainder):
             x, _ = block_apply(params[f"rem{i}_{kind}"], self.cfg, kind, x,
                                long_ctx=long_ctx)
@@ -223,8 +243,9 @@ class DecoderModel:
         """token: (B, 1) integer; index: the position, a Python int or a
         0-d integer tensor (keep it on the device to spare a copy a step).
         Returns (logits (B, 1, V), caches): inference, without autograd;
-        every layer writes its K/V row into ``caches`` in place
-        (``nn.attention.decode_attention``)."""
+        every layer writes ``caches`` in place, its K/V row
+        (``nn.attention.decode_attention``) or its recurrent state and conv
+        buffer (``models.blocks.block_decode``)."""
         cfg = self.cfg
         x = embed(params["embed"], token)
         index = torch.as_tensor(index, device=x.device)

@@ -24,7 +24,7 @@ def normal_init(stddev: float = 0.02) -> Initializer:
 
     def init(gen, shape, dtype=torch.float32):
         x = torch.randn(shape, generator=gen, device=gen.device)
-        return (x * stddev).to(dtype)
+        return x.mul_(stddev).to(dtype)
 
     return init
 
@@ -36,7 +36,7 @@ def fan_in_init(scale: float = 1.0, fan_axis: int = 0) -> Initializer:
         fan_in = shape[fan_axis] if shape else 1
         std = scale / math.sqrt(max(fan_in, 1))
         x = torch.randn(shape, generator=gen, device=gen.device)
-        return (x * std).to(dtype)
+        return x.mul_(std).to(dtype)   # in place: one f32 copy at a time
 
     return init
 

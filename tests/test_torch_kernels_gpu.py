@@ -725,3 +725,56 @@ def test_lm_decode_and_train_step_on_card(cuda):
     for n in ("wq", "wk", "wv"):
         g = named[f"scan/b0_attn/attn/{n}/kernel"]
         assert (g.abs().flatten(1).amax(1) > 0).all()
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-130m",
+                                  "recurrentgemma-9b"])
+def test_lm_families_on_card(cuda, arch):
+    """Each family's reduced f32 config, card against CPU: forward logits
+    and 16 decode steps within 1e-5 of their largest, the MoE's expert
+    indices equal and its auxiliary loss within 1e-6, and a step's
+    gradients within 1e-5 of each leaf's largest, all finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import DecoderModel
+    from repro_torch.nn.module import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.nn.moe import moe_apply
+    cfg = get_config(arch).reduced()
+    model = DecoderModel(cfg)
+    p_cpu = model.init(torch.Generator().manual_seed(6), device="cpu")
+    p_gpu = tree_map(lambda t: t.to(cuda), p_cpu)
+    tok = torch.randint(3, cfg.vocab, (2, 32),
+                        generator=torch.Generator().manual_seed(7))
+
+    def forward(p, device):
+        moe_apply.trace = []
+        try:
+            with torch.no_grad():
+                logits, aux = model.forward(p, tok.to(device))
+            return logits.cpu(), float(aux["moe_aux_loss"]), [
+                r["expert_idx"].cpu() for r in moe_apply.trace]
+        finally:
+            moe_apply.trace = None
+
+    def decode(p, device):
+        c = model.init_cache(2, 16, torch.float32, device=device)
+        return torch.cat([model.decode_step(p, tok[:, t:t + 1].to(device),
+                                            c, t)[0] for t in range(16)],
+                         1).cpu()
+
+    def grads(p, device):
+        leaves = [x.detach().requires_grad_() for x in tree_leaves(p)]
+        loss, _ = model.loss(tree_unflatten(p, leaves),
+                             {"tokens": tok.to(device)})
+        return [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+
+    (lg, aux_g, idx_g), (lc, aux_c, idx_c) = forward(p_gpu, cuda), \
+        forward(p_cpu, "cpu")
+    assert (lg - lc).abs().max() <= 1e-5 * lc.abs().max()
+    assert abs(aux_g - aux_c) <= 1e-6
+    assert len(idx_g) == len(idx_c) == (2 if cfg.moe else 0)
+    assert all(torch.equal(a, b) for a, b in zip(idx_g, idx_c))
+    dg, dc = decode(p_gpu, cuda), decode(p_cpu, "cpu")
+    assert (dg - dc).abs().max() <= 1e-5 * dc.abs().max()
+    for a, b in zip(grads(p_gpu, cuda), grads(p_cpu, "cpu")):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()

@@ -148,7 +148,7 @@ def test_forward_is_unchanged_by_unbinding_the_segments(qwen3):
     x = model._embed_inputs(tp, tokens, None)
     for s in range(cfg.n_pattern):
         seg = tree_map(lambda t: t[s], tp["scan"])
-        x = model._super_apply(seg, x, False)
+        x, _ = model._super_apply(seg, x, False)
     want = model._head(tp, x)
     got, _ = model.forward(tp, tokens)
     assert torch.equal(got, want)
