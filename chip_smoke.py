@@ -57,7 +57,8 @@ one split decision each (the float32 codec's split bit for bit the
 monolith), a 128-token prompt decoded into a bf16 cache against the
 forward and 32 greedy tokens, each family's reduced config card against
 CPU, K5 held at the MoE's shape, and ``launch.train --arch mamba2-130m
---full`` for 4 steps with one step's gradients held against the CPU.
+--full`` for 24 steps, past its 20-step warmup, until the loss falls,
+with one step's gradients held against the CPU.
 Each path runs with every launch count set to 0 just before it and read
 just after; the actions are checked against the eager ``xla`` build of
 the same manifest, and the LM's logits against its monolith and against
@@ -1601,9 +1602,10 @@ def families_phase(dev, gen, reset_counts, counts):
     (c) each family's
     2-layer f32 ``reduced()`` config card against CPU; (d) K5 held at the
     MoE's shape, (1,16/16,128,128) bf16 views, against its plain version;
-    (e) ``launch.train --arch mamba2-130m --full`` for 4 steps at batch 4 x
-    256, and one step's gradients card against CPU at 2 full-width f32
-    layers.  Returns the ``{"families": ...}`` dict."""
+    (e) ``launch.train --arch mamba2-130m --full`` for 24 steps at batch 4 x
+    256 (past the 20-step warmup; it must exit 0, the loss fallen), and
+    one step's gradients card against CPU at 2 full-width f32 layers.
+    Returns the ``{"families": ...}`` dict."""
     import gc
     import math
     import torch
@@ -1615,12 +1617,12 @@ def families_phase(dev, gen, reset_counts, counts):
     from repro_torch.kernels.ref import attention_ref
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
+    from repro_torch.models import blocks
     from repro_torch.models.registry import get_model
     from repro_torch.models.transformer import DecoderModel
     from repro_torch.nn.module import (param_bytes, param_count,
                                        tree_leaves, tree_map, tree_paths,
                                        tree_unflatten)
-    from repro_torch.nn.moe import moe_apply
 
     t_phase = time.perf_counter()
     fam = {}
@@ -1630,13 +1632,19 @@ def families_phase(dev, gen, reset_counts, counts):
         return (a.float() - b.float()).abs().max().item()
 
     def routed(fn):
-        """``fn()``'s result and each MoE call's routing record."""
-        moe_apply.trace = []
+        """``fn()``'s result and each MoE call's aux, its routing in it."""
+        inner, records = blocks.moe_apply, []
+
+        def recording(*args, **kwargs):
+            y, aux = inner(*args, **kwargs)
+            records.append(aux)
+            return y, aux
+
+        blocks.moe_apply = recording
         try:
-            out = fn()
-            return out, moe_apply.trace
+            return fn(), records
         finally:
-            moe_apply.trace = None
+            blocks.moe_apply = inner
 
     def ample(cfg):
         """The config at a capacity that drops nothing (C = G)."""
@@ -1967,7 +1975,7 @@ def families_phase(dev, gen, reset_counts, counts):
     # ---- (e) mamba2-130m training -------------------------------------------
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    argv = ["--full", "--arch", "mamba2-130m", "--steps", "4", "--batch",
+    argv = ["--full", "--arch", "mamba2-130m", "--steps", "24", "--batch",
             "4", "--seq", "256", "--device", "cuda"]
     rep = {}
     reset_counts()
@@ -2016,8 +2024,9 @@ def families_phase(dev, gen, reset_counts, counts):
           f"{float(l_g):.6f} vs {float(l_c):.6f}; gradients finite "
           f"{finite}, worst {g_errs[worst]:.3g} of its leaf's largest "
           f"({worst}; tol {FAM_GRAD_TOL})")
-    check(all(math.isfinite(x) for x in losses), f"mamba2-130m training "
-          f"losses {losses}")
+    check(rc_train == 0 and all(math.isfinite(x) for x in losses),
+          f"mamba2-130m launch.train --full exited {rc_train} with losses "
+          f"{losses}")
     check(finite and g_errs[worst] <= FAM_GRAD_TOL,
           f"mamba2-130m step card vs CPU: gradients finite {finite}, worst "
           f"{g_errs[worst]} ({worst})")

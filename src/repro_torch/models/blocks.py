@@ -150,7 +150,7 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str, dtype,
 def block_apply(params, cfg: ArchConfig, kind: str, x, *,
                 long_ctx: bool = False):
     """Full-sequence forward.  Returns (x, aux); aux holds the MoE's
-    ``moe_aux_loss`` and ``router_entropy``, else nothing."""
+    ``moe_aux_loss``, ``router_entropy`` and routing, else nothing."""
     aux = {}
     if kind in ("attn", "swa"):
         acfg = attn_config(cfg, kind, long_ctx=long_ctx)

@@ -99,7 +99,8 @@ def _experts(p, x):
 
 def moe_apply(params, cfg: MoEConfig, x, *, deterministic: bool = True,
               gen: Optional[torch.Generator] = None):
-    """x: (B, S, D) -> (y, aux), aux = {"moe_aux_loss", "router_entropy"}.
+    """x: (B, S, D) -> (y, aux), aux = {"moe_aux_loss", "router_entropy",
+    "expert_idx", "keep", "probs"}.
 
     Routing is the reference's: an f32 router, top-k of its softmax with
     the gate values renormalised, and each (token, k) pair's place in its
@@ -107,9 +108,9 @@ def moe_apply(params, cfg: MoEConfig, x, *, deterministic: bool = True,
     (G·K) pairs; a pair at place C or beyond is dropped.  Dispatch and
     combine carry no gradient (the reference's ``stop_gradient``): the
     router learns through the gate values only.  ``gen`` draws the router
-    jitter when ``deterministic`` is False.  While ``moe_apply.trace`` is a
-    list, each call appends its ``expert_idx`` (n, G, K), ``keep`` (n, G,
-    K) and ``probs``.
+    jitter when ``deterministic`` is False.  The routing comes back in aux,
+    detached: ``expert_idx`` (n, G, K), ``keep`` (n, G, K), whether each
+    pair found a slot, and ``probs`` (n, G, E).
     """
     B, S, D = x.shape
     T = B * S
@@ -149,10 +150,6 @@ def moe_apply(params, cfg: MoEConfig, x, *, deterministic: bool = True,
     disp = (onehot[..., None] * pos_oh[..., None, :]).detach()  # (n,G,K,E,C)
     dispatch = disp.sum(2)                                    # (n,G,E,C)
     combine = (disp * gate_vals[..., None, None].to(ddt)).sum(2)
-    if moe_apply.trace is not None:
-        moe_apply.trace.append({"expert_idx": expert_idx.detach(),
-                                "keep": keep.any(-1), "probs":
-                                    probs.detach()})
 
     expert_in = torch.einsum("ngec,ngd->necd", dispatch,
                              xt.to(ddt)).to(x.dtype)
@@ -175,10 +172,10 @@ def moe_apply(params, cfg: MoEConfig, x, *, deterministic: bool = True,
     aux_loss = cfg.n_experts * torch.sum(frac_tokens * frac_probs)
     entropy = -torch.mean(torch.sum(probs * torch.log(probs + 1e-9), -1))
     return y.reshape(B, S, D), {"moe_aux_loss": aux_loss,
-                                "router_entropy": entropy}
-
-
-moe_apply.trace = None
+                                "router_entropy": entropy,
+                                "expert_idx": expert_idx.detach(),
+                                "keep": keep.any(-1),
+                                "probs": probs.detach()}
 
 
 __all__ = ["MoEConfig", "moe_apply", "moe_init"]

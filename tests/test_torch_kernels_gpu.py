@@ -729,15 +729,15 @@ def test_lm_decode_and_train_step_on_card(cuda):
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-130m",
                                   "recurrentgemma-9b"])
-def test_lm_families_on_card(cuda, arch):
+def test_lm_families_on_card(cuda, arch, monkeypatch):
     """Each family's reduced f32 config, card against CPU: forward logits
     and 16 decode steps within 1e-5 of their largest, the MoE's expert
     indices equal and its auxiliary loss within 1e-6, and a step's
     gradients within 1e-5 of each leaf's largest, all finite."""
     from repro_torch.configs import get_config
+    from repro_torch.models import blocks
     from repro_torch.models.transformer import DecoderModel
     from repro_torch.nn.module import tree_leaves, tree_map, tree_unflatten
-    from repro_torch.nn.moe import moe_apply
     cfg = get_config(arch).reduced()
     model = DecoderModel(cfg)
     p_cpu = model.init(torch.Generator().manual_seed(6), device="cpu")
@@ -746,14 +746,17 @@ def test_lm_families_on_card(cuda, arch):
                         generator=torch.Generator().manual_seed(7))
 
     def forward(p, device):
-        moe_apply.trace = []
-        try:
-            with torch.no_grad():
-                logits, aux = model.forward(p, tok.to(device))
-            return logits.cpu(), float(aux["moe_aux_loss"]), [
-                r["expert_idx"].cpu() for r in moe_apply.trace]
-        finally:
-            moe_apply.trace = None
+        routing, inner = [], blocks.moe_apply
+
+        def recording(*args, **kwargs):
+            y, aux = inner(*args, **kwargs)
+            routing.append(aux["expert_idx"].cpu())
+            return y, aux
+
+        with monkeypatch.context() as m, torch.no_grad():
+            m.setattr(blocks, "moe_apply", recording)
+            logits, aux = model.forward(p, tok.to(device))
+        return logits.cpu(), float(aux["moe_aux_loss"]), routing
 
     def decode(p, device):
         c = model.init_cache(2, 16, torch.float32, device=device)

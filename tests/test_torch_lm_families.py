@@ -8,11 +8,12 @@ parameters converted with ``params_from_jax``; tokens from numpy with a
 seed.  Tolerances, each relative to the largest magnitude of the
 reference's values: forward logits, the loss and ``moe_aux_loss`` 1e-5;
 gradients 1e-5 of each leaf's largest (the SSD's ``A_log`` against the
-port's float64 evaluation, see the test); 16 decode steps against the
-reference's jitted ``decode_step`` 1e-5 in the logits and the recurrent
-states; decode against the port's own forward at the reference's 2e-2
-(``tests/test_models.py``), the MoE at a capacity that drops nothing;
-the split against the monolith with the f32 codec bit for bit.
+reference's float64 evaluation, and 5e-5 against its f32 one, see the
+test); 16 decode steps against the reference's jitted ``decode_step``
+1e-5 in the logits and the recurrent states; decode against the port's
+own forward at the reference's 2e-2 (``tests/test_models.py``), the MoE
+at a capacity that drops nothing; the split against the monolith with the
+f32 codec bit for bit.
 """
 import dataclasses
 
@@ -32,8 +33,7 @@ from repro_torch.core.wire import get_codec
 from repro_torch.launch import serve as t_serve
 from repro_torch.models.registry import get_model
 from repro_torch.models.transformer import DecoderModel
-from repro_torch.nn.module import (cast_tree, tree_leaves, tree_paths,
-                                   tree_unflatten)
+from repro_torch.nn.module import tree_leaves, tree_paths, tree_unflatten
 
 torch.set_num_threads(1)
 
@@ -91,36 +91,50 @@ def _grads(model, params, tok):
     return loss, aux, torch.autograd.grad(loss, leaves)
 
 
+A_LOG_VS_F32 = 5e-5
+
+
 @pytest.mark.parametrize("arch", ARCHS)
-def test_loss_and_gradients_match(arch, monkeypatch):
+def test_loss_and_gradients_match(arch):
     """Every gradient against ``jax.value_and_grad``'s, but the SSD's
     ``A_log``: the reference's segment sums are differences of one
-    cumulative sum, which cancel and leave its own ``A_log`` gradient
-    more than 1e-5 from the same loss evaluated in float64.  The port sums each
-    segment on its own (``nn.ssm._segsum``), so that leaf is held against
-    the port's code run in float64 (every f32 upcast made an f64 one);
-    the test prints both packages' distance from it."""
+    cumulative sum, which cancel and leave its own f32 ``A_log`` gradient
+    1.7e-5 of the leaf's largest from its float64 evaluation.  The port
+    sums each segment on its own (``nn.ssm._segsum``), so that leaf is
+    held at 1e-5 against the reference's loss differentiated under
+    ``jax.enable_x64`` on float64 parameters (the segment sums then run in
+    float64), and at ``A_LOG_VS_F32`` against the reference's f32
+    gradient; the test prints both packages' distances."""
     cfg, model, tp, jmodel, jp = _models(arch)
     tok = _tokens((2, 16), cfg.vocab, seed=2)
-    (jl, jaux), jg = jax.value_and_grad(
-        lambda p: jmodel.loss(p, {"tokens": jnp.asarray(tok)}, remat=False),
-        has_aux=True)(jp)
+
+    def ref_grads(p):
+        return jax.value_and_grad(
+            lambda p: jmodel.loss(p, {"tokens": jnp.asarray(tok)},
+                                  remat=False), has_aux=True)(p)
+
+    (jl, jaux), jg = ref_grads(jp)
     loss, aux, grads = _grads(model, tp, tok)
     _close(loss, jl)
     _close(aux["moe_aux_loss"], jaux["moe_aux_loss"])
     want = {n: w for (n, _), w in zip(tree_paths(tp), jax.tree.leaves(jg))}
     if cfg.ssm is not None:
-        with monkeypatch.context() as m:
-            m.setattr(torch.Tensor, "float", torch.Tensor.double)
-            _, _, g64 = _grads(model, cast_tree(tp, torch.float64), tok)
-        for (n, _), g, own in zip(tree_paths(tp), g64, grads):
+        with jax.enable_x64(True):
+            _, jg64 = ref_grads(jax.tree.map(
+                lambda a: a.astype(jnp.float64), jp))
+            want64 = {n: np.asarray(w) for (n, _), w in
+                      zip(tree_paths(tp), jax.tree.leaves(jg64))}
+        for (n, _), g in zip(tree_paths(tp), grads):
             if n.endswith("A_log"):
-                ref = torch.from_numpy(np.array(want[n])).double()
-                scale = float(g.abs().max())
-                print(f"{n} gradient, relative to float64: port "
-                      f"{float((own.double() - g).abs().max()) / scale:.3g},"
-                      f" reference {float((ref - g).abs().max()) / scale:.3g}")
-                want[n] = g
+                w64 = want64[n]
+                assert w64.dtype == np.float64
+                scale = float(np.abs(w64).max())
+                port = float(np.abs(g.numpy() - w64).max()) / scale
+                ref = float(np.abs(np.asarray(want[n]) - w64).max()) / scale
+                print(f"{n} gradient, relative to the reference in float64:"
+                      f" port {port:.3g}, reference f32 {ref:.3g}")
+                _close(g, want[n], A_LOG_VS_F32)
+                want[n] = w64
     for (n, _), g in zip(tree_paths(tp), grads):
         assert torch.isfinite(g).all()
         _close(g, want[n])

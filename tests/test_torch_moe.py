@@ -69,16 +69,6 @@ def _ref_routing(jp, jcfg, x):
     return np.asarray(idx), np.asarray(keep), np.asarray(probs)
 
 
-def _apply_traced(tp, cfg, x):
-    moe_apply.trace = []
-    try:
-        y, aux = moe_apply(tp, cfg, torch.from_numpy(x))
-        (rec,) = moe_apply.trace
-    finally:
-        moe_apply.trace = None
-    return y, aux, rec
-
-
 def _min_margin(probs, K):
     """Smallest gap between the k-th and the (k+1)-th probability."""
     s = -np.sort(-probs, -1)
@@ -93,12 +83,12 @@ def _min_margin(probs, K):
 def test_apply_matches_the_reference(case):
     jcfg, cfg, jp, tp, x = _setup(seed=1, capacity_factor=8.0, **case)
     assert cfg.n_experts_padded == jcfg.n_experts_padded
-    y, aux, rec = _apply_traced(tp, cfg, x)
+    y, aux = moe_apply(tp, cfg, torch.from_numpy(x))
     jy, jaux = j_moe_apply(jp, jcfg, jnp.asarray(x))
     idx, keep, probs = _ref_routing(jp, jcfg, x)
     assert _min_margin(probs, cfg.top_k) > 1e-5
-    np.testing.assert_array_equal(rec["expert_idx"].numpy(), idx)
-    np.testing.assert_array_equal(rec["keep"].numpy(), keep)
+    np.testing.assert_array_equal(aux["expert_idx"].numpy(), idx)
+    np.testing.assert_array_equal(aux["keep"].numpy(), keep)
     assert keep.all()
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=TOL, rtol=TOL)
     for k in ("moe_aux_loss", "router_entropy"):
@@ -106,8 +96,8 @@ def test_apply_matches_the_reference(case):
         np.testing.assert_allclose(float(aux[k]), float(jaux[k]), atol=TOL,
                                    rtol=TOL)
     if cfg.n_experts_padded > cfg.n_experts:
-        assert (rec["expert_idx"] < cfg.n_experts).all()
-        assert float(rec["probs"][..., cfg.n_experts:].abs().max()) == 0.0
+        assert (aux["expert_idx"] < cfg.n_experts).all()
+        assert float(aux["probs"][..., cfg.n_experts:].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("cf,top_k", [(0.5, 2), (0.25, 1), (1.0, 2)])
@@ -115,13 +105,13 @@ def test_binding_capacity_drops_the_same_pairs(cf, top_k):
     jcfg, cfg, jp, tp, x = _setup(seed=2, shape=(1, 64), capacity_factor=cf,
                                   top_k=top_k, group_size=32,
                                   n_shared_experts=1)
-    y, aux, rec = _apply_traced(tp, cfg, x)
+    y, aux = moe_apply(tp, cfg, torch.from_numpy(x))
     jy, jaux = j_moe_apply(jp, jcfg, jnp.asarray(x))
     idx, keep, probs = _ref_routing(jp, jcfg, x)
     assert _min_margin(probs, top_k) > 1e-5
     assert not keep.all(), "capacity did not bind"
-    np.testing.assert_array_equal(rec["expert_idx"].numpy(), idx)
-    np.testing.assert_array_equal(rec["keep"].numpy(), keep)
+    np.testing.assert_array_equal(aux["expert_idx"].numpy(), idx)
+    np.testing.assert_array_equal(aux["keep"].numpy(), keep)
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=TOL, rtol=TOL)
     np.testing.assert_allclose(float(aux["moe_aux_loss"]),
                                float(jaux["moe_aux_loss"]), atol=TOL,
@@ -136,9 +126,9 @@ def test_a_dropped_pair_takes_no_slot():
     tp["router"]["kernel"].zero_()
     tp["router"]["kernel"][:, 2] = 1.0
     x = np.abs(x)                       # every token prefers expert 2
-    y, _, rec = _apply_traced(tp, cfg, x)
+    y, aux = moe_apply(tp, cfg, torch.from_numpy(x))
     assert _capacity(cfg, 8) == 1
-    np.testing.assert_array_equal(rec["keep"][0, :, 0].numpy(),
+    np.testing.assert_array_equal(aux["keep"][0, :, 0].numpy(),
                                   [True] + [False] * 7)
     assert float(y[0, 1:].abs().max()) == 0.0 and float(y[0, 0].abs().max()) > 0
 
@@ -192,17 +182,12 @@ def test_bf16_activations_route_through_an_f32_router():
     tp16 = params_from_jax(jp16, device="cpu")
     assert tp16["router"]["kernel"].dtype == torch.float32
     x16 = jnp.asarray(x).astype(jnp.bfloat16)
-    moe_apply.trace = []
-    try:
-        y, _ = moe_apply(tp16, cfg, torch.from_numpy(
-            np.array(x16.astype(jnp.float32))).to(torch.bfloat16))
-        (rec,) = moe_apply.trace
-    finally:
-        moe_apply.trace = None
+    y, aux = moe_apply(tp16, cfg, torch.from_numpy(
+        np.array(x16.astype(jnp.float32))).to(torch.bfloat16))
     jy, _ = j_moe_apply(jp16, jcfg, x16)
     idx, _, _ = _ref_routing(jp16, jcfg, np.asarray(
         x16.astype(jnp.float32)))
-    np.testing.assert_array_equal(rec["expert_idx"].numpy(), idx)
+    np.testing.assert_array_equal(aux["expert_idx"].numpy(), idx)
     assert y.dtype == torch.bfloat16
     np.testing.assert_allclose(y.float().numpy(),
                                np.asarray(jy.astype(jnp.float32)),

@@ -3,13 +3,13 @@
 
 Parameters come from the reference's own ``ssm_init`` (converted with
 ``params_from_jax``); inputs from numpy with a seed.  Tolerances: f32
-outputs and states 1e-5 of the largest magnitude of the reference's
-(the two frameworks sum in other orders), and the f32 scan 1e-6 of its
-float64 evaluation at a full 256-step chunk; the decode's rolling conv
-buffers bit for bit (they hold the in-projection's outputs, and at these
-widths both frameworks' matmuls round alike); ``A_log``, ``D`` and
-``dt_bias`` stay f32 in a bf16 layer, whose outputs agree to 5e-2 (a few
-bf16 ulps of outputs of order 1).
+outputs, states and gradients 1e-5 of the largest magnitude of the
+reference's (the two frameworks sum in other orders), and the f32 scan
+1e-6 of the reference's float64 evaluation at a full 256-step chunk; the
+decode's rolling conv buffers bit for bit (they hold the in-projection's
+outputs, and at these widths both frameworks' matmuls round alike);
+``A_log``, ``D`` and ``dt_bias`` stay f32 in a bf16 layer, whose outputs
+agree to 5e-2 (a few bf16 ulps of outputs of order 1).
 """
 import jax
 import jax.numpy as jnp
@@ -72,44 +72,58 @@ def test_ssd_chunked_matches(S, with_h0, groups):
 
 
 def test_ssd_backward_is_finite_and_matches():
-    """The -inf above the diagonal leaves no NaN in the gradients."""
+    """The -inf above the diagonal leaves no NaN in the gradients, and
+    every input's gradient, ``A``'s among them, is within 1e-5 of the
+    reference's f32 gradient and of its float64 one."""
     jcfg, cfg = _cfgs()
     x, dt, A, B, C, D, _ = _ssd_inputs(cfg, 1, 16, seed=3)
 
-    def jloss(x, dt, B, C):
-        return (J.ssd_chunked(jcfg, x, dt, jnp.asarray(A), B, C,
-                              jnp.asarray(D))[0] ** 2).mean()
+    def jgrads(dtype):
+        def jloss(x, dt, A, B, C):
+            return (J.ssd_chunked(jcfg, x, dt, A, B, C,
+                                  jnp.asarray(D, dtype))[0] ** 2).mean()
+        return [np.asarray(g) for g in jax.grad(
+            jloss, argnums=(0, 1, 2, 3, 4))(*[jnp.asarray(a, dtype)
+                                              for a in (x, dt, A, B, C)])]
 
-    jg = jax.grad(jloss, argnums=(0, 1, 2, 3))(*map(jnp.asarray,
-                                                    (x, dt, B, C)))
-    ts = [torch.from_numpy(a).requires_grad_() for a in (x, dt, B, C)]
-    y, _ = T.ssd_chunked(cfg, ts[0], ts[1], torch.from_numpy(A), ts[2],
-                         ts[3], torch.from_numpy(D))
+    jg = jgrads(jnp.float32)
+    with jax.enable_x64(True):
+        jg64 = jgrads(jnp.float64)
+    ts = [torch.from_numpy(a).requires_grad_() for a in (x, dt, A, B, C)]
+    y, _ = T.ssd_chunked(cfg, *ts, torch.from_numpy(D))
     grads = torch.autograd.grad((y ** 2).mean(), ts)
-    for g, w in zip(grads, jg):
+    for g, w, w64 in zip(grads, jg, jg64):
         assert torch.isfinite(g).all()
+        assert w64.dtype == np.float64
         _close(g, w)
+        _close(g, w64)
 
 
 def test_ssd_at_a_full_chunk_matches_float64():
     """At the published 256-step chunk the f32 scan and its gradients stay
-    within 1e-6 of the same scan in float64: each segment sum is summed on
-    its own, not taken as a difference of two long cumulative sums."""
-    _, cfg = _cfgs(chunk=256)
+    within 1e-6 of the reference's scan in float64 (under
+    ``jax.enable_x64``): each segment sum is summed on its own, not taken
+    as a difference of two long cumulative sums."""
+    jcfg, cfg = _cfgs(chunk=256)
     *args, _ = _ssd_inputs(cfg, 1, 256, seed=7)
     args[2] = -np.linspace(1.0, 16.0, cfg.n_heads).astype(np.float32)
 
-    def run(dtype):
-        ts = [torch.tensor(a, dtype=dtype, requires_grad=True)
-              for a in args]
-        y, h = T.ssd_chunked(cfg, *ts)
-        grads = torch.autograd.grad((y ** 2).mean() + (h ** 2).mean(),
-                                    ts[:5])
-        return [t.detach().double() for t in (y, h, *grads)]
+    def jloss(*a):
+        y, h = J.ssd_chunked(jcfg, *a)
+        return (y ** 2).mean() + (h ** 2).mean(), (y, h)
 
-    for got, want in zip(run(torch.float32), run(torch.float64)):
-        assert float((got - want).abs().max()) <= \
-            1e-6 * float(want.abs().max())
+    with jax.enable_x64(True):
+        (_, (y64, h64)), g64 = jax.value_and_grad(
+            jloss, argnums=(0, 1, 2, 3, 4), has_aux=True)(
+                *[jnp.asarray(a, jnp.float64) for a in args])
+        want = [torch.from_numpy(np.array(t)) for t in (y64, h64, *g64)]
+    ts = [torch.tensor(a, requires_grad=True) for a in args]
+    y, h = T.ssd_chunked(cfg, *ts)
+    grads = torch.autograd.grad((y ** 2).mean() + (h ** 2).mean(), ts[:5])
+    for got, w in zip((y, h, *grads), want):
+        assert w.dtype == torch.float64
+        assert float((got.detach().double() - w).abs().max()) <= \
+            1e-6 * float(w.abs().max())
 
 
 @pytest.fixture(scope="module")
