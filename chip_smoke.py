@@ -58,7 +58,17 @@ monolith), a 128-token prompt decoded into a bf16 cache against the
 forward and 32 greedy tokens, each family's reduced config card against
 CPU, K5 held at the MoE's shape, and ``launch.train --arch mamba2-130m
 --full`` for 24 steps, past its 20-step warmup, until the loss falls,
-with one step's gradients held against the CPU.
+with one step's gradients held against the CPU.  Last it runs Whisper's
+encoder-decoder at whisper-medium's full width (``repro_torch.models.
+whisper``): K5 held at the encoder's non-causal (1,16,1500,64) and the
+decoder's ragged (1,16,448,64) shapes, 1,500 stub frames encoded through
+24 K5 launches on the tensor cores, the teacher-forced decoder at 448
+positions (24 more), 32 prompt tokens decoded over the self and cross
+caches against it in bf16 and f32 and 32 greedy tokens twice bit for bit,
+the reduced config card against CPU, ``launch.train --arch
+whisper-medium --full`` for 24 steps, and llava-next-mistral-7b's prefill
+at full width (2,880 stub patch embeddings and 128 text tokens, 32 K5
+launches) with K5 held at its (1,32/8,3008,128) shape.
 Each path runs with every launch count set to 0 just before it and read
 just after; the actions are checked against the eager ``xla`` build of
 the same manifest, and the LM's logits against its monolith and against
@@ -67,7 +77,8 @@ the CPU's plain versions.
 Any failure ends the run with a non-zero exit code and no result line.
 Phase 14 prints its numbers as a ``{"training": ...}`` line, phase 15 as
 a ``{"population": ...}`` line, phase 16 as a ``{"lm": ...}`` line,
-phase 17 as a ``{"families": ...}`` line.
+phase 17 as a ``{"families": ...}`` line, phase 18 as a ``{"whisper":
+...}`` line.
 On success the line before the last is ``{"kernels": [...]}`` (one entry
 per kernel: launches on the served path, error, times and bound), and the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -679,6 +690,12 @@ POP_PROBE_STEPS = 16       # the sync-gated chunk after training
 POP_TRACE_STEPS = 2        # the traced chunk at P=16 (the profiler's own
                            # cost grows with the 12,000 kernels a step of
                            # the exact lanes)
+# Depth past the ring's warmup, in vector steps: (b)'s updates regime and
+# (c)'s engines (8 until phase 18 came), and (d)'s member 0 (16 until
+# then).  (c) traces a chunk after one untraced chunk of its own, so its
+# engines need no longer run.
+POP_UPDATE_STEPS = 4
+POP_NONDET_STEPS = 8
 
 
 def host_ms(fn, reps=5):
@@ -1021,7 +1038,7 @@ def population_phase(dev, card):
     coll = bench_pop.run_grid((1, 4, 16), total_steps=64, n_envs=2,
                               device=dev)
     upd_cfg = DDPGConfig(learning_starts=DDPGConfig().batch_size)
-    upd_steps = upd_cfg.learning_starts + 8 * upd_cfg.n_envs
+    upd_steps = upd_cfg.learning_starts + POP_UPDATE_STEPS * upd_cfg.n_envs
     upd = bench_pop.run_grid((1, 4, 16), total_steps=upd_steps,
                              n_envs=upd_cfg.n_envs, cfg=upd_cfg,
                              regime="updates", device=dev)
@@ -1108,7 +1125,7 @@ def population_phase(dev, card):
     # ---- (d) member 0 without deterministic mode, at a cut depth --------
     t0 = time.perf_counter()
     cfg = DDPGConfig()
-    cut = cfg.learning_starts + 16 * cfg.n_envs
+    cut = cfg.learning_starts + POP_NONDET_STEPS * cfg.n_envs
     spec = pop.PopulationSpec(tasks=("pendulum",), seeds=POP_SEEDS,
                               variants=((), (("lr", 0.0),)), total_steps=cut)
     res = pop.train_population(spec, eval_episodes=0, device=dev)
@@ -2040,6 +2057,508 @@ def families_phase(dev, gen, reset_counts, counts):
     out = {"configs": fam, "k5_moe": k5_moe,
            "seconds": time.perf_counter() - t_phase}
     print(f"families phase: {out['seconds']:.2f} s (target 90 s)")
+    return out
+
+
+# Phase 18: Whisper's encoder-decoder and llava's prefill at full width.
+# Tolerances: K5 at the new shapes against its plain version as in phase 8
+# (ATTN_TOL); Whisper's decode against its teacher-forced decoder by phase
+# 16's rule (f32 within LM_DECODE_TOL; bf16 within LM_BF16_FLOOR times the
+# bf16 decoder's own distance from the f32 one); the reduced config card
+# against CPU as in phase 17 (FAM_CPU_TOL of the largest; a step's
+# gradients FAM_GRAD_TOL of each leaf's largest, the key biases', zero in
+# exact arithmetic, below FAM_GRAD_TOL of the largest of all leaves).
+WHISPER_PROMPT = 32     # decoder positions decoded one at a time
+WHISPER_NEW = 32        # greedy tokens after them, twice
+WHISPER_K5 = 24         # K5 launches an encode, and a decoder pass
+LLAVA_TEXT = 128        # text tokens after llava's 2,880 patch tokens
+LLAVA_K5 = 32           # K5 launches a llava prefill
+
+
+def whisper_phase(dev, gen, reset_counts, counts):
+    """Phase 18: the audio family and the VLM prefill at full width.  (a)
+    K5 at Whisper's shapes, (1,16,1500,64) non-causal and (1,16,448,64)
+    causal, as (B,S,H,D) views in f32 and bf16, against its plain version,
+    timed beside ``scaled_dot_product_attention``; (b) whisper-medium from
+    seed 0, bf16 on the card: 1,500 stub frames encoded (24 K5 launches on
+    the tensor cores, no copy), the teacher-forced decoder at its 448
+    positions (24 more), the cross cache, 32 prompt tokens decoded one at
+    a time against the decoder's logits in bf16 and in f32, then 32 greedy
+    tokens twice, bitwise; (c) the reduced config card against CPU; (d)
+    ``launch.train --arch whisper-medium --full`` for 24 steps from (b)'s
+    parameters (past the 20-step warmup; it must exit 0, the loss fallen)
+    and a step's gradients card against CPU at reduced size; (e)
+    llava-next-mistral-7b's prefill at full width, 2,880 stub patch
+    embeddings and 128 text tokens (32 K5 launches), and K5 held at its
+    (1,32/8,3008,128) shape.  Returns the ``{"whisper": ...}`` dict."""
+    import gc
+    import math
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.benchmarks.lm_split import trace_decision
+    from repro_torch.configs import get_config
+    from repro_torch.data import frontend_batches
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.whisper import WhisperModel
+    from repro_torch.nn.attention import flash_blocks
+    from repro_torch.nn.module import (cast_tree, param_bytes, param_count,
+                                       tree_leaves, tree_map, tree_paths,
+                                       tree_unflatten)
+
+    t_phase = time.perf_counter()
+    out = {"k5": {}}
+
+    def max_err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    def k5_counts():
+        return (counts(), flash_attention.tc_launches, flash_attention.copies)
+
+    # ---- (a) K5 at Whisper's shapes ----------------------------------------
+    def k5_case(label, H, H_kv, S, D, dt, causal, seed, iters):
+        q, k, v = (torch.randn((1, S, n, D), generator=gen(seed + i))
+                   .to(dev, dt).transpose(1, 2)
+                   for i, n in enumerate((H, H_kv, H_kv)))
+        n_rep = H // H_kv
+        kr, vr = k.repeat_interleave(n_rep, 1), v.repeat_interleave(n_rep, 1)
+        blk = flash_blocks(S)
+
+        def run():
+            return flash_attention(q, k, v, causal=causal, block_q=blk,
+                                   block_k=blk)
+        reset_counts()
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        launched = k5_counts()
+        want = attention_ref(q.float(), kr.float(), vr.float(),
+                             causal=causal)
+        name = str(dt).removeprefix("torch.")
+        tol = ATTN_TOL[name]
+        err = max_err(got, want)
+        tc = dt == torch.bfloat16
+        check(launched == ((0, 0, 0, 0, 2), 2 * tc, 0),
+              f"K5 {label}: launches, tensor-core launches, copies "
+              f"{launched}; expected ((0, 0, 0, 0, 2), {2 * tc}, 0)")
+        check(got.dtype == dt and got.shape == q.shape
+              and torch.isfinite(got.float()).all()
+              and torch.allclose(got.float(), want, atol=tol, rtol=tol),
+              f"K5 {label}: differs from plain by {err} (tol {tol})")
+        check(torch.equal(got, again), f"K5 {label}: two runs differ")
+        ms_reps = [cuda_ms(run, iters=iters) for _ in range(5)]
+        ms = median(ms_reps)
+        plain_ms = cuda_ms(lambda: attention_ref(q, kr, vr, causal=causal),
+                           iters=iters)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=n_rep > 1), iters=iters)
+        dev_us = kernel_device_us(run, "flash_kernel", calls=iters)
+        dev_us = dev_us and dev_us[0]
+        pairs = attention_pairs(S, None) if causal else S * S
+        flops = 4 * D * pairs * H
+        b_ms, b_by = bound(nbytes(q, k, v, got), flops,
+                           PEAK_BF16_FLOP_S if tc else PEAK_FP32_FLOP_S)
+        t_ms = ms if dev_us is None else dev_us / 1e3
+        print(f"K5 flash_attention {label} (1,{H}/{H_kv} heads,{S},{D}) "
+              f"{name} {'causal' if causal else 'non-causal'} as (B,S,H,D) "
+              f"views, blocks {blk}, {'tensor' if tc else 'CUDA'}-core "
+              f"route: max_abs_err {err:.3g} (tol {tol}, vs plain in f32), "
+              f"repeats bit for bit; kernel {ms:.4f} ms (device "
+              + ("not measured" if dev_us is None else f"{dev_us:.2f} us")
+              + " a launch, traced; median of "
+              + "/".join(f"{t:.4f}" for t in ms_reps)
+              + f"), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+              f"(scaled_dot_product_attention), bound {b_ms:.5f} ms ({b_by}, "
+              f"{flops / 1e9:.4g} GFLOP); {flops / t_ms / 1e9:.1f} TFLOP/s, "
+              f"{100 * b_ms / t_ms:.2f}% of the bound")
+        out["k5"][label] = dict(
+            shape=[1, H, S, D], kv_heads=H_kv, dtype=name, causal=causal,
+            views=True, max_abs_err=err, ms=ms, ms_reps=ms_reps,
+            device_us=dev_us, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by, tflops=flops / t_ms / 1e9,
+            bound_share=b_ms / t_ms, tensor_cores=tc)
+
+    for idx, (label, S, dt, causal, iters) in enumerate((
+            ("whisper encoder", 1500, torch.bfloat16, False, 20),
+            ("whisper encoder f32", 1500, torch.float32, False, 5),
+            ("whisper decoder", 448, torch.bfloat16, True, 50),
+            ("whisper decoder f32", 448, torch.float32, True, 20))):
+        k5_case(label, 16, 16, S, 64, dt, causal, 600 + 3 * idx, iters)
+    torch.cuda.empty_cache()
+
+    # ---- (b) whisper-medium at full width ---------------------------------
+    P, NEW = WHISPER_PROMPT, WHISPER_NEW
+    cfg, model = get_model("whisper-medium")
+    dims = (cfg.n_encoder_layers, cfg.n_layers, cfg.d_model, cfg.n_heads,
+            cfg.head_dim, cfg.n_frontend_tokens)
+    check(isinstance(model, WhisperModel)
+          and cfg == get_config("whisper-medium") and cfg.dtype == "bfloat16"
+          and dims == (24, 24, 1024, 16, 64, 1500),
+          f"not whisper-medium: {cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = serve_cli.init_params(model, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    n_params, w_bytes = param_count(params), param_bytes(params)
+    frames = next(frontend_batches(1, cfg.n_frontend_tokens, cfg.d_model,
+                                   device=dev))
+    tokens = torch.randint(3, cfg.vocab, (1, model.max_target_positions),
+                           generator=gen(13)).to(dev, torch.int32)
+
+    def encode(m, p):
+        with torch.inference_mode():
+            return m.encode(p, frames)
+
+    reset_counts()
+    enc = encode(model, params)
+    torch.cuda.synchronize()
+    enc_counts = k5_counts()
+    reset_counts()
+    with torch.inference_mode():
+        full = model.decode_full(params, tokens, enc)[0]
+    torch.cuda.synchronize()
+    full_counts = k5_counts()
+    want = ((0, 0, 0, 0, WHISPER_K5), WHISPER_K5, 0)
+    check(enc_counts == want and full_counts == want,
+          f"whisper-medium: the encode launched (K1..K5, tensor-core, "
+          f"copies) {enc_counts}, the decoder {full_counts}; expected {want}")
+    check(enc.shape == (1, cfg.n_frontend_tokens, cfg.d_model)
+          and torch.isfinite(enc.float()).all()
+          and full.shape == (1, model.max_target_positions, cfg.vocab)
+          and torch.isfinite(full.float()).all(),
+          f"whisper-medium: bad encoder output {tuple(enc.shape)} or logits "
+          f"{tuple(full.shape)}")
+    encode_ms = cuda_ms(lambda: encode(model, params), iters=5, warmup=1)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        encode(model, params)
+    torch.cuda.synchronize()
+    encode_host_ms = (time.perf_counter() - t0) / 5 * 1e3
+
+    def decode_prompt(m, p, e, dtype):
+        c = m.prefill_cross_cache(p, e, m.init_cache(
+            1, m.max_target_positions, dtype, device=dev))
+        i = torch.zeros((), dtype=torch.int64, device=dev)
+        lgs = []
+        for t in range(P):
+            lg, c = m.decode_step(p, tokens[:, t:t + 1], c, i)
+            i += 1
+            lgs.append(lg)
+        return torch.cat(lgs, 1), c
+
+    reset_counts()
+    dec, caches = decode_prompt(model, params, enc, torch.bfloat16)
+    torch.cuda.synchronize()
+    decode_counts = counts()
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(caches))
+    check(all(t.dtype == torch.bfloat16 for t in tree_leaves(caches)),
+          "whisper-medium: a cache is not bf16")
+    after_prompt = tree_map(lambda t: t.clone(), caches)
+
+    def greedy(c):
+        i = torch.full((), P, dtype=torch.int64, device=dev)
+        tok = dec[:, -1:].argmax(-1).to(torch.int32)
+        toks, lgs = [], []
+        for _ in range(NEW):
+            lg, c = model.decode_step(params, tok, c, i)
+            i += 1
+            toks.append(tok)
+            lgs.append(lg)
+            tok = lg.argmax(-1).to(torch.int32)
+        return torch.cat(toks, 1), torch.cat(lgs, 1), c
+
+    c1 = tree_map(lambda t: t.clone(), after_prompt)
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    toks1, lg1, c1 = greedy(c1)
+    ev1.record()
+    ev1.synchronize()
+    tok_host_ms = (time.perf_counter() - t0) * 1e3 / NEW
+    tok_ev_ms = ev0.elapsed_time(ev1) / NEW
+    toks2, lg2, c2 = greedy(tree_map(lambda t: t.clone(), after_prompt))
+    torch.cuda.synchronize()
+    repeat = (torch.equal(toks1, toks2) and torch.equal(lg1, lg2)
+              and all(torch.equal(a, b) for a, b in
+                      zip(tree_leaves(c1), tree_leaves(c2))))
+    i3 = torch.full((), P, dtype=torch.int64, device=dev)
+    tr = trace_decision(lambda: model.decode_step(params, toks1[:, :1],
+                                                  after_prompt, i3))
+    busy = (None if not tr["kernels"]
+            else tr["busy_ms"] / tr["traced_wall_ms"])
+    tok_bound = (w_bytes + cache_bytes) / PEAK_BYTES_S * 1e3
+    del c1, c2, caches, lg1, lg2
+
+    # the f32 copy (3 GB beside the bf16 parameters), over an f32 self cache
+    # (the cross cache is bf16 whatever the model's dtype)
+    params32 = cast_tree(params, torch.float32)
+    model32 = WhisperModel(dataclasses.replace(cfg, dtype="float32"))
+    enc32 = encode(model32, params32)
+    with torch.inference_mode():
+        full32 = model32.decode_full(params32, tokens, enc32)[0]
+    dec32, _ = decode_prompt(model32, params32, enc32, torch.float32)
+    err32 = max_err(dec32, full32[:, :P])
+    top1_32 = (dec32.argmax(-1) == full32[:, :P].argmax(-1)).float() \
+        .mean().item()
+    err = max_err(dec, full[:, :P])
+    top1 = (dec.argmax(-1) == full[:, :P].argmax(-1)).float().mean().item()
+    err_truth = max_err(dec, full32[:, :P])
+    floor = max_err(full[:, :P], full32[:, :P])
+    print(f"whisper-medium full width (24 + 24 layers, d 1024, 16 heads, "
+          f"head_dim 64, vocab 51865, bf16): {n_params} parameters in the "
+          f"tree ({cfg.param_count()} by ArchConfig.param_count, which "
+          f"leaves out cross-attention, biases, norms and the position "
+          f"table, as the reference's), {w_bytes} B, drawn on the card in "
+          f"{init_s:.2f} s, init's peak {init_peak / w_bytes:.4f}x the "
+          f"parameters' bytes; encode of 1x{cfg.n_frontend_tokens} frames: "
+          f"(K1..K5, tensor-core, copies) {enc_counts}, {encode_ms:.4f} ms "
+          f"by CUDA events, {encode_host_ms:.4f} ms by the host clock; the "
+          f"teacher-forced decoder at {model.max_target_positions} positions "
+          f"{full_counts}; {P} prompt tokens decoded one at a time over a "
+          f"{model.max_target_positions}-deep bf16 self cache and the bf16 "
+          f"cross cache ({cache_bytes} B): f32 max_abs_err {err32:.4g} "
+          f"against the f32 decoder (tol {LM_DECODE_TOL}), top-1 "
+          f"{top1_32:.4f}; bf16 {err:.4g} against the bf16 decoder, top-1 "
+          f"{top1:.4f}, {err_truth:.4g} against the f32 decoder where the "
+          f"bf16 decoder is {floor:.4g} from it (limit {LM_BF16_FLOOR}x); "
+          f"K1..K5 launches while decoding {decode_counts}; {NEW} greedy "
+          f"tokens {toks1[0].tolist()}, twice bitwise equal {repeat}; "
+          f"{tok_ev_ms:.4f} ms a token by CUDA events, {tok_host_ms:.4f} ms "
+          f"by the host clock; a traced step {tr['kernels']} kernels, busy "
+          f"{tr['busy_ms']:.4f} ms of {tr['traced_wall_ms']:.4f} ms ("
+          + ("not measured" if busy is None else f"{100 * busy:.2f}%")
+          + f"); bytes bound {tok_bound:.4f} ms a token (weights + caches "
+          f"once); top: " + "; ".join(f"{k[:60]} x{n} {ms:.4f} ms"
+                                      for k, n, ms in tr["top"]))
+    check(decode_counts == (0,) * 5, f"whisper-medium: decoding launched "
+          f"K1..K5 {decode_counts}")
+    check(err32 <= LM_DECODE_TOL, f"whisper-medium: f32 decode differs "
+          f"from the f32 decoder by {err32} (tol {LM_DECODE_TOL})")
+    check(err_truth <= LM_BF16_FLOOR * floor,
+          f"whisper-medium: bf16 decode is {err_truth} from the f32 "
+          f"decoder, more than {LM_BF16_FLOOR} x the bf16 decoder's {floor}")
+    check(repeat, "whisper-medium: the greedy continuation does not repeat "
+          "bit for bit")
+    out["model"] = dict(
+        params=n_params, analytic_params=cfg.param_count(),
+        weight_bytes=w_bytes, init_s=init_s, init_peak_bytes=init_peak,
+        frames=cfg.n_frontend_tokens, encode_launches=list(enc_counts[0]),
+        encode_tc_launches=enc_counts[1], encode_copies=enc_counts[2],
+        decoder_launches=list(full_counts[0]),
+        decoder_positions=model.max_target_positions,
+        encode_ms_events=encode_ms, encode_ms_host=encode_host_ms,
+        prompt=P, new_tokens=NEW, cache_bytes=cache_bytes,
+        decode_launches=list(decode_counts), f32_max_abs_err=err32,
+        f32_top1=top1_32, tol=LM_DECODE_TOL, bf16_max_abs_err=err,
+        bf16_top1=top1, bf16_vs_f32_err=err_truth,
+        bf16_decoder_vs_f32_err=floor, bf16_floor_limit=LM_BF16_FLOOR,
+        greedy_tokens=toks1[0].tolist(), greedy_bitwise=repeat,
+        ms_per_token_events=tok_ev_ms, ms_per_token_host=tok_host_ms,
+        traced_kernels=tr["kernels"], traced_busy_ms=tr["busy_ms"],
+        traced_wall_ms=tr["traced_wall_ms"], busy_share=busy,
+        top=tr["top"], bound_ms_per_token=tok_bound)
+    del params32, model32, enc32, full32, dec32, dec, full, enc
+    del after_prompt
+
+    # ---- (c) the card against the CPU, the 2 + 2-layer f32 reduced config -
+    cfg_r = get_config("whisper-medium").reduced()
+    model_r = WhisperModel(cfg_r)
+    p_cpu = model_r.init(gen(31), device="cpu")
+    p_gpu = tree_map(lambda t: t.to(dev), p_cpu)
+    fr = torch.randn((2, cfg_r.n_frontend_tokens, cfg_r.d_model),
+                     generator=gen(32)) * 0.02
+    tok_r = torch.randint(3, cfg_r.vocab, (2, 64), generator=gen(33))
+
+    def reduced_run(p, device, cross=None):
+        """The decoder's logits, the bf16 cross cache and 16 decode
+        steps; the steps read ``cross`` where it is given (the CPU's, bit
+        for bit: an entry one bf16 step apart moves a logit by ~1e-5)."""
+        with torch.inference_mode():
+            e = model_r.encode(p, fr.to(device))
+            lg = model_r.decode_full(p, tok_r.to(device), e)[0]
+        c = model_r.prefill_cross_cache(p, e, model_r.init_cache(
+            2, 16, torch.float32, device=device))
+        own = {n: t.cpu() for n, t in c["cross"].items()}
+        if cross is not None:
+            c["cross"] = {n: t.to(device) for n, t in cross.items()}
+        steps = torch.cat([model_r.decode_step(
+            p, tok_r[:, t:t + 1].to(device), c, t)[0] for t in range(16)], 1)
+        return lg.cpu(), own, steps.cpu()
+
+    fc, xc, dc = reduced_run(p_cpu, "cpu")
+    fg, xg, dg = reduced_run(p_gpu, dev, cross=xc)
+    e_fwd = max_err(fg, fc) / fc.abs().max().item()
+    e_dec = max_err(dg, dc) / dc.abs().max().item()
+    # the bf16 cross caches, rounded from f32 values 1e-7 apart: within one
+    # bf16 step (2^-7 relative) and 1e-5
+    x_ok = all(torch.allclose(xg[n].float(), xc[n].float(), atol=1e-5,
+                              rtol=2 ** -7) for n in ("k", "v"))
+    x_flips = sum(int((xg[n] != xc[n]).sum()) for n in ("k", "v"))
+
+    def grads(p, device):
+        leaves = [x.detach().requires_grad_() for x in tree_leaves(p)]
+        loss, _ = model_r.loss(tree_unflatten(p, leaves), {
+            "tokens": tok_r[:, :32].to(device),
+            "frontend_embeds": fr.to(device)})
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    reset_counts()
+    l_g, g_g = grads(p_gpu, dev)
+    torch.cuda.synchronize()
+    step_counts = counts()
+    l_c, g_c = grads(p_cpu, "cpu")
+    g_floor = max(g.abs().max().item() for g in g_c)
+    g_errs = {}
+    for n, a, b in zip([n for n, _ in tree_paths(p_cpu)], g_g, g_c):
+        if n.endswith("wk/bias"):   # zero in exact arithmetic
+            g_errs[n] = max(a.abs().max().item(), b.abs().max().item()) \
+                / g_floor
+        else:
+            g_errs[n] = (a.cpu() - b).abs().max().item() \
+                / max(b.abs().max().item(), 1e-30)
+    worst = max(g_errs, key=g_errs.get)
+    finite = all(torch.isfinite(g).all() for g in g_g)
+    print(f"whisper-medium card vs CPU, reduced f32 (2 + 2 layers, d "
+          f"{cfg_r.d_model}, {cfg_r.n_frontend_tokens} frames) at (2,64): "
+          f"teacher-forced logits {e_fwd:.3g} of their largest, 16 decode "
+          f"steps over the CPU's cross cache {e_dec:.3g} (tol "
+          f"{FAM_CPU_TOL}); the card's bf16 cross cache within a bf16 step "
+          f"of the CPU's {x_ok} ({x_flips} entries differ); one step's loss "
+          f"{float(l_g):.6f} vs {float(l_c):.6f}, gradients finite {finite}, "
+          f"worst {g_errs[worst]:.3g} ({worst}; tol {FAM_GRAD_TOL}); K1..K5 "
+          f"launches in the card's step {step_counts}")
+    check(e_fwd <= FAM_CPU_TOL and e_dec <= FAM_CPU_TOL and x_ok,
+          f"whisper reduced: card vs CPU decoder {e_fwd}, decode {e_dec}, "
+          f"cross cache within a bf16 step {x_ok}")
+    check(finite and g_errs[worst] <= FAM_GRAD_TOL
+          and step_counts == (0,) * 5,
+          f"whisper reduced step: gradients finite {finite}, worst "
+          f"{g_errs[worst]} ({worst}), launches {step_counts}")
+    out["card_vs_cpu"] = dict(
+        decoder_err=e_fwd, decode_err=e_dec, tol=FAM_CPU_TOL,
+        cross_within_bf16_step=x_ok, cross_entries_differ=x_flips,
+        loss_err=abs(float(l_g) - float(l_c)), grad_err=g_errs[worst],
+        grad_worst=worst, grad_tol=FAM_GRAD_TOL,
+        step_launches=list(step_counts))
+    del p_cpu, p_gpu, g_g, g_c
+
+    # ---- (d) training at full width ----------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--full", "--arch", "whisper-medium", "--steps", "24", "--batch",
+            "2", "--seq", "128", "--device", "cuda"]
+    rep = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    rc_train = train_cli.main(argv, params=params, report=rep)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = rep["history"]
+    losses = [h["loss"] for h in hist]
+    first, last = hist[0], hist[-1]
+    step_ms = ((last["wall_s"] - first["wall_s"])
+               / (last["step"] - first["step"]) * 1e3)
+    tokens_s = 2 * 128 / (step_ms / 1e3)
+    print(f"whisper-medium training, launch.train {' '.join(argv)} from "
+          f"(b)'s parameters: exit {rc_train}; losses at steps "
+          f"{[h['step'] for h in hist]}: {losses}; {step_ms:.4f} ms a step "
+          f"after the first ({tokens_s:.1f} decoder tokens/s, "
+          f"{2 * cfg.n_frontend_tokens / (step_ms / 1e3):.1f} frames/s), "
+          f"first step {first['wall_s'] * 1e3:.4f} ms; peak device memory "
+          f"{peak} B; K1..K5 launches {train_counts}; {train_s:.2f} s")
+    check(rc_train == 0 and all(math.isfinite(x) for x in losses),
+          f"whisper-medium launch.train --full exited {rc_train} with "
+          f"losses {losses}")
+    check(train_counts == (0,) * 5, f"training launched K1..K5 "
+          f"{train_counts}; K5 has no backward pass")
+    out["train"] = dict(
+        argv=argv, rc=rc_train, steps=[h["step"] for h in hist],
+        losses=losses, ms_per_step=step_ms,
+        first_step_ms=first["wall_s"] * 1e3, tokens_per_s=tokens_s,
+        peak_bytes=peak, launches=list(train_counts), seconds=train_s)
+    del rep, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (e) llava-next-mistral-7b's prefill at full width ----------------
+    cfg_l, model_l = get_model("llava-next-mistral-7b")
+    check(cfg_l == get_config("llava-next-mistral-7b")
+          and cfg_l.dtype == "bfloat16" and cfg_l.n_frontend_tokens == 2880,
+          f"not llava-next-mistral-7b: {cfg_l}")
+    t0 = time.perf_counter()
+    params_l = serve_cli.init_params(model_l, dev)
+    torch.cuda.synchronize()
+    init_l_s = time.perf_counter() - t0
+    n_l, bytes_l = param_count(params_l), param_bytes(params_l)
+    patches = next(frontend_batches(1, cfg_l.n_frontend_tokens,
+                                    cfg_l.d_model, seed=1, device=dev))
+    text = torch.randint(3, cfg_l.vocab, (1, LLAVA_TEXT),
+                         generator=gen(14)).to(dev, torch.int32)
+
+    def prefill():
+        with torch.inference_mode():
+            return model_l.forward(params_l, text,
+                                   frontend_embeds=patches)[0]
+
+    reset_counts()
+    logits_l = prefill()
+    torch.cuda.synchronize()
+    l_counts = k5_counts()
+    S_l = cfg_l.n_frontend_tokens + LLAVA_TEXT
+    want = ((0, 0, 0, 0, LLAVA_K5), LLAVA_K5, 0)
+    check(l_counts == want, f"llava prefill launched (K1..K5, tensor-core, "
+          f"copies) {l_counts}; expected {want}")
+    check(logits_l.shape == (1, S_l, cfg_l.vocab)
+          and torch.isfinite(logits_l.float()).all(),
+          f"llava prefill: bad logits {tuple(logits_l.shape)}")
+    del logits_l
+    prefill_ms = cuda_ms(prefill, iters=3, warmup=1)
+    tr_l = trace_decision(prefill)
+    busy_l = (None if not tr_l["kernels"]
+              else tr_l["busy_ms"] / tr_l["traced_wall_ms"])
+    # the matmuls (every parameter but the embedding table's, two FLOP a
+    # token) and the causal cores
+    flops_l = (2 * (n_l - cfg_l.vocab * cfg_l.d_model) * S_l
+               + 4 * cfg_l.head_dim * attention_pairs(S_l, None)
+               * cfg_l.n_heads * cfg_l.n_layers)
+    print(f"llava-next-mistral-7b full width (32 layers, d 4096, 32/8 "
+          f"heads, head_dim 128, bf16): {n_l} parameters, {bytes_l} B, "
+          f"drawn on the card in {init_l_s:.2f} s; prefill of "
+          f"{cfg_l.n_frontend_tokens} stub patch embeddings + {LLAVA_TEXT} "
+          f"text tokens (S = {S_l}): (K1..K5, tensor-core, copies) "
+          f"{l_counts}, logits (1, {S_l}, {cfg_l.vocab}) finite; "
+          f"{prefill_ms:.4f} ms by CUDA events ({flops_l:.4g} FLOP, "
+          f"{flops_l / prefill_ms / 1e9:.1f} TFLOP/s); a traced prefill "
+          f"{tr_l['kernels']} kernels, busy {tr_l['busy_ms']:.4f} ms of "
+          f"{tr_l['traced_wall_ms']:.4f} ms ("
+          + ("not measured" if busy_l is None else f"{100 * busy_l:.2f}%")
+          + "); top: " + "; ".join(f"{k[:60]} x{n} {ms:.4f} ms"
+                                   for k, n, ms in tr_l["top"]))
+    out["llava"] = dict(
+        params=n_l, weight_bytes=bytes_l, init_s=init_l_s,
+        patch_tokens=cfg_l.n_frontend_tokens, text_tokens=LLAVA_TEXT,
+        launches=list(l_counts[0]), tc_launches=l_counts[1],
+        copies=l_counts[2], prefill_ms=prefill_ms, flops=flops_l,
+        traced_kernels=tr_l["kernels"], traced_busy_ms=tr_l["busy_ms"],
+        traced_wall_ms=tr_l["traced_wall_ms"], busy_share=busy_l,
+        top=tr_l["top"])
+    del params_l, patches
+    gc.collect()
+    torch.cuda.empty_cache()
+    k5_case("llava prefill", cfg_l.n_heads, cfg_l.n_kv_heads, S_l,
+            cfg_l.head_dim, torch.bfloat16, True, 650, 10)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"whisper phase: {out['seconds']:.2f} s (target 60 s)")
     return out
 
 
@@ -3151,7 +3670,13 @@ def main() -> int:
     families = families_phase(dev, gen, reset_counts, counts)
     print(json.dumps({"families": families}, default=float))
 
-    # ---- 18. results -------------------------------------------------------
+    # ---- 18. Whisper's encoder-decoder and llava's prefill at full width ---
+    # K5 runs Whisper's non-causal encoder and its ragged 448-position
+    # decoder (24 launches each) and llava's 3,008-token prefill (32).
+    whisper = whisper_phase(dev, gen, reset_counts, counts)
+    print(json.dumps({"whisper": whisper}, default=float))
+
+    # ---- 19. results -------------------------------------------------------
     k1 = k1_rows["served edge"]
     def layer_row(rows, dev_us):
         """The served frame's row, with the 400x400 and batch-8 times."""
@@ -3209,6 +3734,20 @@ def main() -> int:
     for key in ("ms", "ms_reps", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "max_abs_err", "shape", "kv_heads", "views"):
         kernels[4][f"moe_{key}"] = families["k5_moe"][key]
+    kernels[4]["whisper_encode_launches"] = \
+        whisper["model"]["encode_launches"][4]
+    kernels[4]["whisper_decoder_launches"] = \
+        whisper["model"]["decoder_launches"][4]
+    kernels[4]["llava_prefill_launches"] = whisper["llava"]["launches"][4]
+    for pre, label in (("whisper_enc", "whisper encoder"),
+                       ("whisper_enc_f32", "whisper encoder f32"),
+                       ("whisper_dec", "whisper decoder"),
+                       ("whisper_dec_f32", "whisper decoder f32"),
+                       ("llava", "llava prefill")):
+        for key in ("ms", "ms_reps", "device_us", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "max_abs_err", "shape",
+                    "causal"):
+            kernels[4][f"{pre}_{key}"] = whisper["k5"][label][key]
     kernels[0]["training_serve_launches"] = train_k1
     kernels[0]["population_serve_launches"] = \
         population["gates"]["serve"]["k1_launches"]

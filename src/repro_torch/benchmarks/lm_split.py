@@ -6,8 +6,9 @@ and monolith time per decision, and what a trace of one decision shows.
 It builds ``launch.serve.build_split(arch, reduced=False,
 edge_segments=1, codec_name="uint8", batch=1, seq=128)`` on CUDA (random
 weights from seed 0; ``--arch`` defaults to qwen3-0.6b and takes any
-config but whisper-medium, which is not ported, and
-llama4-scout-17b-a16e, which no single card holds), then three times
+config but whisper-medium, whose encoder–decoder ``build_split`` refuses
+as the reference does, and llama4-scout-17b-a16e, which no single card
+holds), then three times
 measures the edge, the server half and the monolith in turn, each over 20
 calls after a warm-up, ended by a synchronize: the wall clock (``*_ms``,
 as ``PolicyServer.measure`` reads it) and the calling thread's CPU time

@@ -3,9 +3,9 @@
 ``jax.random`` and ``torch.Generator`` give different numbers from one
 seed, so a parity check never re-initialises: it converts the reference's
 parameter tree.  Both packages keep conv kernels HWIO and dense kernels
-``(in, out)``, and a decoder's stacked ``"scan"`` subtree keeps its
-leading layer axis in both, so the conversion is a copy, leaf by leaf,
-with no transposition.  bfloat16 leaves are carried bit for bit.
+``(in, out)``, and a decoder's stacked ``"scan"`` subtree (Whisper's
+``"enc_scan"`` and ``"dec_scan"``) keeps its leading layer axis in both,
+so the conversion is a copy, leaf by leaf, with no transposition.  bfloat16 leaves are carried bit for bit.
 """
 from __future__ import annotations
 
@@ -21,8 +21,8 @@ def params_from_jax(tree, device: DeviceLike = None):
     ``tree`` is the reference's parameter pytree with numpy-convertible
     leaves (``jax.Array`` or ``np.ndarray``), e.g.
     ``{"edge": {"layer0": {"kernel", "bias"}, ...}, "server": {"proj":
-    {"kernel", "bias"}}}``, a head's ``{"mlp": {"fc0": ...}}``, or a
-    ``DecoderModel.init`` tree.
+    {"kernel", "bias"}}}``, a head's ``{"mlp": {"fc0": ...}}``, a
+    ``DecoderModel.init`` tree or a ``WhisperModel.init`` tree.
     """
     dev = resolve_device(device)
 

@@ -8,7 +8,8 @@ paper's Table 5 protocol with the model as the workload.  Dense, MoE,
 SSM and hybrid configs serve; every attention core that
 ``nn.attention.flash_eligible`` admits runs through K5 on the card (a
 logit softcap, as recurrentgemma-9b's, keeps its cores eager, as in the
-reference).
+reference).  The audio family (whisper-medium) has no super-block split
+and exits, as in the reference.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --edge-segments 1 --codec uint8 --bandwidths 10,25,50,100
@@ -56,6 +57,8 @@ def build_split(arch: str, *, reduced: bool, edge_segments: int,
     """
     dev = resolve_device(device)
     cfg, model = get_model(arch, reduced=reduced)
+    if cfg.family == "audio":
+        raise SystemExit("use the whisper enc/dec split example instead")
     if params is None:
         params = init_params(model, dev)
     edge_p, server_p = model.split_params(params, edge_segments)

@@ -6,7 +6,8 @@
 ``--reduced`` (the default) trains the CPU-scale variant of the arch
 family; ``--full`` trains it at its published width.  Runs on the GPU
 unless ``--device cpu`` is given.  VLM configs get stub frontend
-embeddings prepended (``data.frontend_batches``).  Exits 0 when the last
+embeddings prepended, and the audio family (Whisper) stub encoder frames
+(``data.frontend_batches``).  Exits 0 when the last
 logged loss is below the first.
 """
 from __future__ import annotations

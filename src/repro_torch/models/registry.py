@@ -2,28 +2,30 @@
 the input shapes' helpers (``text_len``, ``long_ctx``, ``SHAPE_IDS``).
 
 Dense, MoE, SSM, hybrid (RG-LRU) and VLM-backbone configs build a
-:class:`DecoderModel`.  Audio (Whisper) raises ``NotImplementedError``:
-it comes with ROADMAP queue 1, item 2.4.  ``abstract_params`` and
-``input_specs(_for)``, the dry-run's allocation-free stand-ins, come with
-item 2.5.
+:class:`DecoderModel`; audio (Whisper) builds a :class:`WhisperModel`.
+``abstract_params`` and ``input_specs(_for)``, the dry-run's
+allocation-free stand-ins, come with ROADMAP queue 1, item 2.5.
 """
 from __future__ import annotations
+
+from typing import Union
 
 from repro_torch.configs import get_config
 from repro_torch.models.config import ArchConfig, ShapeConfig
 from repro_torch.models.transformer import DecoderModel
+from repro_torch.models.whisper import WhisperModel
+
+Model = Union[DecoderModel, WhisperModel]
 
 
-def build_model(cfg: ArchConfig) -> DecoderModel:
+def build_model(cfg: ArchConfig) -> Model:
     if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the audio family is not ported yet (ROADMAP "
-            f"queue 1, item 2.4)")
+        return WhisperModel(cfg)
     return DecoderModel(cfg)
 
 
 def get_model(arch_id: str, *, reduced: bool = False) -> tuple[ArchConfig,
-                                                               DecoderModel]:
+                                                               Model]:
     cfg = get_config(arch_id)
     if reduced:
         cfg = cfg.reduced()
@@ -47,5 +49,5 @@ def long_ctx(shape_id: str) -> bool:
 
 SHAPE_IDS = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 
-__all__ = ["SHAPE_IDS", "build_model", "get_model", "long_ctx",
+__all__ = ["Model", "SHAPE_IDS", "build_model", "get_model", "long_ctx",
            "text_len"]

@@ -3,13 +3,13 @@ windows, as in ``repro.nn.attention``: the full-sequence (training /
 prefill) path.
 
 Shapes follow the (B, S, H, D) convention internally; the public API takes
-(B, S, d_model).  The full-sequence core goes through K5 (``kernels.ops.
-causal_attention``) where :func:`flash_eligible` says so and autograd will
-not need q, k and v (:func:`needs_autograd`: K5, like the reference's
-kernel, has no backward pass), and through the reference's two eager
-branches (``_scores_to_out``, ``chunked_attention``) otherwise.  The rule
-reads the config, the shape and autograd's state, never the device, so the
-CPU takes the branch the card takes.  Cross-attention and the one-token
+(B, S, d_model).  The full-sequence core goes through K5 (``kernels.
+flash_attention``, causal or not) where :func:`flash_eligible` says so and
+autograd will not need q, k and v (:func:`needs_autograd`: K5, like the
+reference's kernel, has no backward pass), and through the reference's
+two eager branches (``_scores_to_out``, ``chunked_attention``) otherwise.
+The rule reads the config, the mask and autograd's state, never the
+device, so the CPU takes the branch the card takes.  Cross-attention and the one-token
 decode step over a KV cache are the reference's, eager.  The reference's
 sharding annotations have no counterpart: one card, no mesh.
 """
@@ -21,12 +21,12 @@ from typing import Optional
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.ops import causal_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.nn.layers import dense, dense_init, rmsnorm, rmsnorm_init
 from repro_torch.nn.module import tree_leaves
 from repro_torch.nn.rotary import apply_rope
 
-FLASH_BLOCK = 128   # K5's public tile: S must be a multiple of min(128, S)
+FLASH_BLOCK = 128   # K5's public tile where it divides S
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,12 +136,21 @@ def make_attention_mask(cfg: AttentionConfig, q_len: int, kv_len: int,
     return mask[None, None]
 
 
-def flash_eligible(cfg: AttentionConfig, S: int, mask) -> bool:
-    """Whether the core goes through K5: causal, no logit softcap, no
-    caller mask, and S tiled by K5's public block.  A rule on the config
-    and the shape; the kernel itself takes any S."""
-    return (cfg.causal and cfg.attn_logit_softcap is None and mask is None
-            and S % min(FLASH_BLOCK, S) == 0)
+def flash_eligible(cfg: AttentionConfig, mask) -> bool:
+    """Whether a self-attention core goes through K5: no logit softcap and
+    no caller mask.  Causal or not, at any length: the kernel masks a
+    ragged last tile itself, and :func:`flash_blocks` keeps the wrapper's
+    tiling contract."""
+    return cfg.attn_logit_softcap is None and mask is None
+
+
+def flash_blocks(S: int) -> int:
+    """The ``block_q``/``block_k`` passed to K5 at length S: its public
+    128 where that tiles S, else S itself.  The wrapper keeps the
+    reference's contract (S a multiple of ``min(block, S)``), and its
+    blocks do not change the result: the kernel picks its own tiles
+    (``kernels.flash_attention.flash_attention``)."""
+    return FLASH_BLOCK if S % FLASH_BLOCK == 0 else S
 
 
 def needs_autograd(params, x) -> bool:
@@ -160,13 +169,15 @@ def attention(params, cfg: AttentionConfig, x, *, positions=None,
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     q, k, v = _project_qkv(params, cfg, x, positions)
-    if flash_eligible(cfg, S, mask) and not needs_autograd(params, x):
+    if flash_eligible(cfg, mask) and not needs_autograd(params, x):
         # K5 reads the (B, S, H, D) projections in place as (B, H, S, D)
         # views and maps each query head to its KV head; on the card its
         # output is (B, S, H, D) storage, so the reshape below is a view
-        out = causal_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2),
-                               sliding_window=cfg.sliding_window)
+        blk = flash_blocks(S)
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=cfg.causal,
+                              sliding_window=cfg.sliding_window,
+                              block_q=blk, block_k=blk)
         out = out.transpose(1, 2)
     elif S > cfg.chunked_threshold and mask is None:
         n_rep = cfg.n_heads // cfg.n_kv_heads
@@ -369,5 +380,5 @@ def decode_attention(params, cfg: AttentionConfig, x, cache, index):
 
 __all__ = ["AttentionConfig", "attention", "attention_init",
            "chunked_attention", "cross_attention", "cross_kv",
-           "decode_attention", "flash_eligible", "init_kv_cache",
-           "make_attention_mask", "needs_autograd"]
+           "decode_attention", "flash_blocks", "flash_eligible",
+           "init_kv_cache", "make_attention_mask", "needs_autograd"]

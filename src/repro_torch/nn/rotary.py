@@ -1,5 +1,6 @@
 """Rotary position embeddings (RoPE), as in ``repro.nn.rotary``: the
-rotate-half form, computed in float32 and cast back."""
+rotate-half form, computed in float32 and cast back; and the sinusoidal
+table of the Whisper encoder."""
 from __future__ import annotations
 
 import torch
@@ -24,4 +25,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     return out.to(x.dtype)
 
 
-__all__ = ["apply_rope", "rope_frequencies"]
+def sinusoidal_positions(seq_len: int, dim: int,
+                         device=None) -> torch.Tensor:
+    """Classic transformer sinusoidal table (used by the Whisper encoder):
+    (seq_len, dim) float32, sines then cosines, with the reference's
+    ``max(half - 1, 1)`` denominator."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    half = dim // 2
+    exps = torch.arange(half, dtype=torch.float32, device=device) / max(
+        half - 1, 1)
+    # the power rounded once from float64: XLA's float32 power is
+    # correctly rounded where torch's may be an ulp off, and at 1,500
+    # frames an ulp of the frequency moves an angle by 1e-4
+    inv = 1.0 / (10000.0 ** exps.double()).float()
+    ang = pos * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+__all__ = ["apply_rope", "rope_frequencies", "sinusoidal_positions"]

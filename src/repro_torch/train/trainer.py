@@ -2,9 +2,10 @@
 (port of ``repro.train.trainer``).
 
 One training step is eager autograd on ``device`` (CUDA by default):
-``torch.autograd.grad`` of ``DecoderModel.loss`` over every parameter
-leaf, then the optimizer's update (``train.optimizer.adamw`` over a
-cosine schedule, global-norm clipping at 1.0).  Attention cores take the
+``torch.autograd.grad`` of the model's ``loss`` (``DecoderModel`` or
+``WhisperModel``, as ``build_model`` picks) over every parameter leaf,
+then the optimizer's update (``train.optimizer.adamw`` over a cosine
+schedule, global-norm clipping at 1.0).  Attention cores take the
 eager branches during the step (``nn.attention.needs_autograd``): K5 has
 no backward pass.
 """
@@ -52,8 +53,9 @@ class Trainer:
         return {k: v.to(self.device) for k, v in batch.items()}
 
     def step(self, params, opt_state, batch):
-        """One update.  Returns (params, opt_state, metrics): ``loss``,
-        ``ce`` and ``moe_aux_loss`` as 0-d tensors on the device."""
+        """One update.  Returns (params, opt_state, metrics): ``loss``
+        and the loss's aux (``ce``, and ``moe_aux_loss`` for a decoder) as
+        0-d tensors on the device."""
         leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
         with torch.enable_grad():
             loss, aux = self.model.loss(tree_unflatten(params, leaves),

@@ -81,6 +81,23 @@ def test_flash_plain_matches_pallas(s, window, blocks):
     np.testing.assert_allclose(_np(got), _np(want), atol=2e-4, rtol=2e-4)
 
 
+@pytest.mark.parametrize("s,blocks", [(100, (128, 128)), (192, (64, 64)),
+                                      (200, (200, 200))])
+@pytest.mark.parametrize("window", [None, 48])
+def test_flash_plain_non_causal_ragged_matches_pallas(s, blocks, window):
+    """``causal=False`` (Whisper's encoder) at lengths 128 does not tile,
+    each with blocks that tile it, as ``nn.attention.flash_blocks`` picks
+    them."""
+    bq, bk = blocks
+    q, k, v = (_rand((1, 2, s, 32), 3 * s + i) for i in range(3))
+    got = flash_attention(_t(q), _t(k), _t(v), causal=False,
+                          sliding_window=window, block_q=bq, block_k=bk)
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   causal=False, sliding_window=window, block_q=bq,
+                   block_k=bk, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-4, rtol=2e-4)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_causal_attention_dtypes_match_pallas(dtype):
     q, k, v = (_rand((1, 2, 128, 32), 7 + i) for i in range(3))
@@ -184,7 +201,8 @@ def test_flash_addressable_copies_only_what_the_kernel_cannot_read():
 # product, base-2 exponentials, P rounded to bf16 before P.V, the row sum
 # of the unrounded fp32 P, 64 query rows a warpgroup against 128-key
 # tiles, output rounded to bf16.
-def _tc_route_emulation(q, k, v, window=None, block_m=64, block_n=128):
+def _tc_route_emulation(q, k, v, window=None, block_m=64, block_n=128,
+                        causal=True):
     B, H, S, D = q.shape
     sl2 = D ** -0.5 * math.log2(math.e)
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -194,12 +212,16 @@ def _tc_route_emulation(q, k, v, window=None, block_m=64, block_n=128):
         m = torch.full((B, H, len(rows)), -math.inf)
         l = torch.zeros((B, H, len(rows)))
         acc = torch.zeros((B, H, len(rows), D))
-        t_hi = min(-(-S // block_n), (rows[-1].item()) // block_n + 1)
+        t_hi = -(-S // block_n)
+        if causal:
+            t_hi = min(t_hi, rows[-1].item() // block_n + 1)
         t_lo = 0 if window is None else max(q0 - window + 1, 0) // block_n
         for t in range(t_lo, t_hi):
             keys = torch.arange(t * block_n, min((t + 1) * block_n, S))
             s = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2)
-            see = keys[None, :] <= rows[:, None]
+            see = torch.ones((len(rows), len(keys)), dtype=torch.bool)
+            if causal:
+                see &= keys[None, :] <= rows[:, None]
             if window is not None:
                 see &= keys[None, :] > rows[:, None] - window
             s = torch.where(see, s, -math.inf)
@@ -215,15 +237,19 @@ def _tc_route_emulation(q, k, v, window=None, block_m=64, block_n=128):
     return out.bfloat16()
 
 
-@pytest.mark.parametrize("window", [None, 200])
-def test_tensor_core_numerics_stay_within_the_card_tolerance(window):
-    """At (1, 2, 1024, 128) the emulated tensor-core route stays within
-    chip_smoke's bf16 ATTN_TOL (1e-2) of the plain version in f32, as the
-    card is held to it."""
-    q, k, v = (_t(_rand((1, 2, 1024, 128), 60 + i), torch.bfloat16)
+@pytest.mark.parametrize("window,causal,S,D", [
+    (None, True, 1024, 128), (200, True, 1024, 128),
+    (None, False, 1500, 64),        # Whisper's encoder: non-causal, ragged
+    (None, True, 448, 64)])         # Whisper's decoder: ragged
+def test_tensor_core_numerics_stay_within_the_card_tolerance(window, causal,
+                                                             S, D):
+    """At (1, 2, 1024, 128), and at Whisper's encoder and decoder shapes,
+    the emulated tensor-core route stays within chip_smoke's bf16 ATTN_TOL
+    (1e-2) of the plain version in f32, as the card is held to it."""
+    q, k, v = (_t(_rand((1, 2, S, D), 60 + i), torch.bfloat16)
                for i in range(3))
-    got = _tc_route_emulation(q, k, v, window)
-    want = attention_ref(q.float(), k.float(), v.float(), causal=True,
+    got = _tc_route_emulation(q, k, v, window, causal=causal)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
                          sliding_window=window)
     np.testing.assert_allclose(_np(got), _np(want), atol=1e-2, rtol=1e-2)
 
@@ -255,7 +281,9 @@ def _check_attention(S, mask=False, seed=0, **over):
         jm = j_attn.make_attention_mask(jcfg, S, S)
         tm = t_attn.make_attention_mask(tcfg, S, S)
         np.testing.assert_array_equal(np.asarray(jm), tm.numpy())
-    assert t_attn.flash_eligible(tcfg, S, tm) == (
+    # K5 takes every core without a caller mask or a logit softcap,
+    # causal or not, at any S
+    assert t_attn.flash_eligible(tcfg, tm) == (
         not mask and over.get("attn_logit_softcap") is None)
     got = t_attn.attention(tp, tcfg, _t(x), mask=tm)
     want = j_attn.attention(jp, jcfg, jnp.asarray(x), mask=jm)
@@ -277,10 +305,13 @@ def test_attention_chunked_branch(skip):
 
 
 @pytest.mark.parametrize("window", [None, 8])
-def test_attention_flash_branch(window):
+@pytest.mark.parametrize("causal,S", [(True, 64), (False, 64), (True, 200),
+                                      (False, 200)])
+def test_attention_flash_branch(window, causal, S):
     """Eligible: the core is K5's plain version on the CPU, held against
-    the reference's ``_scores_to_out``."""
-    _check_attention(64, sliding_window=window)
+    the reference's ``_scores_to_out``; non-causal (Whisper's encoder) and
+    at a length 128 does not tile (blocks of S)."""
+    _check_attention(S, sliding_window=window, causal=causal)
 
 
 def test_attention_flash_branch_reads_projections_in_place(monkeypatch):
@@ -309,7 +340,9 @@ def test_chunked_attention_matches(skip, window):
     np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
 
 
-# which configurations' attention layers take K5 at a served length
+# which configurations' self-attention cores take K5 (at any length:
+# Whisper's 1,500-frame non-causal encoder and 448-position decoder,
+# llava's 2,880 patches + 128 tokens)
 K5_ARCHS = {
     "qwen3-0.6b": True, "qwen2.5-14b": True, "llama3-8b": True,
     "llama4-scout-17b-a16e": True, "minitron-8b": True,
@@ -322,13 +355,17 @@ K5_ARCHS = {
 
 @pytest.mark.parametrize("reduced", [False, True])
 def test_which_configs_take_k5(reduced):
+    from repro_torch.models.whisper import _attn_cfg as whisper_cfg
     got = {}
     for arch, cfg in ARCHS.items():
         cfg = cfg.reduced() if reduced else cfg
-        kinds = {b for b in cfg.blocks() if b in ("attn", "swa")}
-        got[arch] = (None if not kinds else
-                     all(t_attn.flash_eligible(attn_config(cfg, kd), 128,
-                                               None) for kd in kinds))
+        if cfg.family == "audio":
+            cores = [whisper_cfg(cfg, causal=c) for c in (False, True)]
+        else:
+            cores = [attn_config(cfg, kd) for kd in cfg.blocks()
+                     if kd in ("attn", "swa")]
+        got[arch] = (None if not cores else
+                     all(t_attn.flash_eligible(c, None) for c in cores))
     assert got == K5_ARCHS
 
 

@@ -325,20 +325,25 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
 @pytest.mark.parametrize("window", [None, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-def test_flash_kernel_matches_plain(cuda, S, D, window, dtype):
+@pytest.mark.parametrize("causal", [True, False],
+                         ids=["causal", "non-causal"])
+def test_flash_kernel_matches_plain(cuda, S, D, window, dtype, causal):
+    """Causal, and non-causal as Whisper's encoder calls it (every KV tile
+    of a block's rows, the ragged last one masked at S = 100)."""
     gen = torch.Generator().manual_seed(S + D)
     q, k, v = (torch.randn((2, 3, S, D), generator=gen).to(cuda, dtype)
                for _ in range(3))
     before = fmod.flash_attention.launches
-    got = fmod.flash_attention(q, k, v, causal=True, sliding_window=window)
-    want = attention_ref(q.float(), k.float(), v.float(), causal=True,
+    got = fmod.flash_attention(q, k, v, causal=causal, sliding_window=window)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
                          sliding_window=window)
     torch.cuda.synchronize()
     assert fmod.flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-4 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
-    again = fmod.flash_attention(q, k, v, causal=True, sliding_window=window)
+    again = fmod.flash_attention(q, k, v, causal=causal,
+                                 sliding_window=window)
     assert torch.equal(got, again)                  # repeats bit for bit
 
 
@@ -357,27 +362,36 @@ def _gqa_views(B, H, H_kv, S, D, dtype, dev, seed):
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
-def _plain_gqa(q, k, v, window):
+def _plain_gqa(q, k, v, window, causal=True):
     n_rep = q.shape[1] // k.shape[1]
     return attention_ref(q.float(), k.float().repeat_interleave(n_rep, 1),
-                         v.float().repeat_interleave(n_rep, 1), causal=True,
-                         sliding_window=window)
+                         v.float().repeat_interleave(n_rep, 1),
+                         causal=causal, sliding_window=window)
 
 
-@pytest.mark.parametrize("n_rep", [1, 2, 8])
-@pytest.mark.parametrize("D", [32, 64, 128])
-@pytest.mark.parametrize("window", [None, 48])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-def test_flash_kernel_gqa_strided_views(cuda, n_rep, D, window, dtype):
+# (n_rep, D, window, dtype, causal): every causal combination, and one
+# non-causal case, Whisper's encoder's head dim on the tensor cores
+GQA_CASES = [pytest.param(n_rep, D, window, dtype, True,
+                          id=f"{name}-{window}-{D}-{n_rep}")
+             for dtype, name in ((torch.float32, "f32"),
+                                 (torch.bfloat16, "bf16"))
+             for window in (None, 48) for D in (32, 64, 128)
+             for n_rep in (1, 2, 8)]
+GQA_CASES.append(pytest.param(2, 64, None, torch.bfloat16, False,
+                              id="bf16-None-64-2-non-causal"))
+
+
+@pytest.mark.parametrize("n_rep,D,window,dtype,causal", GQA_CASES)
+def test_flash_kernel_gqa_strided_views(cuda, n_rep, D, window, dtype,
+                                        causal):
     """K5 maps query heads to KV heads and reads (B, S, H, D) storage in
     place: held to its plain version on repeated K/V, no input copied, the
     bf16 cases on the tensor-core route, the output (B, S, H, D)
     storage; ragged S."""
     q, k, v = _gqa_views(2, 2 * n_rep, 2, 100, D, dtype, cuda, D + n_rep)
     before = _counts()
-    got = fmod.flash_attention(q, k, v, causal=True, sliding_window=window)
-    want = _plain_gqa(q, k, v, window)
+    got = fmod.flash_attention(q, k, v, causal=causal, sliding_window=window)
+    want = _plain_gqa(q, k, v, window, causal)
     torch.cuda.synchronize()
     tc = int(dtype == torch.bfloat16)
     assert _counts() == (before[0] + 1, before[1] + tc, before[2])
@@ -385,7 +399,8 @@ def test_flash_kernel_gqa_strided_views(cuda, n_rep, D, window, dtype):
     assert got.transpose(1, 2).is_contiguous()
     tol = 2e-4 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
-    again = fmod.flash_attention(q, k, v, causal=True, sliding_window=window)
+    again = fmod.flash_attention(q, k, v, causal=causal,
+                                 sliding_window=window)
     assert torch.equal(got, again)                  # repeats bit for bit
 
 
@@ -781,3 +796,75 @@ def test_lm_families_on_card(cuda, arch, monkeypatch):
     for a, b in zip(grads(p_gpu, cuda), grads(p_cpu, "cpu")):
         assert torch.isfinite(a).all()
         assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+def test_whisper_on_card(cuda):
+    """The reduced f32 whisper-medium, card against CPU: the encoder (two
+    non-causal K5 launches), the teacher-forced decoder at a ragged 200
+    tokens (two causal launches), and 16 decode steps over the CPU's bf16
+    cross cache (no K5 launch), each within 1e-5 of its largest, the
+    card's own cross cache within a bf16 step; a step's gradients within
+    1e-5 of each leaf's largest, all finite (the key biases', zero in
+    exact arithmetic, below 1e-5 of the largest of all leaves)."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.whisper import WhisperModel
+    from repro_torch.nn.module import (tree_leaves, tree_map, tree_paths,
+                                       tree_unflatten)
+    cfg, model = get_model("whisper-medium", reduced=True)
+    assert isinstance(model, WhisperModel)
+    p_cpu = model.init(torch.Generator().manual_seed(8), device="cpu")
+    p_gpu = tree_map(lambda t: t.to(cuda), p_cpu)
+    gen = torch.Generator().manual_seed(9)
+    frames = torch.randn((2, cfg.n_frontend_tokens, cfg.d_model),
+                         generator=gen) * 0.02
+    tok = torch.randint(3, cfg.vocab, (2, 200), generator=gen)
+
+    def close(a, b):
+        a, b = a.detach().cpu().float(), b.detach().float()
+        return (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+    def run(p, device, cross=None):
+        with torch.no_grad():
+            enc = model.encode(p, frames.to(device))
+            logits, _ = model.decode_full(p, tok.to(device), enc)
+        c = model.prefill_cross_cache(
+            p, enc, model.init_cache(2, 16, torch.float32, device=device))
+        own = {n: t.cpu() for n, t in c["cross"].items()}
+        if cross is not None:   # the CPU's bf16 cross cache, bit for bit
+            c["cross"] = {n: t.to(device) for n, t in cross.items()}
+        steps = torch.cat([model.decode_step(
+            p, tok[:, t:t + 1].to(device), c, t)[0] for t in range(16)], 1)
+        return enc, logits, own, c["self"]["k"], steps
+
+    enc_c, lg_c, x_c, k_c, st_c = run(p_cpu, "cpu")
+    f = fmod.flash_attention
+    f.launches = f.tc_launches = f.copies = 0
+    enc_g, lg_g, x_g, k_g, st_g = run(p_gpu, cuda, cross=x_c)
+    torch.cuda.synchronize()
+    assert _counts() == (4, 0, 0)       # f32: the CUDA-core route
+    for a, b in ((enc_g, enc_c), (lg_g, lg_c), (st_g, st_c), (k_g, k_c)):
+        assert close(a, b)
+    # the bf16 cross caches round f32 values 1e-7 apart: one bf16 step
+    for n in ("k", "v"):
+        torch.testing.assert_close(x_g[n].float(), x_c[n].float(),
+                                   atol=1e-5, rtol=2 ** -7)
+
+    batch = {"tokens": tok[:, :32], "frontend_embeds": frames}
+
+    def grads(p, device):
+        leaves = [x.detach().requires_grad_() for x in tree_leaves(p)]
+        loss, _ = model.loss(tree_unflatten(p, leaves),
+                             {k: v.to(device) for k, v in batch.items()})
+        return [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+
+    f.launches = 0
+    g_gpu = grads(p_gpu, cuda)
+    assert f.launches == 0
+    g_cpu = grads(p_cpu, "cpu")
+    floor = 1e-5 * max(b.abs().max() for b in g_cpu)
+    for name, a, b in zip([n for n, _ in tree_paths(p_cpu)], g_gpu, g_cpu):
+        assert torch.isfinite(a).all()
+        if name.endswith("wk/bias"):    # zero in exact arithmetic
+            assert max(a.abs().max(), b.abs().max()) <= floor, name
+        else:
+            assert (a - b).abs().max() <= 1e-5 * b.abs().max(), name

@@ -33,6 +33,7 @@ from repro_torch.core.wire import get_codec
 from repro_torch.launch import serve as t_serve
 from repro_torch.models.registry import build_model, get_model
 from repro_torch.models.transformer import DecoderModel
+from repro_torch.models.whisper import WhisperModel
 from repro_torch.serving.client import DecisionLoop
 from repro_torch.serving.netsim import shaped
 
@@ -79,18 +80,15 @@ def test_configs_equal_the_reference(arch):
     assert get_config(arch) is cfg
 
 
-@pytest.mark.parametrize("arch", ["whisper-medium"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="2.4"):
-        build_model(ARCHS[arch])
-
-
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-130m",
-                                  "qwen2-moe-a2.7b"])
+                                  "qwen2-moe-a2.7b", "whisper-medium"])
 def test_family_builds(arch):
+    """Every family builds; the audio family's model is the
+    encoder–decoder ``WhisperModel``."""
+    want = WhisperModel if ARCHS[arch].family == "audio" else DecoderModel
     model = build_model(ARCHS[arch])
-    assert isinstance(model, DecoderModel) and model.cfg is ARCHS[arch]
-    assert isinstance(build_model(ARCHS[arch].reduced()), DecoderModel)
+    assert type(model) is want and model.cfg is ARCHS[arch]
+    assert type(build_model(ARCHS[arch].reduced())) is want
 
 
 def test_llava_backbone_builds():
@@ -249,3 +247,58 @@ def test_entry_points_refuse_cuda_without_it():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_serve.build_split(ARCH, reduced=True, edge_segments=1,
                             codec_name="uint8", batch=1, seq=16)
+
+
+# ---------------------------------------------------------------------------
+# examples.serve_split_llm against the reference's example
+# ---------------------------------------------------------------------------
+
+def _reference_example():
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "ref_serve_split_llm", os.path.join(os.path.dirname(__file__), "..",
+                                            "examples", "serve_split_llm.py"))
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    return ref
+
+
+def _table(fn, argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(argv)
+    return out.getvalue().splitlines(), result
+
+
+def test_serve_split_llm_prints_the_reference_table():
+    """The same header, codecs, columns, wire megabytes and 1 Gb/s transfer
+    times as the reference's example; the float32 codec's logits are the
+    uncoded split's, bit for bit, and the bf16 codec's agree on top-1."""
+    from repro_torch.examples import serve_split_llm
+    argv = ["--batch", "2", "--seq", "16"]
+    got, rows = _table(serve_split_llm.main, argv + ["--device", "cpu"])
+    want, _ = _table(_reference_example().main, argv)
+    assert len(got) == len(want) == 9
+    for g, w in zip(got, want):
+        if len(w.split()) == 6 and w.split()[0] in ("bf16", "float32",
+                                                     "int8_channel",
+                                                     "uint8"):
+            assert g.split()[:3] == w.split()[:3]
+        else:
+            assert g == w
+    by = {r["codec"]: r for r in rows}
+    assert sorted(by) == ["bf16", "float32", "int8_channel", "uint8"]
+    assert by["float32"]["max_dlogit"] == 0.0
+    assert by["bf16"]["top1_agree"] == 1.0
+    assert by["uint8"]["wire_bytes"] == get_codec("uint8").wire_bytes(
+        (2, 16, 256))
+
+
+def test_serve_split_llm_refuses_the_audio_family():
+    from repro_torch.examples import serve_split_llm
+    msg = "enc-dec archs use the natural encoder/decoder split"
+    for main, argv in ((serve_split_llm.main, ["--device", "cpu"]),
+                       (_reference_example().main, [])):
+        with pytest.raises(SystemExit, match=msg):
+            main(["--arch", "whisper-medium"] + argv)

@@ -156,19 +156,19 @@ def test_forward_is_unchanged_by_unbinding_the_segments(qwen3):
 
 def test_training_cores_take_the_eager_branch(qwen3, monkeypatch):
     """K5 has no backward: with parameters that require grad the cores
-    never reach ``causal_attention`` (the rule reads autograd's state, not
+    never reach ``flash_attention`` (the rule reads autograd's state, not
     the device), and q/k/v and their norms receive non-zero gradients.
     Without autograd the same cores go through K5's path."""
     cfg, model, tp, _, _ = qwen3
     batch = _batch(cfg, seed=4)
     calls = []
-    real = t_attn.causal_attention
+    real = t_attn.flash_attention
 
     def counted(*a, **k):
         calls.append(1)
         return real(*a, **k)
 
-    monkeypatch.setattr(t_attn, "causal_attention", counted)
+    monkeypatch.setattr(t_attn, "flash_attention", counted)
     _, grads = _grads(model, tp, batch, remat=False)
     assert calls == []
     named = dict(zip([p for p, _ in tree_paths(tp)], grads))
