@@ -68,7 +68,17 @@ caches against it in bf16 and f32 and 32 greedy tokens twice bit for bit,
 the reduced config card against CPU, ``launch.train --arch
 whisper-medium --full`` for 24 steps, and llava-next-mistral-7b's prefill
 at full width (2,880 stub patch embeddings and 128 text tokens, 32 K5
-launches) with K5 held at its (1,32/8,3008,128) shape.
+launches) with K5 held at its (1,32/8,3008,128) shape.  Last it runs
+the sharded LM step: the dry-run of the production meshes at full width
+in child processes (``python -m repro_torch.launch.dryrun`` for
+qwen3-0.6b's four shapes, its multi-pod training step and
+llama4-scout-17b-a16e's training step, and ``launch.perf``'s pair C,
+rendered by ``benchmarks.roofline_table``), started before the LM
+phases and run beside them, and Qwen3-0.6B's train, prefill and decode
+steps as DTensor steps on a 1x1 nccl mesh at full width, each bitwise
+against the unsharded model, its counted FLOPs and bytes equal to the
+dry-run's of the same step (``python3 chip_smoke.py --sharded-dryrun
+OUT``, a child), the prefill through K5 28 times.
 Each path runs with every launch count set to 0 just before it and read
 just after; the actions are checked against the eager ``xla`` build of
 the same manifest, and the LM's logits against its monolith and against
@@ -78,7 +88,7 @@ Any failure ends the run with a non-zero exit code and no result line.
 Phase 14 prints its numbers as a ``{"training": ...}`` line, phase 15 as
 a ``{"population": ...}`` line, phase 16 as a ``{"lm": ...}`` line,
 phase 17 as a ``{"families": ...}`` line, phase 18 as a ``{"whisper":
-...}`` line.
+...}`` line, phase 19 as a ``{"sharded": ...}`` line.
 On success the line before the last is ``{"kernels": [...]}`` (one entry
 per kernel: launches on the served path, error, times and bound), and the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -86,6 +96,7 @@ the rest of the checkout, it exits non-zero.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import os
@@ -112,6 +123,16 @@ ACT_TOL = 1e-3    # served actions: a uint8 code may flip by one at .5
 PPO_STEPS_RTOL = 3e-4
 ATTN_TOL = {"float32": 2e-4,  # K5 in f32: sums in another order
             "bfloat16": 1e-2}  # K5 in bf16 vs plain f32: its output rounding
+# K5 in bf16 on rows of a 32,768-key causal prefill against the plain f32
+# rows, element by element: |K5 - plain| <= K5_ROWS_ATOL * RMS of the rows
+# + K5_ROWS_RTOL * |plain|.  A late row's output is a mean over up to 32k
+# values (RMS about 0.013 here), so a plain absolute limit is as large as
+# the output.  Rounding the output to bf16 moves it by at most 2^-8 of
+# itself (an early row, few keys: up to 4 in size), rounding P far less;
+# a dropped 128-key tile moves a late row by over 3x the limit (the phase
+# checks it)
+K5_ROWS_RTOL = 2.0 ** -6
+K5_ROWS_ATOL = 0.02
 LM_SPLIT_TOL = 1e-2   # full-width bf16 split (float32 codec) vs monolith
 LM_CPU_TOL = {"reduced": 1e-4, "full width": 1e-3}  # card vs CPU, f32
 # Device time a launch of the first-draft K2 and K3 (one thread an
@@ -686,7 +707,8 @@ POP_GRAD_RTOL = 1e-4
 # the returns' scale (its policy is batched: its convs sum in another
 # order)
 POP_EVAL_RTOL = 1e-4
-POP_PROBE_STEPS = 16       # the sync-gated chunk after training
+POP_PROBE_STEPS = 8        # the sync-gated chunk after training (16
+                           # until the whole script neared 600 s)
 POP_TRACE_STEPS = 2        # the traced chunk at P=16 (the profiler's own
                            # cost grows with the 12,000 kernels a step of
                            # the exact lanes)
@@ -2562,6 +2584,461 @@ def whisper_phase(dev, gen, reset_counts, counts):
     return out
 
 
+# Phase 19: the sharded LM step and its dry-run.  (a) The dry-run of the
+# production meshes at full width runs in child processes (a fake process
+# group cannot share a process with the card's real one): they start
+# before phase 16 and run beside phases 16 to 18 on the host's other
+# cores, and phase 19 waits for them.  (b) Qwen3-0.6B's train, prefill
+# and decode steps run as DTensor steps on a 1x1 mesh (nccl, world size
+# 1) at full width, each held against the unsharded model at the same
+# parameters within SHARDED_RTOL of the largest value (bitwise is what
+# is expected: the 1x1 mesh relabels a placement change in place of a
+# collective's copy), and their counted FLOPs and bytes against the
+# dry-run of the same step on a 1x1 fake mesh, exactly.
+SHARDED_RTOL = 1e-6
+SHARDED_ARCH = "qwen3-0.6b"
+# (shape id, seq len, batch, overrides): train_4k's batch is cut to what
+# one card holds with remat on, and its attention blocks span the whole
+# 4,096 tokens, so the chunked core runs as one block (the same function
+# in a thirtieth of the ops); prefill_32k at B = 1 (K5 at
+# (1,16/8,32768,128)); decode_32k at B = 8 over a 32,768-deep cache
+SHARDED_STEPS = (("train_4k", 4096, 2, {"attn_block_q": 4096,
+                                        "attn_block_k": 4096}),
+                 ("prefill_32k", 32768, 1, {}),
+                 ("decode_32k", 32768, 8, {}))
+SHARDED_K5 = 28          # K5 launches a Qwen3-0.6B prefill
+# the full-width dry-run cells and pair C of launch.perf
+DRYRUN_CELLS = (("--arch", SHARDED_ARCH, "--mesh", "single"),
+                ("--arch", SHARDED_ARCH, "--shape", "train_4k", "--mesh",
+                 "multi"),
+                ("--arch", "llama4-scout-17b-a16e", "--shape", "train_4k",
+                 "--mesh", "single"))
+DRYRUN_TIMEOUT_S = 420
+
+
+def _sharded_shape(shape_id, S, B):
+    from repro_torch.configs import SHAPES
+    from repro_torch.models.config import ShapeConfig
+    return ShapeConfig(shape_id, S, B, SHAPES[shape_id].kind)
+
+
+def sharded_dryrun(out_path) -> int:
+    """``python3 chip_smoke.py --sharded-dryrun OUT``: the dry-run of each
+    of ``SHARDED_STEPS`` on a 1x1 fake mesh (``launch.steps.trace_step``),
+    its counts written to OUT as JSON for phase 19 to hold the card's
+    counts against.  Runs in a process of its own."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch.mesh import init_fake_group
+    from repro_torch.launch.steps import trace_step
+    torch.set_num_threads(1)
+    init_fake_group(1)
+    mesh = DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                      mesh_dim_names=("data", "model"))
+    out = {}
+    for shape_id, S, B, over in SHARDED_STEPS:
+        t0 = time.perf_counter()
+        t = trace_step(SHARDED_ARCH, shape_id, mesh, overrides=over or None,
+                       shape=_sharded_shape(shape_id, S, B))
+        out[shape_id] = dict(dataclasses.asdict(t.counter),
+                             trace_s=t.trace_s,
+                             wall_s=time.perf_counter() - t0)
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def start_dryrun(work: Path):
+    """Start phase 19's dry-run children: the full-width cells through
+    ``python -m repro_torch.launch.dryrun`` and ``launch.perf --pair C``
+    one after another in one shell, and ``--sharded-dryrun``.  Returns
+    (the Popen objects, their log paths, the rows' path, the 1x1 counts'
+    path)."""
+    import shlex
+    work.mkdir(parents=True, exist_ok=True)
+    rows, counts = work / "dryrun_rows.jsonl", work / "sharded_1x1.json"
+    for p in (rows, counts):
+        p.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    py = shlex.quote(sys.executable)
+    out = shlex.quote(str(rows))
+    cmds = [f"{py} -m repro_torch.launch.dryrun {' '.join(cell)} --out {out}"
+            for cell in DRYRUN_CELLS]
+    cmds.append(f"{py} -m repro_torch.launch.perf --pair C --out {out}")
+    shell = "; ".join(f'{c}; echo "rc=$? {i}"' for i, c in enumerate(cmds))
+    logs = [work / "dryrun.log", work / "sharded_1x1.log"]
+    procs = []
+    for cmd, log in ((["sh", "-c", shell], logs[0]),
+                     ([sys.executable, str(ROOT / "chip_smoke.py"),
+                       "--sharded-dryrun", str(counts)], logs[1])):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=f,
+                                          stderr=subprocess.STDOUT))
+    return procs, logs, rows, counts
+
+
+def sharded_phase(dev, gen, reset_counts, counts, card, children):
+    """Phase 19: (b) first, while the dry-run children may still run, then
+    (a).  (a) waits for the children, prints each cell's row and renders
+    the file with ``benchmarks.roofline_table``; (b) runs Qwen3-0.6B's
+    train (S = 4,096, B = 2, remat), prefill (B = 1, S =
+    32,768: K5 28 times at (1,16/8,32768,128)) and decode (B = 8 over a
+    32,768-deep cache) steps as DTensor steps on a 1x1 nccl mesh at full
+    width: the median step time (CUDA events, after a warm-up) beside the
+    same step through the unsharded model, the counter's FLOPs and bytes
+    beside the 1x1 dry-run's, the roofline terms and the MFU against 989
+    TFLOP/s, and the peak memory beside the dry-run's; and K5 alone at
+    (1,16/8,32768,128) beside the library and, on its first and last 512
+    query rows, its plain f32 version.  Returns the ``{"sharded": ...}``
+    dict."""
+    import gc
+    import io
+    from contextlib import redirect_stdout
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.benchmarks import roofline_table
+    from repro_torch.configs import get_config
+    from repro_torch.costs import CostCounter
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch import roofline
+    from repro_torch.launch.steps import _apply_overrides, make_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.nn.module import (param_bytes, tree_leaves, tree_map,
+                                       tree_unflatten)
+    from repro_torch.train.optimizer import adamw
+    from torch.utils._pytree import tree_leaves as pytree_leaves
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    procs, logs, rows_path, counts_path = children
+
+    def wait_child(proc, log, path):
+        """The 1x1 dry-run's counts, once its child has exited 0."""
+        try:
+            proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        check(proc.returncode == 0,
+              f"the 1x1 dry-run failed: {log.read_text()[-3000:]}")
+        return json.loads(path.read_text())
+
+    # ---- (b) the sharded steps on a 1x1 mesh at full width -----------------
+    mesh = make_host_mesh(device=dev)
+    cfg0 = get_config(SHARDED_ARCH)
+    model = build_model(cfg0)
+    params = model.init(gen(0), device=dev)
+    torch.cuda.synchronize()
+    check(cfg0.d_model == 1024 and cfg0.n_layers == 28
+          and cfg0.vocab == 151936, f"not full width: {cfg0}")
+
+    def timed(fn, reps=3):
+        """(median ms of ``reps`` calls, the readings), each between CUDA
+        events with the device synchronized; the caller has warmed ``fn``
+        up."""
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        return median(ts), ts
+
+    def local(tree):
+        return tree_map(lambda t: t.to_local(), tree)
+
+    def rel_err(a, b):
+        a, b = a.float(), b.float()
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    steps_out = {}
+    fake = None     # the 1x1 dry-run's counts, read once its child is done
+    for shape_id, S, B, over in SHARDED_STEPS:
+        t_step = time.perf_counter()
+        shape = _sharded_shape(shape_id, S, B)
+        cfg, _ = _apply_overrides(cfg0, over or None)
+        bundle = make_step(SHARDED_ARCH, shape_id, mesh,
+                           overrides=over or None, shape=shape)
+        plain_model = build_model(cfg)
+        toks = torch.randint(0, cfg.vocab, (B, S), generator=gen(90))
+        toks = toks.to(dev, torch.int32)
+        torch.cuda.empty_cache()
+        if shape.kind == "train":
+            opt = adamw(3e-4, clip_norm=1.0)
+            ost = opt.init(params)
+            args = (params, ost, {"tokens": toks})
+
+            def plain():
+                leaves = [x.detach().requires_grad_()
+                          for x in tree_leaves(params)]
+                with torch.enable_grad():
+                    loss, _ = plain_model.loss(tree_unflatten(params, leaves),
+                                               {"tokens": toks},
+                                               remat=cfg.remat)
+                    grads = torch.autograd.grad(loss, leaves)
+                new, _ = opt.update(params, ost,
+                                    tree_unflatten(params, list(grads)))
+                return loss.detach(), new
+        elif shape.kind == "prefill":
+            args = (params, {"tokens": toks})
+
+            def plain():
+                with torch.no_grad():
+                    return plain_model.forward(params, toks, remat=cfg.remat,
+                                               last_only=True)[0][:, -1]
+        else:
+            caches = model.init_cache(B, S, torch.bfloat16, device=dev)
+            for leaf in tree_leaves(caches):
+                leaf.normal_(generator=torch.Generator(dev).manual_seed(91))
+            index = torch.tensor(S - 1, dtype=torch.int32, device=dev)
+            tok = toks[:, :1]
+            args = (params, tok, caches, index)
+            k0 = caches["scan"]["b0_attn"]["k"]
+            row0 = {n: c[:, :, S - 1].clone() for n, c in
+                    caches["scan"]["b0_attn"].items()}
+
+            def plain():
+                return plain_model.decode_step(params, tok, caches, index)[0]
+        # the sharded step: once for its outputs (its warm-up), once under
+        # the counter (DTensor's layout caches warm), then timed; K5
+        # counted in the first run, the peak over the inputs' own bytes
+        # (the dry-run's peak counts them too)
+        in_bytes = sum({t.untyped_storage().data_ptr(): t.untyped_storage()
+                        .nbytes() for t in pytree_leaves(args)
+                        if isinstance(t, torch.Tensor)}.values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        res = bundle.run(mesh, *args)
+        torch.cuda.synchronize()
+        k5 = counts()[4]
+        peak = torch.cuda.max_memory_allocated() - base + in_bytes
+        dargs = bundle.shard(mesh, *args)
+        with CostCounter(dev) as c:
+            c.track(dargs)
+            bundle.fn(*dargs)
+        torch.cuda.synchronize()
+        del dargs
+        sharded_ms, sharded_reps = timed(lambda: bundle.run(mesh, *args))
+        # the unsharded step on the same inputs
+        if shape.kind == "decode":
+            for n, r in row0.items():        # the row the step wrote back
+                caches["scan"]["b0_attn"][n][:, :, S - 1] = r
+        want = plain()          # its warm-up too
+        torch.cuda.synchronize()
+        plain_ms, plain_reps = timed(plain)
+        # hold the sharded outputs against the unsharded ones
+        if shape.kind == "train":
+            new_p, _, met = res
+            got = [met["loss"].to_local()] + tree_leaves(local(new_p))
+            ref = [want[0]] + tree_leaves(want[1])
+        elif shape.kind == "prefill":
+            got, ref = [res.to_local()], [want]
+        else:
+            got, ref = [res[0].to_local()], [want]
+        errs = [rel_err(a, b) for a, b in zip(got, ref)]
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
+        err = max(errs)
+        check(err <= SHARDED_RTOL, f"sharded {shape_id}: {err:.3g} of the "
+              f"largest from the unsharded step (tol {SHARDED_RTOL})")
+        # the counts against the 1x1 dry-run
+        if fake is None:
+            fake = wait_child(procs[1], logs[1], counts_path)
+        d = fake[shape_id]
+        check(c.flops == d["flops"] and c.bytes_accessed ==
+              d["bytes_accessed"] and c.bytes_fused == d["bytes_fused"],
+              f"sharded {shape_id}: counted {c.flops} FLOPs, "
+              f"{c.bytes_accessed}/{c.bytes_fused} bytes on the card; the "
+              f"1x1 dry-run {d['flops']}, {d['bytes_accessed']}/"
+              f"{d['bytes_fused']}")
+        if shape.kind == "prefill":
+            check(k5 == SHARDED_K5, f"sharded prefill launched K5 {k5} "
+                  f"times; expected {SHARDED_K5}")
+        compute_s = c.flops / roofline.PEAK_FLOPS
+        memory_s = c.bytes_fused / roofline.HBM_BW
+        floor_s = roofline.hbm_floor_bytes(cfg, shape, 1) / roofline.HBM_BW
+        mflops = roofline.model_flops(cfg, shape)
+        mfu = mflops / (sharded_ms / 1e3) / roofline.PEAK_FLOPS
+        check(min(sharded_reps + plain_reps) / 1e3 >= max(compute_s,
+                                                           floor_s),
+              f"sharded {shape_id}: a step time under its bound "
+              f"max({compute_s:.4g}, {floor_s:.4g}) s")
+        row = dict(shape=[B, S], overrides=over, ms=sharded_ms,
+                   ms_reps=sharded_reps, plain_ms=plain_ms,
+                   plain_ms_reps=plain_reps, host_overhead_ms=sharded_ms
+                   - plain_ms, max_rel_err=err, errs=errs, bitwise=bitwise,
+                   flops=c.flops, bytes_accessed=c.bytes_accessed,
+                   bytes_fused=c.bytes_fused, coll=dict(c.coll_breakdown),
+                   ops=c.ops, dryrun=d, compute_s=compute_s,
+                   memory_s=memory_s, memory_floor_s=floor_s,
+                   model_flops=mflops, mfu=mfu, peak_bytes=peak,
+                   dryrun_peak_bytes=d["peak_bytes"], k5_launches=k5,
+                   seconds=time.perf_counter() - t_step)
+        steps_out[shape_id] = row
+        print(f"sharded {shape_id} (1x1 nccl mesh, B={B}, S={S}"
+              + (f", {over}" if over else "") + f") on {card}: median "
+              f"{sharded_ms:.2f} ms ("
+              + "/".join(f"{t:.2f}" for t in sharded_reps)
+              + f") against the unsharded model's {plain_ms:.2f} ms ("
+              + "/".join(f"{t:.2f}" for t in plain_reps)
+              + f"), {sharded_ms - plain_ms:+.2f} ms of DTensor host time; "
+              + ("outputs bitwise equal" if bitwise
+                 else f"outputs {err:.3g} of the largest")
+              + f" to the unsharded step's; counted {c.flops:.6e} FLOPs, "
+              f"{c.bytes_accessed:.6e} bytes ({c.bytes_fused:.6e} fused) "
+              f"over {c.ops} ops = the 1x1 dry-run's {d['flops']:.6e}, "
+              f"{d['bytes_accessed']:.6e} ({d['bytes_fused']:.6e}); "
+              f"compute {compute_s * 1e3:.3f} ms, memory {memory_s * 1e3:.3f}"
+              f" ms, floor {floor_s * 1e3:.3f} ms; MFU {100 * mfu:.2f}% "
+              f"(6/2·N·D {mflops:.4g} FLOP); peak {peak / 2**30:.3f} GiB "
+              f"with the inputs against the dry-run's "
+              f"{d['peak_bytes'] / 2**30:.3f} GiB; K5 {k5} launches")
+        del res, want, got, ref, bundle, args, plain
+        if shape.kind == "train":
+            del opt, ost
+        if shape.kind == "decode":
+            del caches, k0, row0
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["steps"] = steps_out
+    mesh_ok = mesh.size() == 1
+    torch.distributed.destroy_process_group()
+    check(mesh_ok, "the host mesh is not one chip")
+
+    # ---- (a) the dry-run children -----------------------------------------
+    t0 = time.perf_counter()
+    for p in procs:
+        try:
+            p.wait(timeout=max(DRYRUN_TIMEOUT_S - (time.perf_counter() - t0),
+                               1))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+                q.wait()
+            raise RuntimeError("chip_smoke: the dry-run children ran past "
+                               f"{DRYRUN_TIMEOUT_S} s")
+    wait_s = time.perf_counter() - t0
+    log = logs[0].read_text()
+    rcs = [line for line in log.splitlines() if line.startswith("rc=")]
+    print(f"dry-run children: waited {wait_s:.2f} s in phase 19; "
+          + "; ".join(rcs))
+    for line in log.splitlines():
+        if line.startswith(("[", "  cost", "  memory", "  collectives")):
+            print("  " + line)
+    check(procs[0].returncode == 0 and len(rcs) == 4
+          and all(r.split()[0] == "rc=0" for r in rcs),
+          f"a dry-run cell failed: {rcs}; the log's tail: {log[-3000:]}")
+    rows = [json.loads(line) for line in rows_path.read_text().splitlines()]
+    check(len(rows) == 8 and not any("error" in r for r in rows),
+          f"expected 8 dry-run rows without an error, got {len(rows)}")
+    want = {(SHARDED_ARCH, s, "single") for s in
+            ("train_4k", "prefill_32k", "decode_32k", "long_500k")}
+    want |= {(SHARDED_ARCH, "train_4k", "multi"),
+             ("llama4-scout-17b-a16e", "train_4k", "single")}
+    check(want <= {(r["arch"], r["shape"], r["mesh"]) for r in rows},
+          "a dry-run cell is missing from the rows")
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        roofline_table.main(["--glob", str(rows_path), "--all"])
+    table = buf.getvalue()
+    print("roofline_table over the dry-run rows (per chip of a 16x16 or "
+          "2x16x16 mesh; H100 SXM peaks at 700 W):")
+    print(table, end="")
+    check(len(table.splitlines()) == 1 + len(roofline_table.load(
+        [rows_path])), "roofline_table did not render every row")
+    out["dryrun"] = {"rows": rows, "wait_s": wait_s}
+
+    # ---- K5 alone at the prefill's shape ----------------------------------
+    H, H_kv, D, S = 16, 8, 128, 32768
+    q, k, v = (torch.randn((1, S, n, D), generator=gen(95 + i))
+               .to(dev, torch.bfloat16).transpose(1, 2)
+               for i, n in enumerate((H, H_kv, H_kv)))
+    reset_counts()
+    got = flash_attention(q, k, v, causal=True)
+    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                         enable_gqa=True)
+    torch.cuda.synchronize()
+    check(counts()[4] == 1, "K5 did not launch at (1,16/8,32768,128)")
+    k5_err = (got.float() - lib.float()).abs().max().item()
+    check(k5_err <= ATTN_TOL["bfloat16"], f"K5 at (1,16/8,32768,128) "
+          f"differs from the library by {k5_err}")
+    # ... and against its plain f32 version on the first and the last 512
+    # query rows, each row against every key it sees: a (1,16,512,32768)
+    # f32 score block, 1 GiB, where the whole plain version takes 64 GiB
+    rep = H // H_kv
+    kf, vf = (t.float().repeat_interleave(rep, dim=1) for t in (k, v))
+
+    def rows_ref(lo, hi, keys=S):
+        s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, lo:hi].float(),
+                         kf[:, :, :keys]) * D ** -0.5
+        s = s.masked_fill(torch.arange(keys, device=dev)[None, :]
+                          > torch.arange(lo, hi, device=dev)[:, None],
+                          float("-inf"))
+        return torch.softmax(s, dim=-1) @ vf[:, :, :keys]
+
+    def over_limit(rows, ref):
+        """The largest |rows - ref| over its limit (1 is at the limit)."""
+        lim = (K5_ROWS_ATOL * ref.pow(2).mean().sqrt()
+               + K5_ROWS_RTOL * ref.abs())
+        return ((rows - ref).abs() / lim).max().item()
+
+    slices = {"first": (0, 512), "last": (S - 512, S)}
+    row_err = {}
+    for name, (lo, hi) in slices.items():
+        ref = rows_ref(lo, hi)
+        mine = got[:, :, lo:hi].float()
+        row_err[name] = dict(max_abs_err=(mine - ref).abs().max().item(),
+                             rms=ref.pow(2).mean().sqrt().item(),
+                             of_limit=over_limit(mine, ref))
+        check(row_err[name]["of_limit"] <= 1, f"K5's {name} 512 rows at "
+              f"(1,16/8,32768,128) differ from the plain f32 rows: "
+              f"{row_err[name]}")
+    # the gate sees a kernel that drops the last 128-key tile
+    lo, hi = slices["last"]
+    dropped = over_limit(rows_ref(lo, hi, S - 128), ref)
+    check(dropped > 1, f"the rows gate would not see a dropped KV tile "
+          f"({dropped:.3g} of its limit)")
+    print(f"K5 against its plain f32 version on rows of "
+          f"(1,16/8,32768,128), limit {K5_ROWS_ATOL} x RMS + "
+          f"{K5_ROWS_RTOL} x |plain| an element: " + ", ".join(
+              f"{n} 512 rows max_abs_err {e['max_abs_err']:.3g} (RMS "
+              f"{e['rms']:.3g}), {e['of_limit']:.3g} of the limit"
+              for n, e in row_err.items())
+          + f"; the last rows without their last 128 keys: {dropped:.3g} "
+          f"of it")
+    del kf, vf, ref, mine
+    reps = [cuda_ms(lambda: flash_attention(q, k, v, causal=True), iters=3,
+                    warmup=1) for _ in range(3)]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), iters=3, warmup=1)
+    flops = 4 * D * attention_pairs(S, None) * H
+    b_ms, b_by = bound(nbytes(q, k, v, got), flops, PEAK_BF16_FLOP_S)
+    k5_ms = median(reps)
+    print(f"K5 flash_attention at the sharded prefill's (1,16/8,32768,128) "
+          f"bf16 on {card}: {k5_ms:.4f} ms (median of "
+          + "/".join(f"{t:.4f}" for t in reps)
+          + f"), library {lib_ms:.4f} ms (scaled_dot_product_attention), "
+          f"max_abs_err {k5_err:.3g} against it; plain not timed (its "
+          f"(1,16,32768,32768) f32 scores take 64 GiB); bound {b_ms:.4f} ms "
+          f"({b_by}, {flops / 1e12:.4g} TFLOP), "
+          f"{flops / k5_ms / 1e9:.1f} TFLOP/s, "
+          f"{100 * b_ms / k5_ms:.2f}% of the bound")
+    out["k5_32k"] = dict(ms=k5_ms, ms_reps=reps, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=k5_err,
+                         plain_rows=row_err, dropped_tile_of_limit=dropped,
+                         shape=[1, H, S, D], kv_heads=H_kv)
+    del q, k, v, got, lib, params
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"sharded phase: {out['seconds']:.2f} s (target 45 s)")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3657,6 +4134,12 @@ def main() -> int:
     population = population_phase(dev, card)
     print(json.dumps({"population": population}, default=float))
 
+    # the dry-run children of phase 19 run beside phases 16 to 18; none
+    # outlives this process
+    dryrun_children = start_dryrun(ROOT / "chiprun_out" / "phase19")
+    atexit.register(lambda: [p.kill() for p in dryrun_children[0]
+                             if p.poll() is None])
+
     # ---- 16. the LM decode path and training at full width -----------------
     # Decoding and training take the eager attention branches (decode's
     # scores over the cache; a training step needs autograd, which K5
@@ -3676,7 +4159,13 @@ def main() -> int:
     whisper = whisper_phase(dev, gen, reset_counts, counts)
     print(json.dumps({"whisper": whisper}, default=float))
 
-    # ---- 19. results -------------------------------------------------------
+    # ---- 19. the sharded LM step and its dry-run ---------------------------
+    # K5 runs the sharded prefill's 28 cores through local_map.
+    sharded = sharded_phase(dev, gen, reset_counts, counts, card,
+                            dryrun_children)
+    print(json.dumps({"sharded": sharded}, default=float))
+
+    # ---- 20. results -------------------------------------------------------
     k1 = k1_rows["served edge"]
     def layer_row(rows, dev_us):
         """The served frame's row, with the 400x400 and batch-8 times."""
@@ -3739,6 +4228,11 @@ def main() -> int:
     kernels[4]["whisper_decoder_launches"] = \
         whisper["model"]["decoder_launches"][4]
     kernels[4]["llava_prefill_launches"] = whisper["llava"]["launches"][4]
+    kernels[4]["sharded_prefill_launches"] = \
+        sharded["steps"]["prefill_32k"]["k5_launches"]
+    for key in ("ms", "ms_reps", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err", "shape", "kv_heads"):
+        kernels[4][f"prefill_32k_{key}"] = sharded["k5_32k"][key]
     for pre, label in (("whisper_enc", "whisper encoder"),
                        ("whisper_enc_f32", "whisper encoder f32"),
                        ("whisper_dec", "whisper decoder"),
@@ -3774,4 +4268,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--population-gates"]:
         sys.exit(population_gates())
+    if sys.argv[1:2] == ["--sharded-dryrun"] and len(sys.argv) == 3:
+        sys.exit(sharded_dryrun(sys.argv[2]))
     sys.exit(main())

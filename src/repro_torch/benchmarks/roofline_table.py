@@ -7,10 +7,9 @@ count, samples a pixel against the shader budget, FLOPs and bytes moved —
 so the table always agrees with what the kernels execute.
 
 Without it, the table renders dry-run sweep results (JSONL, one row per
-arch × shape × mesh) with the dominant-term classification and the
-useful-FLOPs ratio.  The port's dry-run that writes them comes with
-ROADMAP queue 1, item 2.5; until then ``--glob`` reads rows written by
-another tool in the same format.
+arch × shape × mesh, as ``python -m repro_torch.launch.dryrun --out``
+writes them) with the dominant-term classification and the useful-FLOPs
+ratio.
 
     python -m repro_torch.benchmarks.roofline_table --miniconv
     python -m repro_torch.benchmarks.roofline_table --glob 'rows/*.jsonl'
@@ -100,8 +99,9 @@ def main(argv=None):
         return
     paths = sorted(glob.glob(args.glob))
     if not paths:
-        print(f"no dry-run results match {args.glob}; the port's dry-run "
-              f"that writes them comes with ROADMAP queue 1, item 2.5")
+        print(f"no dry-run results match {args.glob}; write them with "
+              f"python -m repro_torch.launch.dryrun --all --mesh both "
+              f"--out <file>")
         return
     render(load(paths), only_baseline=not args.all)
 

@@ -4,9 +4,13 @@
 
 Given CPU tensors it computes with the kernel's plain PyTorch version
 (``kernels.ref.attention_ref``, on K/V heads repeated to H).  Given CUDA
-tensors it launches the kernel or raises; nothing falls back.  The kernel
-has no backward pass, so CUDA inputs that require grad (in grad mode) are
-refused.  Three
+tensors it launches the kernel or raises; nothing falls back.  Given
+``meta`` tensors (the dry-run's, ``launch.dryrun``) it returns the output
+the kernel would, empty, and launches nothing.  On CUDA and on ``meta``
+it records the kernel's work (``repro_torch.costs.record``: its FLOPs
+and the bytes it reads and writes) into any active cost counter, since a
+ctypes launch bypasses the dispatcher.  The kernel has no backward
+pass, so CUDA inputs that require grad (in grad mode) are refused.  Three
 plain integers count what a run did, for a run to reset and read:
 ``flash_attention.launches`` (every launch), ``flash_attention.tc_launches``
 (launches on the tensor-core route) and ``flash_attention.copies`` (inputs
@@ -23,6 +27,7 @@ import torch
 from repro_torch.kernels._build import (aligned, check_rc, launcher,
                                         on_one_device)
 from repro_torch.kernels.ref import attention_ref
+from repro_torch.costs import attention_flops, record
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # flash_attention_launch(const long long* args, float scale): the args
@@ -46,7 +51,7 @@ def _addressable(t: torch.Tensor) -> torch.Tensor:
     counted in ``flash_attention.copies``."""
     (n0, n1, n2, _), (s0, s1, s2, s3) = t.shape, t.stride()
     unit = 16 // t.element_size()
-    if (s3 == 1 and t.data_ptr() % 16 == 0
+    if (s3 == 1 and t.data_ptr() % 16 == 0     # 0 on meta
             and (n0 == 1 or (s0 > 0 and s0 % unit == 0))
             and (n1 == 1 or (s1 > 0 and s1 % unit == 0))
             and (n2 == 1 or (s2 > 0 and s2 % unit == 0))):
@@ -113,7 +118,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return attention_ref(q, k.repeat_interleave(n_rep, dim=1),
                              v.repeat_interleave(n_rep, dim=1),
                              causal=causal, sliding_window=sliding_window)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -127,6 +132,11 @@ def flash_attention(q, k, v, *, causal: bool = True,
     # (B, S, H, D) storage seen as (B, H, S, D)
     o = torch.empty_strided((B, H, S, D), (S * H * D, D, H * D, 1),
                             dtype=dt, device=dev)
+    record(attention_flops(B, H, S, S, D, causal=causal,
+                           window=sliding_window),
+           (2 * q.numel() + k.numel() + v.numel()) * q.element_size())
+    if dev.type == "meta":
+        return o
     fn = launcher("flash_attention", "flash_attention_launch", _ARGS)
     args = array.array("q", (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

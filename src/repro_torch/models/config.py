@@ -103,10 +103,11 @@ class ArchConfig:
     dtype: str = "bfloat16"
 
     # ------- performance knobs (not architecture) --------------------------
-    # Kept field for field so that a config equals the reference's.  The
-    # port reads attn_block_q/k and attn_skip_masked_blocks (the chunked
-    # attention path); the sharding, MoE and decode knobs wait for the
-    # modules that read them.
+    # Kept field for field so that a config equals the reference's, and
+    # read where the reference reads them: the chunked attention path, the
+    # MoE (padding, dispatch dtype, expert parallelism under a mesh) and
+    # the decode cache write (masked_cache_update, whose sequence-sharded
+    # scores act under a mesh).
     attn_block_q: int = 512
     attn_block_k: int = 512
     attn_skip_masked_blocks: bool = False   # static causal/window skipping

@@ -24,10 +24,12 @@ from repro_torch.models.blocks import (block_apply, block_decode, block_init,
                                        block_init_cache, norm_apply,
                                        norm_init)
 from repro_torch.models.config import ArchConfig
+from repro_torch.nn.constrain import (checkpoint_context_fn, constrain,
+                                      constrain_act)
 from repro_torch.nn.losses import softmax_cross_entropy
 from repro_torch.nn.layers import dense, dense_init, embed, embedding_init, \
     unembed
-from repro_torch.nn.module import tree_map
+from repro_torch.nn.module import no_draw, tree_map
 
 
 def _seg_key(i: int, kind: str) -> str:
@@ -78,10 +80,18 @@ class DecoderModel:
     def init(self, gen: torch.Generator, device: DeviceLike = None) -> Any:
         """Random parameters drawn in turn from ``gen``, each tensor moved
         to ``device`` (CUDA by default) as soon as it is drawn; each
-        super-block is copied into the stacked leaves as it is drawn."""
+        super-block is copied into the stacked leaves as it is drawn.  On
+        ``"meta"`` nothing is drawn (``nn.module.no_draw``): the leaves
+        have their shapes and dtypes and no storage."""
+        dev = resolve_device(device)
+        if dev.type == "meta":
+            with no_draw():
+                return self._init(gen, dev)
+        return self._init(gen, dev)
+
+    def _init(self, gen, dev):
         cfg = self.cfg
         dtype = cfg.torch_dtype
-        dev = resolve_device(device)
 
         def seg_init():
             return {_seg_key(i, kind): block_init(gen, cfg, kind, dtype, dev)
@@ -116,6 +126,7 @@ class DecoderModel:
         for i, kind in enumerate(self.pattern):
             x, a = block_apply(seg[_seg_key(i, kind)], self.cfg, kind, x,
                                long_ctx=long_ctx)
+            x = constrain_act(x)
             aux = _add(aux, a.get("moe_aux_loss"))
         return x, aux
 
@@ -128,7 +139,8 @@ class DecoderModel:
         for seg in _unstack(scan):
             if remat:
                 x, a = checkpoint(self._super_apply, seg, x, long_ctx,
-                                  use_reentrant=False)
+                                  use_reentrant=False,
+                                  context_fn=checkpoint_context_fn())
             else:
                 x, a = self._super_apply(seg, x, long_ctx)
             aux = _add(aux, a)
@@ -147,9 +159,12 @@ class DecoderModel:
         return logits
 
     def forward(self, params, tokens=None, *, frontend_embeds=None,
-                long_ctx: bool = False, remat: bool = False):
-        """Full-sequence forward.  Returns (logits, aux)."""
-        x = self._embed_inputs(params, tokens, frontend_embeds)
+                long_ctx: bool = False, remat: bool = False,
+                last_only: bool = False):
+        """Full-sequence forward.  Returns (logits, aux); with
+        ``last_only`` the logits of the last position alone, (B, 1, V) (the
+        head runs on that position only: a prefill's next-token logits)."""
+        x = constrain_act(self._embed_inputs(params, tokens, frontend_embeds))
         aux = None
         if self.n_pattern > 0:
             x, aux = self._segments(x, params["scan"], long_ctx, remat)
@@ -157,7 +172,10 @@ class DecoderModel:
             x, a = block_apply(params[f"rem{i}_{kind}"], self.cfg, kind, x,
                                long_ctx=long_ctx)
             aux = _add(aux, a.get("moe_aux_loss"))
-        logits = self._softcap(self._head(params, x))
+        if last_only:
+            x = x[:, -1:]
+        logits = constrain(self._softcap(self._head(params, x)),
+                           ("batch", None, "model"))
         if aux is None:     # no MoE block
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return logits, {"moe_aux_loss": aux}
@@ -247,7 +265,7 @@ class DecoderModel:
         (``nn.attention.decode_attention``) or its recurrent state and conv
         buffer (``models.blocks.block_decode``)."""
         cfg = self.cfg
-        x = embed(params["embed"], token)
+        x = constrain_act(embed(params["embed"], token))
         index = torch.as_tensor(index, device=x.device)
         if self.n_pattern > 0:
             for seg, seg_cache in zip(_unstack(params["scan"]),
@@ -256,6 +274,7 @@ class DecoderModel:
                     k = _seg_key(i, kind)
                     x, _ = block_decode(seg[k], cfg, kind, x, seg_cache[k],
                                         index, long_ctx=long_ctx)
+                    x = constrain_act(x)
         for i, kind in enumerate(self.remainder):
             k = f"rem{i}_{kind}"
             x, _ = block_decode(params[k], cfg, kind, x, caches[k], index,

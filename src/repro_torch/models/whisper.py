@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import _draw_stacked, _unstack
+from repro_torch.nn.constrain import checkpoint_context_fn, constrain_act
 from repro_torch.nn.attention import (AttentionConfig, attention,
                                       attention_init, cross_attention,
                                       cross_kv, decode_attention,
@@ -35,7 +36,7 @@ from repro_torch.nn.layers import (embed, embedding_init, gelu_mlp,
                                    gelu_mlp_init, layernorm, layernorm_init,
                                    unembed)
 from repro_torch.nn.losses import softmax_cross_entropy
-from repro_torch.nn.module import tree_map
+from repro_torch.nn.module import no_draw, tree_map
 from repro_torch.nn.rotary import sinusoidal_positions
 
 
@@ -89,10 +90,17 @@ class WhisperModel:
         """Random parameters drawn in turn from ``gen``, each tensor moved
         to ``device`` (CUDA by default) as soon as it is drawn; each block
         is copied into the stacked leaves as it is drawn, so the peak stays
-        near the parameters' bytes."""
+        near the parameters' bytes.  On ``"meta"`` nothing is drawn
+        (``nn.module.no_draw``)."""
+        dev = resolve_device(device)
+        if dev.type == "meta":
+            with no_draw():
+                return self._init(gen, dev)
+        return self._init(gen, dev)
+
+    def _init(self, gen, dev):
         cfg = self.cfg
         dtype = cfg.torch_dtype
-        dev = resolve_device(device)
         params = {
             "embed": embedding_init(gen, cfg.vocab, cfg.d_model, dtype=dtype,
                                     device=dev),
@@ -117,9 +125,11 @@ class WhisperModel:
         x = x + sinusoidal_positions(T, cfg.d_model,
                                      device=x.device).to(x.dtype)
         acfg = _attn_cfg(cfg, causal=False)
+        x = constrain_act(x)
         for p in _unstack(params["enc_scan"]):
             x = x + attention(p["attn"], acfg, layernorm(p["norm1"], x))
-            x = x + gelu_mlp(p["mlp"], layernorm(p["norm2"], x))
+            x = constrain_act(x + gelu_mlp(p["mlp"],
+                                           layernorm(p["norm2"], x)))
         return layernorm(params["enc_norm"], x)
 
     # --------------------------------------------------------------- decoder
@@ -135,33 +145,40 @@ class WhisperModel:
         x = x + attention(p["self_attn"], acfg, layernorm(p["norm1"], x))
         x = x + cross_attention(p["cross_attn"], xcfg,
                                 layernorm(p["norm2"], x), enc_out)
-        return x + gelu_mlp(p["mlp"], layernorm(p["norm3"], x))
+        return constrain_act(x + gelu_mlp(p["mlp"],
+                                          layernorm(p["norm3"], x)))
 
     def decode_full(self, params, tokens, enc_out, *, long_ctx: bool = False,
-                    remat: bool = False):
+                    remat: bool = False, last_only: bool = False):
         """Teacher-forced decoder pass.  Returns (logits, aux).  With
         ``remat`` each block is a ``torch.utils.checkpoint`` region (its
-        activations recomputed in the backward pass)."""
+        activations recomputed in the backward pass); with ``last_only``
+        the logits of the last position alone, (B, 1, V)."""
         cfg = self.cfg
         B, S = tokens.shape
         x = embed(params["embed"], tokens)
         x = x + self._dec_positions(params, 0, S, B)
         acfg = _attn_cfg(cfg, causal=True, long_ctx=long_ctx)
         xcfg = _attn_cfg(cfg, causal=False)
+        x = constrain_act(x)
         for p in _unstack(params["dec_scan"]):
             if remat:
                 x = checkpoint(self._dec_block, p, x, enc_out, acfg, xcfg,
-                               use_reentrant=False)
+                               use_reentrant=False,
+                               context_fn=checkpoint_context_fn())
             else:
                 x = self._dec_block(p, x, enc_out, acfg, xcfg)
+        if last_only:
+            x = x[:, -1:]
         x = layernorm(params["dec_norm"], x)
         return unembed(params["embed"], x), {}
 
     def forward(self, params, tokens=None, *, frontend_embeds=None,
-                long_ctx: bool = False, remat: bool = False):
+                long_ctx: bool = False, remat: bool = False,
+                last_only: bool = False):
         enc_out = self.encode(params, frontend_embeds)
         return self.decode_full(params, tokens, enc_out, long_ctx=long_ctx,
-                                remat=remat)
+                                remat=remat, last_only=last_only)
 
     def loss(self, params, batch, *, remat: bool = True):
         """Next-token cross-entropy of the teacher-forced decoder.  batch:
@@ -240,7 +257,8 @@ class WhisperModel:
             x = x + cross_attention(p["cross_attn"], xcfg,
                                     layernorm(p["norm2"], x),
                                     k=k.to(x.dtype), v=v.to(x.dtype))
-            x = x + gelu_mlp(p["mlp"], layernorm(p["norm3"], x))
+            x = constrain_act(x + gelu_mlp(p["mlp"],
+                                           layernorm(p["norm3"], x)))
         x = layernorm(params["dec_norm"], x)
         return unembed(params["embed"], x), caches
 

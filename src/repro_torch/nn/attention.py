@@ -9,9 +9,17 @@ autograd will not need q, k and v (:func:`needs_autograd`: K5, like the
 reference's kernel, has no backward pass), and through the reference's
 two eager branches (``_scores_to_out``, ``chunked_attention``) otherwise.
 The rule reads the config, the mask and autograd's state, never the
-device, so the CPU takes the branch the card takes.  Cross-attention and the one-token
-decode step over a KV cache are the reference's, eager.  The reference's
-sharding annotations have no counterpart: one card, no mesh.
+device, so the CPU takes the branch the card takes.  Cross-attention and
+the one-token decode step over a KV cache are the reference's, eager.
+
+The reference's sharding constraints sit at its places
+(``nn.constrain.constrain``): they act only inside
+``activation_sharding``, where the tensors are DTensors.  There K5 and
+the chunked core take DTensor q, k and v through ``local_map``, each chip
+running them on its own block, batch over the data axes and heads over
+``"model"`` (:func:`_on_local_heads`); the chunked core's running max,
+sum and accumulator are then the block's own, where the reference
+constrains them to that layout.
 """
 from __future__ import annotations
 
@@ -22,6 +30,9 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.nn.constrain import (activation_spec, axis_sizes, constrain,
+                                      is_dtensor, on_local_tensors, on_mesh,
+                                      placements)
 from repro_torch.nn.layers import dense, dense_init, rmsnorm, rmsnorm_init
 from repro_torch.nn.module import tree_leaves
 from repro_torch.nn.rotary import apply_rope
@@ -86,7 +97,8 @@ def _project_qkv(params, cfg: AttentionConfig, x, positions):
     if cfg.use_rope:
         q = apply_rope(q, positions, theta=cfg.rope_theta)
         k = apply_rope(k, positions, theta=cfg.rope_theta)
-    return q, k, v
+    bshd = ("batch", None, "model", None)
+    return constrain(q, bshd), constrain(k, bshd), constrain(v, bshd)
 
 
 def _repeat_kv(x, n_rep: int):
@@ -97,19 +109,23 @@ def _repeat_kv(x, n_rep: int):
         B, S, KV * n_rep, D)
 
 
-def _scores_to_out(cfg, q, k, v, mask):
+def _scores_to_out(cfg, q, k, v, mask, *, seq_sharded: bool = False):
     """q: (B,Sq,H,D); k,v: (B,Skv,H_kv,D) with H a multiple of H_kv; mask
     broadcastable to (B,H,Sq,Skv).
 
     Query head h reads KV head h // (H // H_kv), the head ``_repeat_kv``
     would put there: the query heads are seen as H_kv groups, so k and v
-    are never repeated (the reference passes them repeated, H_kv = H)."""
+    are never repeated (the reference passes them repeated, H_kv = H).
+    ``seq_sharded`` pins the scores' KV axis to the "model" mesh axis
+    (decode over a sequence-sharded cache), as the reference does."""
     B, Sq, H, D = q.shape
     G, Skv = k.shape[2], k.shape[1]
     scale = cfg.head_dim ** -0.5
     qg = q.reshape(B, Sq, G, H // G, D)
     logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k).float() * scale
     logits = logits.reshape(B, H, Sq, Skv)
+    if seq_sharded:
+        logits = constrain(logits, ("batch", None, None, "model"))
     if cfg.attn_logit_softcap is not None:
         c = cfg.attn_logit_softcap
         logits = c * torch.tanh(logits / c)
@@ -162,6 +178,35 @@ def needs_autograd(params, x) -> bool:
         x.requires_grad or any(t.requires_grad for t in tree_leaves(params)))
 
 
+def _on_local_heads(fn, q, k, v, head_dim: int):
+    """``fn(q, k, v)`` on each chip's block of DTensor q, k, v: batch
+    over the data axes and heads (dim ``head_dim``) over "model" where
+    they divide, through ``torch.distributed.tensor.experimental.
+    local_map``; an attention core is independent across both, so the
+    block needs no collective.  Where the query heads divide the model
+    axis and the KV heads do not, k and v are first repeated to the query
+    heads, so each chip holds the KV heads its query heads read."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    sizes = axis_sizes(mesh)
+    dims = ["batch", None, None, None]
+    dims[head_dim] = "model"
+    spec = activation_spec(tuple(q.shape), dims, sizes, q.shape[0])
+    H, H_kv = q.shape[head_dim], k.shape[head_dim]
+    if spec[head_dim] is not None and H_kv % sizes["model"]:
+        k = k.repeat_interleave(H // H_kv, dim=head_dim)
+        v = v.repeat_interleave(H // H_kv, dim=head_dim)
+    pl = placements(spec, mesh)
+
+    def local(q, k, v):
+        with on_local_tensors():    # constrain is the identity in here
+            return fn(q, k, v)
+    return local_map(local, out_placements=list(pl),
+                     in_placements=(pl, pl, pl), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
 def attention(params, cfg: AttentionConfig, x, *, positions=None,
               mask=None):
     """Full-sequence self-attention (training / prefill)."""
@@ -174,19 +219,33 @@ def attention(params, cfg: AttentionConfig, x, *, positions=None,
         # views and maps each query head to its KV head; on the card its
         # output is (B, S, H, D) storage, so the reshape below is a view
         blk = flash_blocks(S)
-        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=cfg.causal,
-                              sliding_window=cfg.sliding_window,
-                              block_q=blk, block_k=blk)
-        out = out.transpose(1, 2)
+
+        def core(q, k, v):
+            return flash_attention(q, k, v, causal=cfg.causal,
+                                   sliding_window=cfg.sliding_window,
+                                   block_q=blk, block_k=blk)
+        q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        out = (_on_local_heads(core, q, k, v, 1) if is_dtensor(q)
+               else core(q, k, v)).transpose(1, 2)
     elif S > cfg.chunked_threshold and mask is None:
         n_rep = cfg.n_heads // cfg.n_kv_heads
-        out = chunked_attention(cfg, q, _repeat_kv(k, n_rep),
-                                _repeat_kv(v, n_rep))
+        k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+
+        def core(q, k, v):
+            return chunked_attention(cfg, q, k, v)
+        out = (_on_local_heads(core, q, k, v, 2) if is_dtensor(q)
+               else core(q, k, v))
     else:
         if mask is None:
             mask = make_attention_mask(cfg, S, S, device=x.device)
-        out = _scores_to_out(cfg, q, k, v, mask)
+
+        def core(q, k, v):
+            return _scores_to_out(cfg, q, k, v, mask)
+        # on DTensors, each chip's block: DTensor's einsum flattens the
+        # batch with a sharded head dim, which some releases refuse
+        out = (_on_local_heads(core, q, k, v, 2) if is_dtensor(q)
+               else core(q, k, v))
+    out = constrain(out, ("batch", None, "model", None))
     return dense(params["wo"], out.reshape(B, S, -1))
 
 
@@ -213,11 +272,13 @@ def _chunk_q_block(cfg: AttentionConfig, q_blk, k, v, q_lo: int,
     scale = cfg.head_dim ** -0.5
     qf = q_blk.float() * scale
     q_pos = q_lo + torch.arange(bq, device=q_blk.device)
-    m = torch.full((B, H, bq), _NEG, dtype=torch.float32,
-                   device=q_blk.device)
-    l = torch.zeros((B, H, bq), dtype=torch.float32, device=q_blk.device)
-    acc = torch.zeros((B, H, bq, D), dtype=torch.float32,
-                      device=q_blk.device)
+    m = constrain(torch.full((B, H, bq), _NEG, dtype=torch.float32,
+                             device=q_blk.device), ("batch", "model", None))
+    l = constrain(torch.zeros((B, H, bq), dtype=torch.float32,
+                              device=q_blk.device), ("batch", "model", None))
+    acc = constrain(torch.zeros((B, H, bq, D), dtype=torch.float32,
+                                device=q_blk.device),
+                    ("batch", "model", None, None))
     for ik in range(n_k):
         k_blk = k[:, ik * bk:(ik + 1) * bk]
         v_blk = v[:, ik * bk:(ik + 1) * bk]
@@ -314,6 +375,40 @@ def init_kv_cache(cfg: AttentionConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+def _write_row_sharded(k_cache, v_cache, k_row, v_row, idx, masked: bool):
+    """The new K/V row written into DTensor caches (B, S_max, KV, D) in
+    place, each chip writing its own block (``local_map``): a chip whose
+    sequence range [lo, lo + S_local) holds the row's position writes it
+    there, the others write back the row they hold.  The position is the
+    index clamped to [0, S_max - 1], or with ``masked`` the index itself,
+    written nowhere when out of range, as the unsharded write does."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = k_cache.device_mesh
+    S_max = k_cache.shape[1]
+    pl = list(k_cache.placements)
+    seq = [d for d, p in enumerate(pl) if p.is_shard(1)]
+    row_pl = [Replicate() if p.is_shard(1) else p for p in pl]
+
+    def write(kc, vc, kr, vr, i):
+        chunk = 0                  # this chip's sequence block, outer first
+        for d in seq:
+            chunk = chunk * mesh.size(d) + mesh.get_local_rank(d)
+        S_local = kc.shape[1]
+        r = (i if masked else i.clamp(0, S_max - 1)) - chunk * S_local
+        mine = (r >= 0) & (r < S_local)
+        r = r.clamp(0, S_local - 1).reshape(1)
+        for c, new in ((kc, kr), (vc, vr)):
+            c.index_copy_(1, r, torch.where(mine, new, c.index_select(1, r)))
+
+    local_map(write, out_placements=None,
+              in_placements=(pl, pl, row_pl, row_pl,
+                             [Replicate()] * mesh.ndim),
+              device_mesh=mesh, redistribute_inputs=True)(
+        k_cache, v_cache, k_row, v_row, idx)
+
+
 @torch.no_grad()
 def decode_attention(params, cfg: AttentionConfig, x, cache, index):
     """One-token decode step.
@@ -339,21 +434,30 @@ def decode_attention(params, cfg: AttentionConfig, x, cache, index):
     positions = (index.reshape(1, 1).expand(B, 1) if index.dim() == 0
                  else index.reshape(B, 1))
     q, k_new, v_new = _project_qkv(params, cfg, x, positions.to(torch.int32))
+    # the one token's q/k/v are replicated over "model", so they compose
+    # with however the cache is sharded
+    rep = ("batch", None, None, None)
+    q, k_new, v_new = constrain(q, rep), constrain(k_new, rep), \
+        constrain(v_new, rep)
 
     idx = index.to(torch.int64).reshape(())
     k_cache, v_cache = cache["k"], cache["v"]
     S_max = k_cache.shape[1]
     row = idx.clamp(0, S_max - 1).reshape(1)
     k_row, v_row = k_new.to(k_cache.dtype), v_new.to(v_cache.dtype)
-    if cfg.masked_cache_update:
-        # the reference's where() over every position writes the row at
-        # ``index`` and none when it is out of range: the same function,
-        # computed on the one row the write can touch
-        inside = (idx >= 0) & (idx < S_max)
-        k_row = torch.where(inside, k_row, k_cache.index_select(1, row))
-        v_row = torch.where(inside, v_row, v_cache.index_select(1, row))
-    k_cache.index_copy_(1, row, k_row)
-    v_cache.index_copy_(1, row, v_row)
+    if is_dtensor(k_cache):
+        _write_row_sharded(k_cache, v_cache, k_row, v_row, idx,
+                           cfg.masked_cache_update)
+    else:
+        if cfg.masked_cache_update:
+            # the reference's where() over every position writes the row at
+            # ``index`` and none when it is out of range: the same function,
+            # computed on the one row the write can touch
+            inside = (idx >= 0) & (idx < S_max)
+            k_row = torch.where(inside, k_row, k_cache.index_select(1, row))
+            v_row = torch.where(inside, v_row, v_cache.index_select(1, row))
+        k_cache.index_copy_(1, row, k_row)
+        v_cache.index_copy_(1, row, v_row)
 
     if (cfg.windowed_decode_gather and cfg.sliding_window is not None
             and S_max > cfg.sliding_window):
@@ -374,8 +478,42 @@ def decode_attention(params, cfg: AttentionConfig, x, cache, index):
 
     # the query heads read their KV heads in groups (_scores_to_out): the
     # cache is never repeated to H heads
-    out = _scores_to_out(cfg, q, k_cmp.to(q.dtype), v_cmp.to(q.dtype), mask)
+    out = _decode_scores(cfg, q, k_cmp.to(q.dtype), v_cmp.to(q.dtype), mask,
+                         seq_sharded=cfg.masked_cache_update)
     return dense(params["wo"], out.reshape(B, 1, -1)), cache
+
+
+def _decode_scores(cfg, q, k, v, mask, *, seq_sharded: bool):
+    """``_scores_to_out`` of the one-token step.  On DTensors over a cache
+    that keeps its sequence whole on each chip, each chip scores its own
+    block (``local_map``: batch over the data axes, the KV heads and
+    their query heads over "model" where both divide): the grouped
+    scores' einsum flattens the batch with the KV-head dim, which DTensor
+    refuses while that dim is sharded.  A sequence-sharded cache keeps
+    the reference's DTensor form, its scores' KV axis over "model"."""
+    if not is_dtensor(k) or any(p.is_shard(1) for p in k.placements):
+        return _scores_to_out(cfg, q, k, v, mask, seq_sharded=seq_sharded)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = k.device_mesh
+    sizes = axis_sizes(mesh)
+    heads = q.shape[2] % sizes["model"] == 0 and \
+        k.shape[2] % sizes["model"] == 0
+    dims = ("batch", None, "model" if heads else None, None)
+    q_pl = placements(activation_spec(tuple(q.shape), dims, sizes,
+                                      q.shape[0]), mesh)
+    kv_pl = placements(activation_spec(tuple(k.shape), dims, sizes,
+                                       k.shape[0]), mesh)
+
+    def local(q, k, v, m):
+        with on_local_tensors():
+            return _scores_to_out(cfg, q, k, v, m)
+    return local_map(local, out_placements=list(q_pl),
+                     in_placements=(q_pl, kv_pl, kv_pl,
+                                    [Replicate()] * mesh.ndim),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k, v, on_mesh(mask, mesh))
 
 
 __all__ = ["AttentionConfig", "attention", "attention_init",

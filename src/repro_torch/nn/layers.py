@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.nn.constrain import constrain, gathered, reduced
 from repro_torch.nn.module import fan_in_init, normal_init
 
 
@@ -26,7 +27,11 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
 
 
 def dense(params, x):
-    y = x @ params["kernel"]
+    w = gathered(params["kernel"])
+    # one 2-D product over the flattened rows, as ``@`` computes a
+    # contiguous plain x (DTensor's ``@`` can take its batched form)
+    y = reduced(x.reshape(-1, x.shape[-1]) @ w).reshape(
+        *x.shape[:-1], w.shape[-1])
     if "bias" in params:
         y = y + params["bias"]
     return y
@@ -45,12 +50,15 @@ def embedding_init(gen: torch.Generator, vocab: int, dim: int, *,
 
 
 def embed(params, ids):
-    return F.embedding(ids, params["embedding"])
+    return F.embedding(ids, gathered(params["embedding"]))
 
 
 def unembed(params, x):
     """Tied logits projection."""
-    return x @ params["embedding"].T
+    w = gathered(params["embedding"]).T
+    # one 2-D product, as in ``dense``
+    return (x.reshape(-1, x.shape[-1]) @ w).reshape(
+        *x.shape[:-1], w.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -138,9 +146,14 @@ def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int, *,
     }
 
 
+def _hidden_dims(x):
+    return ("batch",) + (None,) * (x.ndim - 2) + ("model",)
+
+
 def swiglu(params, x):
     g = F.silu(dense(params["gate"], x))
-    return dense(params["down"], g * dense(params["up"], x))
+    h = constrain(g * dense(params["up"], x), _hidden_dims(x))
+    return dense(params["down"], h)
 
 
 def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *,
@@ -160,7 +173,8 @@ def gelu(x):
 
 
 def gelu_mlp(params, x):
-    return dense(params["down"], gelu(dense(params["up"], x)))
+    h = constrain(gelu(dense(params["up"], x)), _hidden_dims(x))
+    return dense(params["down"], h)
 
 
 __all__ = ["conv2d", "conv2d_init", "dense", "dense_init", "embed",

@@ -11,10 +11,12 @@ parameters instead (``repro_torch.convert``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, Iterator
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 Initializer = Callable[[torch.Generator, tuple, torch.dtype], torch.Tensor]
 
@@ -48,6 +50,31 @@ def orthogonal_init(scale: float = 1.0) -> Initializer:
         return x.to(dtype)
 
     return init
+
+
+class _NoDraw(TorchFunctionMode):
+    """Every tensor a ``torch.*`` factory makes lands on ``meta`` and
+    every ``generator`` is dropped: an initialiser run under this mode
+    draws nothing and allocates nothing, and returns leaves of the shapes
+    and dtypes it would return."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "generator" in kwargs:
+            kwargs.pop("generator")
+            if func is torch.nn.init.orthogonal_:
+                return args[0]
+        if "device" in kwargs:
+            kwargs["device"] = "meta"
+        return func(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def no_draw():
+    """Run initialisers on ``meta`` without drawing from their generator
+    (``DecoderModel.init(..., device="meta")`` enters it itself)."""
+    with _NoDraw():
+        yield
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -114,6 +141,6 @@ def cast_tree(params, dtype):
                     params)
 
 
-__all__ = ["Initializer", "cast_tree", "fan_in_init", "normal_init",
-           "orthogonal_init", "param_bytes", "param_count", "tree_leaves",
-           "tree_map", "tree_paths", "tree_unflatten"]
+__all__ = ["Initializer", "cast_tree", "fan_in_init", "no_draw",
+           "normal_init", "orthogonal_init", "param_bytes", "param_count",
+           "tree_leaves", "tree_map", "tree_paths", "tree_unflatten"]

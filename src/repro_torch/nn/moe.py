@@ -5,8 +5,12 @@ Expert weights are stacked on a leading expert axis, and the experts run
 as one batched SwiGLU over that axis (``torch.bmm``).  Tokens are routed
 in groups of ``group_size``, each expert taking at most ``C`` tokens of a
 group; the rest are dropped, exactly as the reference drops them.  The
-reference's sharding constraints act only under a mesh, so the port has
-none: ``expert_parallel`` is carried and acts nowhere yet.
+reference's constraints stand at its places (``nn.constrain.constrain``;
+with ``expert_parallel``, groups over "data", experts over "model").  On
+DTensors the layer runs on each chip's block of groups
+(:func:`_moe_sharded`), where ``expert_parallel`` splits the experts over
+"model" (each chip computes its experts' slots) and its absence splits
+their FFN width.
 
 Supports the two assigned MoE archs:
   * llama4-scout : 16 routed experts, top-1, + 1 shared expert (every layer)
@@ -16,14 +20,19 @@ Supports the two assigned MoE archs:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.nn.constrain import (axis_sizes, constrain, data_axes,
+                                      gathered, is_dtensor, on_local_tensors,
+                                      on_mesh, reduced)
 from repro_torch.nn.layers import dense, dense_init, swiglu, swiglu_init
-from repro_torch.nn.module import fan_in_init
+from repro_torch.nn.module import (fan_in_init, tree_leaves, tree_paths,
+                                   tree_unflatten)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +52,8 @@ class MoEConfig:
     # pad the expert axis to this count (0 = off); padded experts get
     # -inf router logits and are never selected
     pad_experts_to: int = 0
-    # the reference's expert-parallel layout under a mesh; no mesh here
+    # expert parallelism under a mesh: groups over "data", experts over
+    # "model" (acts inside activation_sharding only)
     expert_parallel: bool = False
     # run dispatch/combine in the activation dtype instead of f32
     dispatch_bf16: bool = False
@@ -92,9 +102,9 @@ def _group_size(cfg: MoEConfig, n_tokens: int) -> int:
 
 def _experts(p, x):
     """Every expert's SwiGLU on its own rows: x (E, T, D) -> (E, T, D)."""
-    g = F.silu(torch.bmm(x, p["gate"]["kernel"]))
-    return torch.bmm(g * torch.bmm(x, p["up"]["kernel"]),
-                     p["down"]["kernel"])
+    g = F.silu(torch.bmm(x, gathered(p["gate"]["kernel"])))
+    return torch.bmm(g * torch.bmm(x, gathered(p["up"]["kernel"])),
+                     gathered(p["down"]["kernel"]))
 
 
 def moe_apply(params, cfg: MoEConfig, x, *, deterministic: bool = True,
@@ -110,8 +120,34 @@ def moe_apply(params, cfg: MoEConfig, x, *, deterministic: bool = True,
     router learns through the gate values only.  ``gen`` draws the router
     jitter when ``deterministic`` is False.  The routing comes back in aux,
     detached: ``expert_idx`` (n, G, K), ``keep`` (n, G, K), whether each
-    pair found a slot, and ``probs`` (n, G, E).
+    pair found a slot, and ``probs`` (n, G, E).  On DTensors each chip
+    routes its own groups (:func:`_moe_sharded`).
     """
+    if is_dtensor(x):
+        return _moe_sharded(params, cfg, x, deterministic, gen)
+    y, stats, routing = _moe(params, cfg, x, deterministic, gen)
+    return y, _aux(cfg, *stats, routing)
+
+
+def _aux(cfg: MoEConfig, frac_tokens, frac_probs, entropy, routing):
+    """The Switch-style load-balance loss and the router's entropy from the
+    groups' mean expert loads and probabilities."""
+    expert_idx, keep, probs = routing
+    return {"moe_aux_loss": cfg.n_experts * torch.sum(frac_tokens
+                                                      * frac_probs),
+            "router_entropy": entropy, "expert_idx": expert_idx,
+            "keep": keep, "probs": probs}
+
+
+def _moe(params, cfg: MoEConfig, x, deterministic, gen, e_lo: int = 0,
+         shared_scale: float = 1.0):
+    """The layer on plain tensors, every group of ``x`` routed over all
+    the experts and computed by those in ``params["experts"]``: the
+    ``e_lo``-th and the ones after it (all of them, unsharded), each with
+    the width of FFN its weights hold; the shared expert's output is
+    added times ``shared_scale``.  Returns (y, (the groups' mean expert
+    loads, mean probabilities, mean router entropy), (expert_idx, keep,
+    probs))."""
     B, S, D = x.shape
     T = B * S
     E, K = cfg.n_experts_padded, cfg.top_k
@@ -119,6 +155,9 @@ def moe_apply(params, cfg: MoEConfig, x, *, deterministic: bool = True,
     n_groups = T // G
     C = _capacity(cfg, G)
     xt = x.reshape(n_groups, G, D)
+    if cfg.expert_parallel:
+        # pin the group axis to "data"
+        xt = constrain(xt, ("data", None, None))
 
     logits = dense(params["router"], xt.float())             # (n,G,E)
     if not deterministic and cfg.router_jitter > 0 and gen is not None:
@@ -150,13 +189,25 @@ def moe_apply(params, cfg: MoEConfig, x, *, deterministic: bool = True,
     disp = (onehot[..., None] * pos_oh[..., None, :]).detach()  # (n,G,K,E,C)
     dispatch = disp.sum(2)                                    # (n,G,E,C)
     combine = (disp * gate_vals[..., None, None].to(ddt)).sum(2)
+    if cfg.expert_parallel:
+        dispatch = constrain(dispatch, ("data", None, None, None))
+        combine = constrain(combine, ("data", None, None, None))
+    # the experts this call computes
+    E_here = params["experts"]["gate"]["kernel"].shape[0]
+    dispatch = dispatch[:, :, e_lo:e_lo + E_here]
+    combine = combine[:, :, e_lo:e_lo + E_here]
 
     expert_in = torch.einsum("ngec,ngd->necd", dispatch,
                              xt.to(ddt)).to(x.dtype)
+    if cfg.expert_parallel:
+        # each model shard owns E/model_size experts
+        expert_in = constrain(expert_in, ("data", "model", None, None))
     # the experts as one batched SwiGLU, (n, C) the rows of each
-    rows = expert_in.transpose(0, 1).reshape(E, n_groups * C, D)
+    rows = expert_in.transpose(0, 1).reshape(E_here, n_groups * C, D)
     expert_out = _experts(params["experts"], rows) \
-        .reshape(E, n_groups, C, D).transpose(0, 1)           # (n,E,C,D)
+        .reshape(E_here, n_groups, C, D).transpose(0, 1)      # (n,E,C,D)
+    if cfg.expert_parallel:
+        expert_out = constrain(expert_out, ("data", "model", None, None))
     y = torch.einsum("ngec,necd->ngd", combine.to(ddt),
                      expert_out.to(ddt)).to(x.dtype)
 
@@ -164,18 +215,123 @@ def moe_apply(params, cfg: MoEConfig, x, *, deterministic: bool = True,
         shared = swiglu(params["shared"], xt)
         if "shared_gate" in params:
             shared = shared * torch.sigmoid(dense(params["shared_gate"], xt))
-        y = y + shared
+        y = y + (shared if shared_scale == 1.0 else shared * shared_scale)
 
     # --- auxiliary load-balance loss (Switch-style) ------------------------
     frac_tokens = onehot.sum(2).mean(dim=(0, 1))              # (E,)
     frac_probs = probs.mean(dim=(0, 1))                       # (E,)
-    aux_loss = cfg.n_experts * torch.sum(frac_tokens * frac_probs)
     entropy = -torch.mean(torch.sum(probs * torch.log(probs + 1e-9), -1))
-    return y.reshape(B, S, D), {"moe_aux_loss": aux_loss,
-                                "router_entropy": entropy,
-                                "expert_idx": expert_idx.detach(),
-                                "keep": keep.any(-1),
-                                "probs": probs.detach()}
+    return (y.reshape(B, S, D), (frac_tokens, frac_probs, entropy),
+            (expert_idx.detach(), keep.any(-1), probs.detach()))
+
+
+def _moe_sharded(params, cfg: MoEConfig, x, deterministic, gen):
+    """The layer on DTensors, each chip on its own block (``local_map``).
+
+    The batch is split over the data axes where each chip's tokens make
+    whole groups (else every chip routes them all).  Over "model" the
+    experts split by expert (with ``expert_parallel``, where the model
+    axis divides them: each chip computes its experts' slots) or by FFN
+    width (Megatron's split); each chip's output is then a partial sum
+    over "model".  The shared expert splits by width where the model axis
+    divides it, else model rank 0 alone adds it (every chip computes it,
+    so that every chip's backward runs the same collectives).  The
+    weights' FSDP shards are gathered on the way in.
+
+    Every output is a sum over the chips that split the work, and so is
+    the gradient of every input they all hold whole: the load and
+    probability means come back as partial sums (each data shard's mean
+    over its equal share of the groups, counted on model rank 0 alone
+    where "model" splits the experts), summed at once, so the loss is the
+    one the whole batch gives, and the gradients of the router, the replicated weights
+    and ``x`` leave as partial sums over the axes that split the work."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    sizes = axis_sizes(mesh)
+    names = mesh.mesh_dim_names
+    n_model = sizes["model"]
+    B, S, D = x.shape
+    E = cfg.n_experts_padded
+    data = data_axes(sizes)
+    n_data = math.prod(sizes[a] for a in data)
+    G = _group_size(cfg, B * S)
+    split_batch = B % n_data == 0 and (B // n_data * S) % G == 0
+    shared = params.get("shared")
+    widths = [params["experts"]["gate"]["kernel"].shape[-1]]
+    if shared is not None:
+        widths.append(shared["gate"]["kernel"].shape[-1])
+    by_expert = cfg.expert_parallel and E % n_model == 0
+    by_width = not by_expert and all(w % n_model == 0 for w in widths)
+    partial = by_expert or by_width
+    shared_by_width = partial and widths[-1] % n_model == 0
+    # the mesh dims whose chips each do a share of the work
+    split = [(name in data and split_batch) or (name == "model" and partial)
+             for name in names]
+
+    def pl(shard_dim=None, batch_dim=None):
+        """Placements: ``batch_dim`` over the data axes (when the batch is
+        split), ``shard_dim`` over "model"."""
+        return [Shard(batch_dim) if name in data and split_batch
+                and batch_dim is not None
+                else Shard(shard_dim) if name == "model"
+                and shard_dim is not None else Replicate()
+                for name in names]
+
+    def expert_pl(path):
+        if by_expert:
+            return pl(0)
+        if by_width:
+            return pl(1 if path.endswith("down") else 2)
+        return pl()
+
+    def weight_pl(path):
+        if path.startswith("experts/"):
+            return expert_pl(path.split("/")[1])
+        if path.startswith("shared/") and shared_by_width:
+            return pl(0 if path.split("/")[1] == "down" else 1)
+        return pl()
+
+    def grad_pl(placements):
+        """A whole input's gradient is a partial sum over the dims that
+        split the work; a shard's is the chip's own."""
+        return [Partial() if s and p.is_replicate() else p
+                for s, p in zip(split, placements)]
+
+    paths = [p for p, _ in tree_paths(params)]
+    in_pl = [pl(batch_dim=0)] + [
+        weight_pl(p.rsplit("/", 1)[0]) if p.endswith("kernel") else pl()
+        for p in paths]
+    y_pl = [Partial() if name == "model" and partial else p
+            for name, p in zip(names, pl(batch_dim=0))]
+    stat_pl = [Partial() if s else Replicate() for s in split]
+    route_pl = pl(batch_dim=0)
+
+    def local(x, *leaves):
+        with on_local_tensors():
+            p = tree_unflatten(params, list(leaves))
+            rank0 = mesh.get_local_rank("model") == 0
+            e_lo = 0
+            if by_expert:
+                e_lo = mesh.get_local_rank("model") * (E // n_model)
+            once = float(rank0 or not partial)   # 1 where it is summed once
+            y, stats, routing = _moe(
+                p, cfg, x, deterministic, gen, e_lo,
+                shared_scale=1.0 if shared_by_width else once)
+            scale = (1 / n_data if split_batch else 1.0) * once
+            return (y, *(s * scale for s in stats), *routing)
+
+    out = local_map(local, out_placements=(y_pl, stat_pl, stat_pl, stat_pl,
+                                           route_pl, route_pl, route_pl),
+                    in_placements=tuple(in_pl),
+                    in_grad_placements=tuple(grad_pl(p) for p in in_pl),
+                    device_mesh=mesh, redistribute_inputs=True)(
+        x, *(on_mesh(t, mesh) for t in tree_leaves(params)))
+    y, *stats, expert_idx, keep, probs = out
+    # summed at once: a partial sum meeting the loss's partial mean is a
+    # mix DTensor refuses to add
+    return y, _aux(cfg, *map(reduced, stats), (expert_idx, keep, probs))
 
 
 __all__ = ["MoEConfig", "moe_apply", "moe_init"]

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.nn.constrain import gathered
 from repro_torch.nn.layers import dense, dense_init, gelu
 
 _C = 8.0  # Griffin's fixed recurrence sharpness constant
@@ -58,7 +59,7 @@ def _promoted_dense(p, x):
     """``dense`` in the promoted dtype of ``x`` and the weights, as jnp's
     ``x @ kernel`` computes an f32 state against bf16 weights."""
     dt = torch.promote_types(x.dtype, p["kernel"].dtype)
-    y = x.to(dt) @ p["kernel"].to(dt)
+    y = x.to(dt) @ gathered(p["kernel"]).to(dt)
     if "bias" in p:
         y = y + p["bias"].to(dt)
     return y

@@ -63,7 +63,10 @@ def test_port_files_exist():
                 "rl/ddpg.py", "rl/sac.py", "rl/ppo.py", "rl/rollout.py",
                 "rl/train.py", "examples/train_split_policy.py",
                 "rl/population.py", "benchmarks/population.py",
-                "benchmarks/learning.py"):
+                "benchmarks/learning.py", "nn/constrain.py",
+                "models/sharding.py", "launch/mesh.py", "launch/steps.py",
+                "costs.py", "launch/roofline.py", "launch/dryrun.py",
+                "launch/perf.py"):
         assert mod in names, mod
     assert len([n for n in names if n.startswith("configs/")]) == 11
     assert {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")} == \

@@ -679,6 +679,30 @@ def test_flash_kernel_refuses_inputs_that_require_grad(cuda):
     assert fmod.flash_attention.launches == before + 1
 
 
+def test_flash_kernel_launches_on_cuda_and_records_its_work(cuda):
+    """A CUDA call launches K5 and counts one launch, as it did before the
+    ``meta`` branch came: that branch is taken for ``meta`` tensors only.
+    Both record the kernel's FLOPs and bytes into the cost counter."""
+    from repro_torch.costs import CostCounter, attention_flops
+    gen = torch.Generator().manual_seed(8)
+    q, k, v = (torch.randn((1, n, 256, 128), generator=gen)
+               .to(cuda, torch.bfloat16) for n in (16, 8, 8))
+    before = fmod.flash_attention.launches
+    with torch.no_grad(), CostCounter("cuda") as c:
+        out = fmod.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fmod.flash_attention.launches == before + 1
+    assert out.is_cuda and torch.isfinite(out.float()).all()
+    qm, km, vm = q.to("meta"), k.to("meta"), v.to("meta")
+    with CostCounter("meta") as m:
+        fmod.flash_attention(qm, km, vm, causal=True)
+    assert fmod.flash_attention.launches == before + 1
+    flops = attention_flops(1, 16, 256, 256, 128, causal=True)
+    assert c.flops == m.flops == flops
+    assert c.bytes_accessed == m.bytes_accessed == \
+        (2 * q.numel() + k.numel() + v.numel()) * 2
+
+
 def test_lm_decode_and_train_step_on_card(cuda):
     """Decode over an f32 cache against the card's forward (1e-4) and the
     CPU's decode (1e-4) with no K5 launch; one Trainer step against the

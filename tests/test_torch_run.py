@@ -91,8 +91,9 @@ def test_dryrun_table_renders_the_reference_rows(tmp_path, extra):
 
 def test_dryrun_table_without_results_names_the_roadmap_item(tmp_path):
     out = _stdout(roofline_table.main, ["--glob", str(tmp_path / "*.jsonl")])
-    assert "no dry-run results match" in out and "item 2.5" in out
-    assert "repro.launch" not in out
+    assert "no dry-run results match" in out
+    assert "python -m repro_torch.launch.dryrun" in out
+    assert "repro.launch" not in out and "item 2.5" not in out
 
 
 # ---------------------------------------------------------------------------
