@@ -79,6 +79,11 @@ steps as DTensor steps on a 1x1 nccl mesh at full width, each bitwise
 against the unsharded model, its counted FLOPs and bytes equal to the
 dry-run's of the same step (``python3 chip_smoke.py --sharded-dryrun
 OUT``, a child), the prefill through K5 28 times.
+Last it collects the port's static analysis (``python -m
+repro_torch.analysis --strict``, a child started before phase 1), which
+must exit 0, and holds the shared-memory budget its ``kernel-smem`` rule
+audits (``passplan.SMEM_LIMIT``) against the card's opt-in shared memory
+of one block.
 Each path runs with every launch count set to 0 just before it and read
 just after; the actions are checked against the eager ``xla`` build of
 the same manifest, and the LM's logits against its monolith and against
@@ -88,7 +93,8 @@ Any failure ends the run with a non-zero exit code and no result line.
 Phase 14 prints its numbers as a ``{"training": ...}`` line, phase 15 as
 a ``{"population": ...}`` line, phase 16 as a ``{"lm": ...}`` line,
 phase 17 as a ``{"families": ...}`` line, phase 18 as a ``{"whisper":
-...}`` line, phase 19 as a ``{"sharded": ...}`` line.
+...}`` line, phase 19 as a ``{"sharded": ...}`` line, phase 20 as an
+``{"analysis": ...}`` line.
 On success the line before the last is ``{"kernels": [...]}`` (one entry
 per kernel: launches on the served path, error, times and bound), and the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -322,6 +328,7 @@ def training_phase(dev, gen, miniconv_encoder, reset_counts):
     from repro_torch.rl.train import TASK_ALGO, _pipeline_encoder
     from repro_torch.rl.train import train as rl_train
 
+    # repro: allow(timing-warmup) -- phase wall clock, first calls and builds included; the device results it checks before its end read synchronize
     t_phase = time.perf_counter()
     A = {"pendulum": 1, "hopper": 3, "walker": 6}
     CFG = {"ddpg": DDPGConfig(), "sac": SACConfig(), "ppo": PPOConfig()}
@@ -767,6 +774,7 @@ def population_gates(dev="cuda") -> int:
     from repro_torch.rl.train import _pipeline_encoder
     from repro_torch.rl.train import train as rl_train
 
+    # repro: allow(timing-warmup) -- phase wall clock, first calls and builds included; the device results it checks before its end read synchronize
     t_phase = time.perf_counter()
     card = card_name()
     dev = torch.device(dev)
@@ -1022,6 +1030,7 @@ def population_phase(dev, card):
     from repro_torch.rl.train import _pipeline_encoder
     from repro_torch.rl.train import train as rl_train
 
+    # repro: allow(timing-warmup) -- phase wall clock, first calls and builds included; the device results it checks before its end read synchronize
     t_phase = time.perf_counter()
     say = lambda msg: print(f"population [{card}]: {msg}")  # noqa: E731
     out = {"card": card}
@@ -1227,6 +1236,7 @@ def lm_phase(dev, gen, reset_counts, counts):
     from repro_torch.train import checkpoint
     from repro_torch.train.trainer import TrainConfig, Trainer
 
+    # repro: allow(timing-warmup) -- phase wall clock, first calls and builds included; the device results it checks before its end read synchronize
     t_phase = time.perf_counter()
     lm = {}
 
@@ -1663,6 +1673,7 @@ def families_phase(dev, gen, reset_counts, counts):
                                        tree_leaves, tree_map, tree_paths,
                                        tree_unflatten)
 
+    # repro: allow(timing-warmup) -- phase wall clock, first calls and builds included; the device results it checks before its end read synchronize
     t_phase = time.perf_counter()
     fam = {}
     P, MAX, NEW = 128, 256, 32
@@ -1693,6 +1704,7 @@ def families_phase(dev, gen, reset_counts, counts):
     def full_width(arch, k5_want):
         """(a) and (b) for one config; every tensor it makes is freed when
         it returns."""
+        # repro: allow(timing-warmup) -- one config's wall clock, first calls included; the device results it checks before its end read synchronize
         t_arch = time.perf_counter()
         row = {}
         cfg, model = get_model(arch, reduced=False)
@@ -2131,6 +2143,7 @@ def whisper_phase(dev, gen, reset_counts, counts):
                                        tree_leaves, tree_map, tree_paths,
                                        tree_unflatten)
 
+    # repro: allow(timing-warmup) -- phase wall clock, first calls and builds included; the device results it checks before its end read synchronize
     t_phase = time.perf_counter()
     out = {"k5": {}}
 
@@ -2637,6 +2650,7 @@ def sharded_dryrun(out_path) -> int:
                       mesh_dim_names=("data", "model"))
     out = {}
     for shape_id, S, B, over in SHARDED_STEPS:
+        # repro: allow(timing-warmup) -- times a dry-run trace over meta DTensors on a fake process group: nothing runs on the device
         t0 = time.perf_counter()
         t = trace_step(SHARDED_ARCH, shape_id, mesh, overrides=over or None,
                        shape=_sharded_shape(shape_id, S, B))
@@ -2709,6 +2723,7 @@ def sharded_phase(dev, gen, reset_counts, counts, card, children):
     from repro_torch.train.optimizer import adamw
     from torch.utils._pytree import tree_leaves as pytree_leaves
 
+    # repro: allow(timing-warmup) -- phase wall clock, first calls and builds included; the device results it checks before its end read synchronize
     t_phase = time.perf_counter()
     out = {"card": card}
     procs, logs, rows_path, counts_path = children
@@ -3039,6 +3054,82 @@ def sharded_phase(dev, gen, reset_counts, counts, card, children):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the port's static analysis
+# ---------------------------------------------------------------------------
+# ``python -m repro_torch.analysis --strict`` runs in a child started before
+# phase 1 (it needs no device and about 10 s of one core) and is collected
+# here; the phase holds the shared-memory audit's constant against the card.
+
+def start_lint():
+    """Start phase 20's child from the checkout's root, with no device
+    visible to it.  Returns (the Popen, the thread that waits for it, and
+    the dict where that thread puts its output and seconds)."""
+    import threading
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    done = {}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "--strict"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+    def wait():
+        done["out"] = proc.communicate()[0]
+        done["seconds"] = time.perf_counter() - t0
+
+    waiter = threading.Thread(target=wait, daemon=True)
+    waiter.start()
+    return proc, waiter, done
+
+
+def lint_phase(card, lint) -> dict:
+    """Phase 20: the strict lint's exit code, counts and seconds, and
+    ``passplan.SMEM_LIMIT`` (the budget ``kernel-smem`` audits and the
+    tile planner packs to) against the card's opt-in shared memory of one
+    block."""
+    import re
+    import torch
+    from repro_torch.analysis import load_context, rule_names
+    from repro_torch.analysis.__main__ import DEFAULT_PATHS
+    from repro_torch.core.passplan import SMEM_LIMIT
+
+    torch.cuda.synchronize()  # the earlier phases' work is not this phase's
+    t_phase = time.perf_counter()
+    proc, waiter, done = lint
+    waiter.join(timeout=300)
+    check(not waiter.is_alive(), "python -m repro_torch.analysis --strict "
+          "did not end within 300 s of phase 20's start")
+    text = done["out"]
+    print(text.rstrip())
+    m = re.search(r"strict: (\d+) new, (\d+) baselined, (\d+) suppressed, "
+                  r"(\d+) stale", text)
+    check(proc.returncode == 0 and m is not None,
+          f"python -m repro_torch.analysis --strict exited "
+          f"{proc.returncode}:\n{text[-4000:]}")
+    new, baselined, suppressed, stale = map(int, m.groups())
+    # the scan's files and waivers, as the child's CLI scanned them
+    ctx = load_context(list(DEFAULT_PATHS), ROOT, runtime=False)
+    waivers = sum(len(f.suppressions()) for f in ctx.files)
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    print(f"analysis [{card}]: python -m repro_torch.analysis --strict exit "
+          f"{proc.returncode} in {done['seconds']:.2f} s (started before "
+          f"phase 1): {len(rule_names())} rules over {len(ctx.files)} "
+          f"files, {new + baselined} findings ({new} new, {baselined} "
+          f"baselined), {suppressed} suppressed by {waivers} waivers")
+    print(f"analysis [{card}]: passplan.SMEM_LIMIT {SMEM_LIMIT} B, the "
+          f"card's shared_memory_per_block_optin {optin} B")
+    check(SMEM_LIMIT == optin, f"passplan.SMEM_LIMIT {SMEM_LIMIT} B is not "
+          f"the card's shared_memory_per_block_optin {optin} B")
+    return dict(rc=proc.returncode, rules=len(rule_names()),
+                files=len(ctx.files), findings=new + baselined, new=new,
+                baselined=baselined, suppressed=suppressed, stale=stale,
+                waivers=waivers, seconds=done["seconds"],
+                smem_limit=SMEM_LIMIT, smem_per_block_optin=optin,
+                card=card, phase_s=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3074,8 +3165,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    # phase 20's lint runs beside phases 1 onward; it never outlives this
+    # process
+    lint = start_lint()
+    atexit.register(lambda: lint[0].poll() is None and lint[0].kill())
 
     # ---- 1. build ----------------------------------------------------------
+    # repro: allow(timing-warmup) -- times nvcc's build of the kernels: host processes, no device work in the window
     t0 = time.perf_counter()
     built = _build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s for "
@@ -4165,7 +4261,11 @@ def main() -> int:
                             dryrun_children)
     print(json.dumps({"sharded": sharded}, default=float))
 
-    # ---- 20. results -------------------------------------------------------
+    # ---- 20. the port's static analysis ------------------------------------
+    analysis = lint_phase(card, lint)
+    print(json.dumps({"analysis": analysis}, default=float))
+
+    # ---- 21. results -------------------------------------------------------
     k1 = k1_rows["served edge"]
     def layer_row(rows, dev_us):
         """The served frame's row, with the 400x400 and batch-8 times."""

@@ -78,6 +78,7 @@ def build(names: Optional[Iterable[str]] = None) -> dict[str, dict]:
         raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA "
                            "kernels are built from source at first use")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # repro: allow(timing-warmup) -- times nvcc's compiles: host processes, no device work in the window
     t0 = time.perf_counter()
     procs = {}
     for n in todo:

@@ -105,6 +105,7 @@ class StepBundle:
         """Run the step once over meta DTensors of ``args`` under a cost
         counter: nothing is allocated and nothing launched."""
         args = self.shard(mesh, *self.args, meta=True)
+        # repro: allow(timing-warmup) -- times a trace over meta tensors: nothing is allocated or launched on a device
         t0 = time.perf_counter()
         with CostCounter("meta") as counter:
             counter.track(args)

@@ -437,7 +437,7 @@ class WorkerServer:
                    for k in batch[0].payload}
         try:
             out = _host(self.serve_batch_fn(stacked))
-        except Exception as e:  # serve_batch_fn is arbitrary code: answer MSG_ERR rather than hang the clients
+        except Exception as e:  # repro: allow(broad-except) -- serve_batch_fn is arbitrary user code; answer MSG_ERR rather than hang the clients
             msg = f"{type(e).__name__}: {e}".encode()[:2000]
             for r in batch:
                 with contextlib.suppress(OSError):
@@ -814,6 +814,7 @@ class RealFleet:
         """Spawn the workers, collect their ports, connect the client."""
         import multiprocessing as mp
         from concurrent.futures import ThreadPoolExecutor
+        # repro: allow(timing-warmup) -- times the workers' spawn until each reports ready over its pipe: this process does no device work in the window
         t0 = time.perf_counter()
         ctx = mp.get_context(self._mp_context)
         numerics = _numerics()
@@ -913,6 +914,7 @@ class RealFleet:
         if self.closed:
             return []
         self.closed = True
+        # repro: allow(timing-warmup) -- times the drain and join of the worker processes: no device work in this process
         t0 = time.perf_counter()
         if self.client is not None:
             self.client.shutdown(wait_pending_s=grace_s)

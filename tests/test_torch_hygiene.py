@@ -66,7 +66,11 @@ def test_port_files_exist():
                 "benchmarks/learning.py", "nn/constrain.py",
                 "models/sharding.py", "launch/mesh.py", "launch/steps.py",
                 "costs.py", "launch/roofline.py", "launch/dryrun.py",
-                "launch/perf.py"):
+                "launch/perf.py", "analysis/__init__.py",
+                "analysis/__main__.py", "analysis/core.py",
+                "analysis/baseline.py", "analysis/rules_concurrency.py",
+                "analysis/rules_rng.py", "analysis/rules_timing.py",
+                "analysis/rules_schema.py", "analysis/rules_kernel.py"):
         assert mod in names, mod
     assert len([n for n in names if n.startswith("configs/")]) == 11
     assert {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")} == \
