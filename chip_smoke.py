@@ -83,7 +83,15 @@ Last it collects the port's static analysis (``python -m
 repro_torch.analysis --strict``, a child started before phase 1), which
 must exit 0, and holds the shared-memory budget its ``kernel-smem`` rule
 audits (``passplan.SMEM_LIMIT``) against the card's opt-in shared memory
-of one block.
+of one block.  Last it runs the dense decoders no earlier phase runs:
+llama3-8b, qwen2.5-14b and minitron-8b uncut and llama4-scout-17b-a16e at
+full width with 2 of its 48 layers, each with a split decision (K5 32,
+48, 32 and 2 times, the float32 codec's split bit for bit the monolith)
+and a 128-token prompt decoded against the forward, and Qwen3-0.6B's
+long_500k decode: an 8,192-token prefill windowed at 4,096 (28 K5
+launches), its K/V rows in a 524,288-deep bf16 cache, 32 greedy tokens
+with the window scored over the whole cache and the same tokens with it
+gathered, and one step at index 524,287 on each route.
 Each path runs with every launch count set to 0 just before it and read
 just after; the actions are checked against the eager ``xla`` build of
 the same manifest, and the LM's logits against its monolith and against
@@ -94,7 +102,7 @@ Phase 14 prints its numbers as a ``{"training": ...}`` line, phase 15 as
 a ``{"population": ...}`` line, phase 16 as a ``{"lm": ...}`` line,
 phase 17 as a ``{"families": ...}`` line, phase 18 as a ``{"whisper":
 ...}`` line, phase 19 as a ``{"sharded": ...}`` line, phase 20 as an
-``{"analysis": ...}`` line.
+``{"analysis": ...}`` line, phase 21 as a ``{"dense": ...}`` line.
 On success the line before the last is ``{"kernels": [...]}`` (one entry
 per kernel: launches on the served path, error, times and bound), and the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -139,6 +147,14 @@ ATTN_TOL = {"float32": 2e-4,  # K5 in f32: sums in another order
 # checks it)
 K5_ROWS_RTOL = 2.0 ** -6
 K5_ROWS_ATOL = 0.02
+# K5 in bf16 against the plain f32 version on the rows of a windowed
+# prefill whose window is full, as one block: ||K5 - plain|| <=
+# K5_WINDOW_RTOL * ||plain||.  Such a row averages ``window`` values, so
+# single elements near 0 carry the bf16 rounding of P at many times their
+# size; rounding moves the block by about 2^-9, a dropped 128-key tile
+# of a 4,096-key window by about 0.18 (the phase checks the latter
+# at over 5x the limit)
+K5_WINDOW_RTOL = 2.0 ** -6
 LM_SPLIT_TOL = 1e-2   # full-width bf16 split (float32 codec) vs monolith
 LM_CPU_TOL = {"reduced": 1e-4, "full width": 1e-3}  # card vs CPU, f32
 # Device time a launch of the first-draft K2 and K3 (one thread an
@@ -247,6 +263,13 @@ def attention_pairs(S, window):
     return sum(min(q + 1, w) for q in range(S))
 
 
+def rel_rows(got, want, first):
+    """||got - want|| / ||want|| over the query rows from ``first`` on
+    ((B, H, S, D) tensors, compared in f32)."""
+    d = got[:, :, first:].float() - want[:, :, first:].float()
+    return (d.norm() / want[:, :, first:].float().norm()).item()
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -304,6 +327,29 @@ class SyncCounter:
         return False
 
 
+# Phase 14 (b)'s off-policy train chunks, in vector steps: its train()
+# runs plan their training in two chunks of it and the sync gate runs one
+# more (rollout.CHUNK, 128, until phase 21 came: every gate holds at the
+# shorter chunk, and the second chunk's rate is still steady)
+TRAIN_CHUNK = 32
+
+
+def train_chunks(n):
+    """A context in which ``rl.rollout.offpolicy_plan`` (``train()``'s
+    plan) cuts off-policy training into chunks of ``n`` vector steps."""
+    import contextlib
+    from repro_torch.rl import rollout
+
+    @contextlib.contextmanager
+    def chunks():
+        was, rollout.CHUNK = rollout.CHUNK, n
+        try:
+            yield
+        finally:
+            rollout.CHUNK = was
+    return chunks()
+
+
 def training_phase(dev, gen, miniconv_encoder, reset_counts):
     """Phase 14: the RL training stack on the card.  (a) one update of
     each algorithm and 50 steps of each env, card against CPU; (b) each
@@ -322,8 +368,7 @@ def training_phase(dev, gen, miniconv_encoder, reset_counts):
     from repro_torch.rl.agent import make_agent, move_state
     from repro_torch.rl.ddpg import DDPGConfig
     from repro_torch.rl.ppo import PPOConfig
-    from repro_torch.rl.rollout import (CHUNK, offpolicy_chunk_fn,
-                                        onpolicy_rollout)
+    from repro_torch.rl.rollout import offpolicy_chunk_fn, onpolicy_rollout
     from repro_torch.rl.sac import SACConfig
     from repro_torch.rl.train import TASK_ALGO, _pipeline_encoder
     from repro_torch.rl.train import train as rl_train
@@ -503,11 +548,12 @@ def training_phase(dev, gen, miniconv_encoder, reset_counts):
             budget = 2 * cfg.n_steps * cfg.n_envs
             n_upd = cfg.n_epochs * cfg.n_minibatches
         else:
-            budget = cfg.learning_starts + 2 * CHUNK * cfg.n_envs
-            n_upd = CHUNK * cfg.train_freq * cfg.n_envs
+            budget = cfg.learning_starts + 2 * TRAIN_CHUNK * cfg.n_envs
+            n_upd = TRAIN_CHUNK * cfg.train_freq * cfg.n_envs
         t0 = time.perf_counter()
-        res = rl_train(task, "miniconv4", total_steps=budget, seed=7,
-                       device="cuda")
+        with train_chunks(TRAIN_CHUNK):
+            res = rl_train(task, "miniconv4", total_steps=budget, seed=7,
+                           device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         leaves = tree_leaves(res.params)
@@ -549,10 +595,10 @@ def training_phase(dev, gen, miniconv_encoder, reset_counts):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with SyncCounter() as sc:
-                carry = chunk(carry, n_steps=CHUNK, warmup=False)[0]
+                carry = chunk(carry, n_steps=TRAIN_CHUNK, warmup=False)[0]
             torch.cuda.synchronize()
             row["steady_chunk_syncs"] = len(sc.syncs)
-            row["gated_chunk_env_steps_per_s"] = CHUNK * cfg.n_envs / (
+            row["gated_chunk_env_steps_per_s"] = TRAIN_CHUNK * cfg.n_envs / (
                 time.perf_counter() - t0)
             check(not sc.syncs, f"{task}: the steady chunk synchronised "
                   f"with the host {len(sc.syncs)} times: {sc.syncs[:5]}")
@@ -716,15 +762,23 @@ POP_GRAD_RTOL = 1e-4
 POP_EVAL_RTOL = 1e-4
 POP_PROBE_STEPS = 8        # the sync-gated chunk after training (16
                            # until the whole script neared 600 s)
-POP_TRACE_STEPS = 2        # the traced chunk at P=16 (the profiler's own
+POP_TRACE_STEPS = 1        # the traced chunk at P=16 (the profiler's own
                            # cost grows with the 12,000 kernels a step of
-                           # the exact lanes)
+                           # the exact lanes; 2 until phase 21 came)
 # Depth past the ring's warmup, in vector steps: (b)'s updates regime and
 # (c)'s engines (8 until phase 18 came), and (d)'s member 0 (16 until
 # then).  (c) traces a chunk after one untraced chunk of its own, so its
 # engines need no longer run.
 POP_UPDATE_STEPS = 4
 POP_NONDET_STEPS = 8
+# Vector steps past the ring's warmup of the deterministic child's
+# population and of the train() run its member 0 is held against, in
+# train chunks of POP_GATE_CHUNK (the child sets rollout.CHUNK): two
+# chunks of one shape, so the engine carries its state across a boundary
+# between train chunks, as at CHUNK, and the second chunk's rate is steady
+# (two chunks of 128, 256 steps, until phase 21 came)
+POP_GATE_STEPS = 64
+POP_GATE_CHUNK = 32
 
 
 def host_ms(fn, reps=5):
@@ -767,10 +821,10 @@ def population_gates(dev="cuda") -> int:
     from repro_torch.kernels.miniconv_pass import miniconv_encoder
     from repro_torch.nn.module import tree_leaves
     from repro_torch.rl import population as pop
+    from repro_torch.rl import rollout
     from repro_torch.rl.agent import make_agent
     from repro_torch.rl.buffers import population_sample
     from repro_torch.rl.ddpg import DDPGConfig
-    from repro_torch.rl.rollout import CHUNK
     from repro_torch.rl.train import _pipeline_encoder
     from repro_torch.rl.train import train as rl_train
 
@@ -779,7 +833,8 @@ def population_gates(dev="cuda") -> int:
     card = card_name()
     dev = torch.device(dev)
     cfg = DDPGConfig()
-    budget = cfg.learning_starts + 2 * CHUNK * cfg.n_envs
+    rollout.CHUNK = POP_GATE_CHUNK
+    budget = cfg.learning_starts + POP_GATE_STEPS * cfg.n_envs
     spec = pop.PopulationSpec(tasks=("pendulum",), seeds=POP_SEEDS,
                               variants=((), (("lr", 0.0),)),
                               total_steps=budget)
@@ -838,11 +893,16 @@ def population_gates(dev="cuda") -> int:
               f"{mode}: trained params not finite")
         check(not fb, f"{mode}: {len(fb)} ops fell back to vmap's "
               f"per-member loop: {fb[:3]}")
+        check([p for p, _, _ in run.phases][-2:]
+              == [("train", POP_GATE_CHUNK)] * 2,
+              f"{mode}: the plan {[p for p, _, _ in run.phases]} does not "
+              f"end in two train chunks of {POP_GATE_CHUNK}")
         steady = [(p, dt) for i, (p, dt, _) in enumerate(run.phases)
                   if p in [q for q, _, _ in run.phases[:i]]]
         out[mode] = dict(
             wall_s=time.perf_counter() - t0,
             program=res.program_stats[0],
+            plan=[list(p) for p, _, _ in run.phases],
             phase_s=[dt for _, dt, _ in run.phases],
             steady_env_steps_per_s=(
                 sum(p[1] * cfg.n_envs * len(res.members) for p, _ in steady)
@@ -1010,48 +1070,57 @@ def population_gates(dev="cuda") -> int:
 
 def population_phase(dev, card):
     """Phase 15: populations on the card.  (a) the deterministic child's
-    gates (:func:`population_gates`); (b) aggregate env-steps/s at P = 1,
-    4 and 16 in each lane mode against the sequential baseline, in the
-    collection regime (the vmap lanes' 3x gate at P=16) and with updates;
-    (c) a traced steady chunk at P=16 in each mode and the ms of a stacked
-    update; (d) exact member 0 against ``train()`` without deterministic
-    mode, at a cut depth; (e) ``benchmarks.learning --smoke``.  Returns
-    the ``{"population": ...}`` dict."""
-    import torch
-    from repro_torch.benchmarks import learning as bench_learning
-    from repro_torch.benchmarks import population as bench_pop
-    from repro_torch.benchmarks.lm_split import trace_decision
-    from repro_torch.envs import make_pixel_env
-    from repro_torch.nn.module import tree_leaves
+    gates (:func:`population_gates`), run beside (b), (d) and (e); (b)
+    aggregate env-steps/s at P = 1, 4 and 16 in each lane mode against the
+    sequential baseline, in the collection regime (the vmap lanes' 3x gate
+    at P=16) and with updates; (c) a traced steady chunk at P=16 in each
+    mode and the ms of a stacked update, once the child has ended; (d)
+    exact member 0 against ``train()`` without deterministic mode, at a
+    cut depth; (e) ``benchmarks.learning --smoke``.  Returns the
+    ``{"population": ...}`` dict."""
+    import tempfile
     from repro_torch.rl import population as pop
-    from repro_torch.rl.agent import make_agent
-    from repro_torch.rl.buffers import population_sample
-    from repro_torch.rl.ddpg import DDPGConfig
-    from repro_torch.rl.train import _pipeline_encoder
-    from repro_torch.rl.train import train as rl_train
 
     # repro: allow(timing-warmup) -- phase wall clock, first calls and builds included; the device results it checks before its end read synchronize
     t_phase = time.perf_counter()
     say = lambda msg: print(f"population [{card}]: {msg}")  # noqa: E731
     out = {"card": card}
 
-    # ---- (a) the gates, in a deterministic child -----------------------
+    # ---- (a) the gates, in a deterministic child beside (b), (d), (e) --
+    # Its gates are bitwise or fixed-tolerance results of a deterministic
+    # run, which the parent's work beside it cannot move; (b)'s rates and
+    # (e)'s are measured beside it (the vmap lanes collected at 10.85x the
+    # sequential rate at P=16 without it, on an NVIDIA H100 80GB HBM3 at
+    # 700 W, against the 3x gate), (c)'s trace after it.
     t0 = time.perf_counter()
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    child = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                            "--population-gates"], env=env, cwd=ROOT,
-                           capture_output=True, text=True, timeout=900)
+    logs = [tempfile.TemporaryFile("w+") for _ in range(2)]
+    child = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                              "--population-gates"], env=env, cwd=ROOT,
+                             stdout=logs[0], stderr=logs[1], text=True)
+    try:
+        _population_parent(out, dev, say)
+        t1 = time.perf_counter()
+        child.wait(timeout=900)
+        t_end = time.perf_counter()
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    stdout, stderr = (f.seek(0) or f.read() for f in logs)
     check(child.returncode == 0, f"the deterministic child failed "
-          f"({child.returncode}): {child.stderr[-3000:]}")
-    gates = json.loads(child.stdout.strip().splitlines()[-1])[
-        "population_gates"]
-    gates["process_s"] = time.perf_counter() - t0
+          f"({child.returncode}): {stderr[-3000:]}")
+    gates = json.loads(stdout.strip().splitlines()[-1])["population_gates"]
+    # the child had ended by t_end: its process time is at most that
+    gates["process_s"], gates["waited_s"] = t_end - t0, t_end - t1
     out["gates"] = gates
+    _population_trace(out, dev, say)
     for mode in pop.LANE_MODES:
         g = gates[mode]
         say(f"(a) {mode} lanes, 4 members x {gates['budget']} steps in "
             f"deterministic mode: {g['wall_s']:.2f} s (eval included), "
-            f"phases " + ", ".join(f"{x:.2f}" for x in g["phase_s"])
+            f"plan {g['plan']}, phases "
+            + ", ".join(f"{x:.2f}" for x in g["phase_s"])
             + f" s, steady {g['steady_env_steps_per_s']:.1f} aggregate "
             f"env-steps/s, {g['vmap_fallbacks']} vmap fallbacks, "
             f"final_100_mean {g['eval_final_100_mean']}")
@@ -1061,9 +1130,26 @@ def population_phase(dev, card):
         f" {gates['first_update']}; drift at the end "
         f"{gates['final_drift']}; host syncs in one more chunk "
         f"{gates['chunk_syncs']}; eval {gates['eval']}; export_best "
-        f"through K1 {gates['serve']}; child {gates['process_s']:.2f} s")
+        f"through K1 {gates['serve']}; child {gates['process_s']:.2f} s "
+        f"at most, {gates['waited_s']:.2f} s of it after (e))")
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"phase {out['seconds']:.2f} s")
+    return out
+
+
+def _population_parent(out, dev, say):
+    """Phase 15's (b), (d) and (e), run beside the deterministic child;
+    fills ``out``."""
+    import torch
+    from repro_torch.benchmarks import learning as bench_learning
+    from repro_torch.benchmarks import population as bench_pop
+    from repro_torch.nn.module import tree_leaves
+    from repro_torch.rl import population as pop
+    from repro_torch.rl.ddpg import DDPGConfig
+    from repro_torch.rl.train import train as rl_train
 
     # ---- (b) aggregate throughput against the sequential baseline ------
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     grids = {}
     coll = bench_pop.run_grid((1, 4, 16), total_steps=64, n_envs=2,
@@ -1094,7 +1180,55 @@ def population_phase(dev, card):
     out["grids"] = grids
     out["grids_s"] = time.perf_counter() - t0
 
+    # ---- (d) member 0 without deterministic mode, at a cut depth --------
+    t0 = time.perf_counter()
+    cfg = DDPGConfig()
+    cut = cfg.learning_starts + POP_NONDET_STEPS * cfg.n_envs
+    spec = pop.PopulationSpec(tasks=("pendulum",), seeds=POP_SEEDS,
+                              variants=((), (("lr", 0.0),)), total_steps=cut)
+    res = pop.train_population(spec, eval_episodes=0, device=dev)
+    single = rl_train("pendulum", "miniconv4", total_steps=cut,
+                      seed=POP_SEEDS[0], device=dev)
+    nondet = max(float((a - b).abs().max()) for a, b in
+                 zip(tree_leaves(res.members[0].params),
+                     tree_leaves(single.params)))
+    out["member0_nondeterministic"] = dict(
+        budget=cut, max_abs_diff=nondet,
+        seconds=time.perf_counter() - t0)
+    say(f"(d) exact member 0 vs train() WITHOUT deterministic mode, "
+        f"{cut} steps: params differ by at most {nondet:.3g}")
+
+    # ---- (e) the learning benchmark's smoke gate -----------------------
+    t0 = time.perf_counter()
+    doc = bench_learning.main(["--smoke", "--device", str(dev), "--json",
+                               str(ROOT / "build" / "learning.json")])
+    out["learning"] = dict(
+        conditions=[{k: c[k] for k in ("task", "algo", "best", "mean",
+                                       "final", "episodes_completed",
+                                       "steps_per_sec",
+                                       "steady_steps_per_sec")}
+                    for c in doc["conditions"]],
+        seconds=time.perf_counter() - t0)
+    say(f"learning --smoke {out['learning']['seconds']:.2f} s")
+
+
+def _population_trace(out, dev, say):
+    """Phase 15's (c), run once the deterministic child has ended: a
+    profiler trace shared with another process's kernels reads their
+    time too.  Fills ``out``."""
+    import torch
+    from repro_torch.benchmarks.lm_split import trace_decision
+    from repro_torch.envs import make_pixel_env
+    from repro_torch.rl import population as pop
+    from repro_torch.rl.agent import make_agent
+    from repro_torch.rl.buffers import population_sample
+    from repro_torch.rl.ddpg import DDPGConfig
+    from repro_torch.rl.train import _pipeline_encoder
+
     # ---- (c) a traced steady chunk at P=16, and a stacked update -------
+    upd_cfg = DDPGConfig(learning_starts=DDPGConfig().batch_size)
+    upd_steps = upd_cfg.learning_starts + POP_UPDATE_STEPS * upd_cfg.n_envs
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     pend = make_pixel_env("pendulum")
     enc = _pipeline_encoder("miniconv4", 9, device=dev)
@@ -1153,41 +1287,6 @@ def population_phase(dev, card):
     out["stacked_update"] = updates
     out["trace_s"] = time.perf_counter() - t0
 
-    # ---- (d) member 0 without deterministic mode, at a cut depth --------
-    t0 = time.perf_counter()
-    cfg = DDPGConfig()
-    cut = cfg.learning_starts + POP_NONDET_STEPS * cfg.n_envs
-    spec = pop.PopulationSpec(tasks=("pendulum",), seeds=POP_SEEDS,
-                              variants=((), (("lr", 0.0),)), total_steps=cut)
-    res = pop.train_population(spec, eval_episodes=0, device=dev)
-    single = rl_train("pendulum", "miniconv4", total_steps=cut,
-                      seed=POP_SEEDS[0], device=dev)
-    nondet = max(float((a - b).abs().max()) for a, b in
-                 zip(tree_leaves(res.members[0].params),
-                     tree_leaves(single.params)))
-    out["member0_nondeterministic"] = dict(
-        budget=cut, max_abs_diff=nondet,
-        seconds=time.perf_counter() - t0)
-    say(f"(d) exact member 0 vs train() WITHOUT deterministic mode, "
-        f"{cut} steps: params differ by at most {nondet:.3g}")
-
-    # ---- (e) the learning benchmark's smoke gate -----------------------
-    t0 = time.perf_counter()
-    doc = bench_learning.main(["--smoke", "--device", str(dev), "--json",
-                               str(ROOT / "build" / "learning.json")])
-    out["learning"] = dict(
-        conditions=[{k: c[k] for k in ("task", "algo", "best", "mean",
-                                       "final", "episodes_completed",
-                                       "steps_per_sec",
-                                       "steady_steps_per_sec")}
-                    for c in doc["conditions"]],
-        seconds=time.perf_counter() - t0)
-    out["seconds"] = time.perf_counter() - t_phase
-    say(f"learning --smoke {out['learning']['seconds']:.2f} s; phase "
-        f"{out['seconds']:.2f} s")
-    return out
-
-
 # Phase 16: the LM decode path and training at full width.  Tolerances:
 # full-width decode against the K5 forward in f32 over an f32 cache, the
 # reference's own decode-against-forward setting and tolerance
@@ -1227,6 +1326,7 @@ def lm_phase(dev, gen, reset_counts, counts):
     from repro_torch.configs import get_config
     from repro_torch.data import lm_batches
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
     from repro_torch.models.registry import get_model
     from repro_torch.models.transformer import DecoderModel
@@ -1247,7 +1347,9 @@ def lm_phase(dev, gen, reset_counts, counts):
           and cfg.vocab == 151936 and cfg.dtype == "bfloat16",
           f"not full width: {cfg}")
     t0 = time.perf_counter()
-    params = model.init(gen(0), device=dev)
+    # drawn on the card, as build_split draws them (a host generator takes
+    # 20 s or more for 596 M values)
+    params = serve_cli.init_params(model, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params, w_bytes = param_count(params), param_bytes(params)
@@ -1636,20 +1738,367 @@ def cast_in_place(tree, dtype):
     return tree
 
 
+# The split decision and decode of one decoder at its published width,
+# shared by phases 17 and 21: a 128-token prompt, a 256-deep cache and 32
+# greedy tokens.
+DEC_PROMPT, DEC_MAX, DEC_NEW = 128, 256, 32
+
+
+def ample(cfg):
+    """The config at a capacity that drops nothing (C = G)."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def routed(fn):
+    """``fn()``'s result and each MoE call's aux, its routing in it."""
+    from repro_torch.models import blocks
+    inner, records = blocks.moe_apply, []
+
+    def recording(*args, **kwargs):
+        y, aux = inner(*args, **kwargs)
+        records.append(aux)
+        return y, aux
+
+    blocks.moe_apply = recording
+    try:
+        return fn(), records
+    finally:
+        blocks.moe_apply = inner
+
+
+def split_fns(cfg, model, params, codec_name, seq):
+    """``launch.serve.build_split``'s tuple, batch 1 and one edge segment,
+    for a config no arch id names (one cut in depth)."""
+    import torch
+    from repro_torch.core.wire import get_codec
+    edge_p, server_p = model.split_params(params, 1)
+    codec = get_codec(codec_name)
+
+    @torch.inference_mode()
+    def edge_fn(tokens):
+        return codec.encode(model.edge_forward(edge_p, tokens))
+
+    @torch.inference_mode()
+    def server_fn(payload):
+        return model.server_forward(
+            server_p, codec.decode(payload, dtype=cfg.torch_dtype))
+
+    @torch.inference_mode()
+    def mono_fn(tokens):
+        return model.forward(params, tokens)[0]
+    return (cfg, edge_fn, server_fn, mono_fn, None,
+            codec.wire_bytes((1, seq, cfg.d_model)), seq * 4)
+
+
+def decoder_full_width(name, cfg, model, k5_want, dev, gen, reset_counts,
+                       counts, *, arch=None, say=print, f32_prompt=None,
+                       extra=None):
+    """One decoder at full width, drawn on the card from seed 0 (every
+    tensor it makes is freed when it returns): (a) one split decision
+    (``launch.serve.build_split`` for ``arch``, else :func:`split_fns`;
+    uint8 codec, 1 x 128 tokens): edge, server and monolith ms by the host
+    clock and CUDA events, a traced decision's kernels and busy share, the
+    weights' bytes bound, K5's launches (``k5_want``, all on the tensor
+    cores, none copied), and the float32 codec's split against the
+    monolith; ``extra(params, prompt)``, where given, adds its own checks'
+    dict as ``row["extra"]``; (b) the prompt decoded one token at a time
+    into a 256-deep bf16 cache against the bf16 forward (the MoE's at a
+    capacity that drops nothing), then 32 greedy tokens: ms, a traced step's
+    kernels and busy share, and the bytes bound a token; then the
+    parameters cast to f32 in place, the f32 forward, and the prompt's
+    first ``f32_prompt`` tokens (all of them by default) decoded over an
+    f32 cache against it; an
+    MoE's routing compared between the bf16 and f32 forwards.  Returns the
+    row."""
+    import gc
+    import torch
+    from repro_torch.benchmarks.lm_split import timed, trace_decision
+    from repro_torch.core.wire import get_codec
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.transformer import DecoderModel
+    from repro_torch.nn.module import (param_bytes, param_count, tree_leaves,
+                                       tree_map)
+
+    P, MAX, NEW = DEC_PROMPT, DEC_MAX, DEC_NEW
+    f32_prompt = P if f32_prompt is None else f32_prompt
+
+    def max_err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    torch.cuda.synchronize()
+    t_arch = time.perf_counter()
+    row = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = serve_cli.init_params(model, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() - base
+    n_params, w_bytes = param_count(params), param_bytes(params)
+    say(f"{name} full width ({cfg.n_layers} layers {cfg.blocks()[:3]}..., d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.mlp}, {cfg.norm}, qkv_bias "
+        f"{cfg.qkv_bias}, bf16): {n_params} parameters, {w_bytes} B, drawn "
+        f"on the card from seed 0 in {init_s:.2f} s; init's peak "
+        f"{init_peak} B above the {base} B held before it = "
+        f"{init_peak / w_bytes:.4f}x the parameters' bytes (limit "
+        f"{FAM_INIT_PEAK}x)")
+    check(init_peak <= FAM_INIT_PEAK * w_bytes,
+          f"{name}: init's peak {init_peak} B over {FAM_INIT_PEAK}x the "
+          f"parameters' {w_bytes} B")
+
+    # ---- (a) one split decision --------------------------------------------
+    def split(codec_name):
+        if arch is None:
+            return split_fns(cfg, model, params, codec_name, P)
+        return serve_cli.build_split(arch, reduced=False, edge_segments=1,
+                                     codec_name=codec_name, batch=1, seq=P,
+                                     params=params)
+    built = split("uint8")
+    edge_fn, server_fn, mono_fn, wire, raw = built[1:4] + built[5:]
+    del built
+    prompt = torch.randint(3, cfg.vocab, (1, P), generator=gen(13)) \
+        .to(dev, torch.int32)
+    reset_counts()
+    payload = edge_fn(prompt)
+    logits = server_fn(payload)
+    torch.cuda.synchronize()
+    dec_counts = counts()
+    tc, copies = flash_attention.tc_launches, flash_attention.copies
+    reset_counts()
+    mono = mono_fn(prompt)
+    torch.cuda.synchronize()
+    mono_counts = counts()
+    check(dec_counts == (0, 0, 0, 0, k5_want) and mono_counts == dec_counts
+          and tc == k5_want and copies == 0,
+          f"{name}: a split decision launched K1..K5 {dec_counts} ({tc} on "
+          f"the tensor cores, {copies} input copies), the monolith "
+          f"{mono_counts}; expected (0, 0, 0, 0, {k5_want}), all on the "
+          f"tensor cores, none copied")
+    check(logits.shape == (1, P, cfg.vocab) and logits.dtype == torch.bfloat16
+          and torch.isfinite(logits.float()).all()
+          and payload["data"].dtype == torch.uint8
+          and wire == get_codec("uint8").wire_bytes((1, P, cfg.d_model)),
+          f"{name}: logits {logits.dtype} {tuple(logits.shape)}, payload "
+          f"{payload['data'].dtype}, wire {wire} B")
+    # the server half leaves a logit softcap out, as the reference's
+    top1_split = (model._softcap(logits).argmax(-1) == mono.argmax(-1)) \
+        .float().mean().item()
+    times = {}
+    for key, fn, arg in (("edge", edge_fn, prompt),
+                         ("server", server_fn, payload),
+                         ("monolith", mono_fn, prompt)):
+        times[f"{key}_ms"], times[f"{key}_cpu_ms"] = timed(fn, arg, iters=5)
+        times[f"{key}_event_ms"] = cuda_ms(lambda: fn(arg), iters=3,
+                                           warmup=1)
+    tr = trace_decision(lambda: server_fn(edge_fn(prompt)))
+    busy = None if not tr["kernels"] else tr["busy_ms"] / tr["traced_wall_ms"]
+    bound_ms = w_bytes / PEAK_BYTES_S * 1e3
+    built = split("float32")
+    split32 = model._softcap(built[2](built[1](prompt)))
+    del built
+    torch.cuda.synchronize()
+    bitwise = torch.equal(split32, mono)
+    say(f"{name} split@1 codec=uint8, 1x{P} tokens: K1..K5 launches "
+        f"{dec_counts} a decision ({tc} on the tensor cores, {copies} copies;"
+        f" the monolith {mono_counts}); logits {tuple(logits.shape)} finite, "
+        f"top-1 agreement with the monolith {top1_split:.4f}; edge "
+        f"{times['edge_ms']:.4f} ms server {times['server_ms']:.4f} ms "
+        f"monolith {times['monolith_ms']:.4f} ms by the host clock (thread "
+        f"CPU {times['edge_cpu_ms']:.4f} / {times['server_cpu_ms']:.4f} / "
+        f"{times['monolith_cpu_ms']:.4f}), CUDA events "
+        f"{times['edge_event_ms']:.4f} / {times['server_event_ms']:.4f} / "
+        f"{times['monolith_event_ms']:.4f} ms; wire {wire} B raw {raw} B; a "
+        f"traced decision {tr['kernels']} kernels, device busy "
+        f"{tr['busy_ms']:.4f} ms of {tr['traced_wall_ms']:.4f} ms ("
+        + ("not measured" if busy is None else f"{100 * busy:.2f}%")
+        + f"); weights' bytes bound {bound_ms:.4f} ms; float32 codec: split "
+        f"bit for bit the monolith {bitwise} (max_abs_err "
+        f"{max_err(split32, mono):.3g})")
+    say("  top kernels: " + "; ".join(f"{k[:60]} x{n} {ms:.4f} ms"
+                                      for k, n, ms in tr["top"]))
+    check(bitwise, f"{name}: the float32-codec split differs from the "
+          f"monolith by {max_err(split32, mono)}")
+    row["decision"] = dict(
+        params=n_params, weight_bytes=w_bytes, init_s=init_s,
+        init_peak_bytes=init_peak, launches=list(dec_counts), tc_launches=tc,
+        copies=copies, top1_vs_monolith=top1_split, wire=wire, raw=raw,
+        **times, traced_kernels=tr["kernels"], traced_busy_ms=tr["busy_ms"],
+        traced_wall_ms=tr["traced_wall_ms"], busy_share=busy, top=tr["top"],
+        bound_ms=bound_ms, f32_split_bitwise=bitwise)
+    if extra is not None:
+        row["extra"] = extra(params, prompt)
+    # the split halves hold views of the bf16 leaves: drop them all before
+    # the cast below frees those leaves
+    del edge_fn, server_fn, mono_fn, payload, logits, split32
+
+    # ---- (b) decode over a bf16 cache, then in f32 -------------------------
+    def decode_prompt(m, p, dtype, n):
+        c = m.init_cache(1, MAX, dtype, device=dev)
+        i = torch.zeros((), dtype=torch.int64, device=dev)
+        out = []
+        for t in range(n):
+            lg, c = m.decode_step(p, prompt[:, t:t + 1], c, i)
+            i += 1
+            out.append(lg)
+        return torch.cat(out, 1), c
+
+    reset_counts()
+    dec, caches = decode_prompt(model, params, torch.bfloat16, P)
+    torch.cuda.synchronize()
+    decode_counts = counts()
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(caches))
+    drops = pairs = trace_full = None
+    oracle_cfg = cfg if cfg.moe is None else ample(cfg)
+    if cfg.moe is not None:
+        with torch.inference_mode():
+            full, trace_full = routed(lambda: DecoderModel(oracle_cfg)
+                                      .forward(params, prompt)[0])
+            check(all(bool(r["keep"].all()) for r in trace_full),
+                  f"{name}: the forward at capacity C = G dropped pairs")
+            _, trace = routed(lambda: model.forward(params, prompt))
+        drops = sum(int((~r["keep"]).sum()) for r in trace)
+        pairs = sum(r["keep"].numel() for r in trace)
+        del trace
+    else:
+        full = mono
+
+    def greedy(c):
+        i = torch.full((), P, dtype=torch.int64, device=dev)
+        tok = dec[:, -1:].argmax(-1).to(torch.int32)
+        toks = []
+        for _ in range(NEW):
+            lg, c = model.decode_step(params, tok, c, i)
+            i += 1
+            toks.append(tok)
+            tok = lg.argmax(-1).to(torch.int32)
+        return torch.cat(toks, 1)
+
+    after_prompt = tree_map(lambda t: t.clone(), caches)
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    toks = greedy(caches)
+    ev1.record()
+    ev1.synchronize()
+    tok_host_ms = (time.perf_counter() - t0) * 1e3 / NEW
+    tok_ev_ms = ev0.elapsed_time(ev1) / NEW
+    peak = torch.cuda.max_memory_allocated()
+    i3 = torch.full((), P, dtype=torch.int64, device=dev)
+    trd = trace_decision(lambda: model.decode_step(params, toks[:, :1],
+                                                   after_prompt, i3))
+    busy_d = (None if not trd["kernels"]
+              else trd["busy_ms"] / trd["traced_wall_ms"])
+    tok_bound = (w_bytes + cache_bytes) / PEAK_BYTES_S * 1e3
+    del caches, after_prompt, mono
+
+    # the f32 copy, cast leaf by leaf in place (qwen2.5-14b's 59 GB of f32
+    # fit beside no second copy), decoded over an f32 cache
+    gc.collect()
+    params32 = cast_in_place(params, torch.float32)
+    del params
+    model32 = DecoderModel(dataclasses.replace(oracle_cfg, dtype="float32"))
+    with torch.inference_mode():
+        full32, trace32 = routed(lambda: model32.forward(params32,
+                                                         prompt)[0])
+    dec32, _ = decode_prompt(model32, params32, torch.float32, f32_prompt)
+    del params32
+    err32 = max_err(dec32, full32[:, :f32_prompt])
+    top1_32 = (dec32.argmax(-1) == full32[:, :f32_prompt].argmax(-1)) \
+        .float().mean().item()
+    err = max_err(dec, full)
+    top1 = (dec.argmax(-1) == full.argmax(-1)).float().mean().item()
+    err_truth = max_err(dec, full32)
+    floor = max_err(full, full32)
+    top1_truth = (dec.argmax(-1) == full32.argmax(-1)).float().mean().item()
+    top1_floor = (full.argmax(-1) == full32.argmax(-1)).float().mean().item()
+    routing = None
+    if trace_full is not None:
+        # the tokens whose experts differ between the bf16 and f32
+        # forwards in any layer, and the bf16 forward's distance from the
+        # f32 one at those tokens and at the others
+        flip = torch.zeros(P, dtype=torch.bool, device=dev)
+        for a, b in zip(trace_full, trace32):
+            flip |= (a["expert_idx"].reshape(P, -1)
+                     != b["expert_idx"].reshape(P, -1)).any(-1)
+        by_pos = (full.float() - full32.float()).abs().amax(-1)[0]
+        routing = dict(
+            layers=len(trace32), flipped_tokens=int(flip.sum()),
+            floor_flipped=(by_pos[flip].max().item() if flip.any()
+                           else None),
+            floor_unflipped=(by_pos[~flip].max().item() if not flip.all()
+                             else None))
+        check(len(trace_full) == len(trace32) == cfg.n_layers,
+              f"{name}: {len(trace_full)} and {len(trace32)} MoE layers "
+              f"routed")
+    say(f"{name} decode B=1, {P} prompt tokens one at a time into a "
+        f"{MAX}-deep bf16 cache ({cache_bytes} B; recurrent states f32), "
+        f"against the forward"
+        + (" at capacity_factor = n_experts / top_k (the default forward "
+           f"drops {drops} of {pairs} (token, k) pairs)"
+           if drops is not None else "")
+        + f": f32 model and cache, the first {f32_prompt} tokens, "
+        f"max_abs_err {err32:.4g} (tol {LM_DECODE_TOL}), top-1 "
+        f"{top1_32:.4f} (limit {FAM_TOP1}); bf16 max_abs_err {err:.4g}, "
+        f"top-1 {top1:.4f} against the bf16 forward; {err_truth:.4g} and "
+        f"top-1 {top1_truth:.4f} against the f32 forward, where the bf16 "
+        f"forward is {floor:.4g} and {top1_floor:.4f} (limit "
+        f"{LM_BF16_FLOOR}x)"
+        + ("" if routing is None else
+           f"; the bf16 and f32 forwards route {routing['flipped_tokens']} of"
+           f" {P} tokens to another expert in at least one of "
+           f"{routing['layers']} layers, the bf16 forward "
+           f"{routing['floor_flipped']} from the f32 one at those tokens "
+           f"and {routing['floor_unflipped']} at the others")
+        + f"; K1..K5 launches while decoding {decode_counts}; {NEW} greedy "
+        f"tokens {toks[0].tolist()}; {tok_ev_ms:.4f} ms a token by CUDA "
+        f"events, {tok_host_ms:.4f} ms by the host clock; a traced step "
+        f"{trd['kernels']} kernels, busy {trd['busy_ms']:.4f} ms of "
+        f"{trd['traced_wall_ms']:.4f} ms ("
+        + ("not measured" if busy_d is None else f"{100 * busy_d:.2f}%")
+        + f"); bytes bound {tok_bound:.4f} ms a token (weights + cache "
+        f"once); peak device memory {peak} B")
+    check(decode_counts == (0,) * 5, f"{name}: decoding launched K1..K5 "
+          f"{decode_counts}")
+    check(err32 <= LM_DECODE_TOL and top1_32 >= FAM_TOP1,
+          f"{name}: f32 decode differs from the forward by {err32} (tol "
+          f"{LM_DECODE_TOL}), top-1 {top1_32} (limit {FAM_TOP1})")
+    check(err_truth <= LM_BF16_FLOOR * floor,
+          f"{name}: bf16 decode is {err_truth} from the f32 forward, more "
+          f"than {LM_BF16_FLOOR} x the bf16 forward's {floor}")
+    row["decode"] = dict(
+        prompt=P, new_tokens=NEW, cache_len=MAX, cache_bytes=cache_bytes,
+        f32_prompt=f32_prompt, f32_max_abs_err=err32, f32_top1=top1_32,
+        tol=LM_DECODE_TOL, bf16_max_abs_err=err, bf16_top1=top1,
+        bf16_vs_f32_err=err_truth, bf16_vs_f32_top1=top1_truth,
+        bf16_forward_vs_f32_err=floor, bf16_forward_vs_f32_top1=top1_floor,
+        floor_limit=LM_BF16_FLOOR, forward_drops=drops, forward_pairs=pairs,
+        routing=routing, launches=list(decode_counts),
+        greedy_tokens=toks[0].tolist(), ms_per_token_events=tok_ev_ms,
+        ms_per_token_host=tok_host_ms, traced_kernels=trd["kernels"],
+        traced_busy_ms=trd["busy_ms"], traced_wall_ms=trd["traced_wall_ms"],
+        busy_share=busy_d, top=trd["top"], bound_ms_per_token=tok_bound,
+        peak_bytes=peak)
+    row["seconds"] = time.perf_counter() - t_arch
+    say(f"{name}: {row['seconds']:.2f} s")
+    return row
+
+
 def families_phase(dev, gen, reset_counts, counts):
     """Phase 17: the MoE, SSM and RG-LRU families at full width.  For each
     of mamba2-130m, recurrentgemma-9b and qwen2-moe-a2.7b, from seed 0 on
-    the card: (a) one split decision through ``launch.serve.build_split``
-    (uint8 codec, 1 x 128 tokens): edge, server and monolith ms by the host
-    clock and CUDA events, a traced decision's kernels and busy share, the
-    weights' bytes bound, and the float32 codec's split against the
-    monolith; (b) a 128-token prompt decoded one token at a time into a
-    256-deep bf16 cache against the forward, then 32 greedy tokens: ms,
-    kernels and busy share a token, and the bytes bound; then the same
-    prompt in f32 (the parameters cast in place) against the f32 forward,
-    which also measures the bf16 decode's and forward's distance from it;
-    (c) each family's
-    2-layer f32 ``reduced()`` config card against CPU; (d) K5 held at the
+    the card, :func:`decoder_full_width`'s (a) one split decision through
+    ``launch.serve.build_split`` and (b) a 128-token prompt decoded into a
+    bf16 cache and in f32 against the forward, then 32 greedy tokens; (c)
+    each family's 2-layer f32 ``reduced()`` config card against CPU; (d) K5
+    held at the
     MoE's shape, (1,16/16,128,128) bf16 views, against its plain version;
     (e) ``launch.train --arch mamba2-130m --full`` for 24 steps at batch 4 x
     256 (past the 20-step warmup; it must exit 0, the loss fallen), and
@@ -1659,280 +2108,30 @@ def families_phase(dev, gen, reset_counts, counts):
     import math
     import torch
     import torch.nn.functional as F
-    from repro_torch.benchmarks.lm_split import timed, trace_decision
     from repro_torch.configs import get_config
     from repro_torch.data import lm_batches
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import attention_ref
-    from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
-    from repro_torch.models import blocks
     from repro_torch.models.registry import get_model
     from repro_torch.models.transformer import DecoderModel
-    from repro_torch.nn.module import (param_bytes, param_count,
-                                       tree_leaves, tree_map, tree_paths,
+    from repro_torch.nn.module import (tree_leaves, tree_map, tree_paths,
                                        tree_unflatten)
 
     # repro: allow(timing-warmup) -- phase wall clock, first calls and builds included; the device results it checks before its end read synchronize
     t_phase = time.perf_counter()
     fam = {}
-    P, MAX, NEW = 128, 256, 32
 
     def max_err(a, b):
         return (a.float() - b.float()).abs().max().item()
 
-    def routed(fn):
-        """``fn()``'s result and each MoE call's aux, its routing in it."""
-        inner, records = blocks.moe_apply, []
-
-        def recording(*args, **kwargs):
-            y, aux = inner(*args, **kwargs)
-            records.append(aux)
-            return y, aux
-
-        blocks.moe_apply = recording
-        try:
-            return fn(), records
-        finally:
-            blocks.moe_apply = inner
-
-    def ample(cfg):
-        """The config at a capacity that drops nothing (C = G)."""
-        return dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
-
-    def full_width(arch, k5_want):
-        """(a) and (b) for one config; every tensor it makes is freed when
-        it returns."""
-        # repro: allow(timing-warmup) -- one config's wall clock, first calls included; the device results it checks before its end read synchronize
-        t_arch = time.perf_counter()
-        row = {}
+    for arch, k5_want in FAMILIES:
         cfg, model = get_model(arch, reduced=False)
         check(cfg == get_config(arch) and cfg.dtype == "bfloat16",
               f"{arch}: not its published config")
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        params = serve_cli.init_params(model, dev)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        init_peak = torch.cuda.max_memory_allocated() - base
-        n_params, w_bytes = param_count(params), param_bytes(params)
-        print(f"{arch} full width ({cfg.n_layers} layers {cfg.blocks()[:3]}"
-              f"..., d {cfg.d_model}, vocab {cfg.vocab}, bf16): {n_params} "
-              f"parameters, {w_bytes} B, drawn on the card from seed 0 in "
-              f"{init_s:.2f} s; init's peak {init_peak} B above the "
-              f"{base} B held before it = {init_peak / w_bytes:.4f}x the "
-              f"parameters' bytes (limit {FAM_INIT_PEAK}x); "
-              f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
-        check(init_peak <= FAM_INIT_PEAK * w_bytes,
-              f"{arch}: init's peak {init_peak} B over {FAM_INIT_PEAK}x the "
-              f"parameters' {w_bytes} B")
-
-        # ---- (a) one split decision ----------------------------------------
-        (_, edge_fn, server_fn, mono_fn, _, wire,
-         raw) = serve_cli.build_split(arch, reduced=False, edge_segments=1,
-                                      codec_name="uint8", batch=1, seq=P,
-                                      params=params)
-        prompt = torch.randint(3, cfg.vocab, (1, P), generator=gen(13)) \
-            .to(dev, torch.int32)
-        reset_counts()
-        payload = edge_fn(prompt)
-        logits = server_fn(payload)
-        torch.cuda.synchronize()
-        dec_counts = counts()
-        reset_counts()
-        mono = mono_fn(prompt)
-        torch.cuda.synchronize()
-        mono_counts = counts()
-        check(dec_counts == (0, 0, 0, 0, k5_want)
-              and mono_counts == dec_counts,
-              f"{arch}: a split decision launched K1..K5 {dec_counts}, the "
-              f"monolith {mono_counts}; expected (0, 0, 0, 0, {k5_want})")
-        check(logits.shape == (1, P, cfg.vocab)
-              and logits.dtype == torch.bfloat16
-              and torch.isfinite(logits.float()).all(),
-              f"{arch}: bad logits {logits.dtype} {tuple(logits.shape)}")
-        top1_split = (model._softcap(logits).argmax(-1) == mono.argmax(-1)) \
-            .float().mean().item()
-        times = {}
-        for name, fn, arg in (("edge", edge_fn, prompt),
-                              ("server", server_fn, payload),
-                              ("monolith", mono_fn, prompt)):
-            times[f"{name}_ms"], times[f"{name}_cpu_ms"] = timed(fn, arg,
-                                                                 iters=10)
-            times[f"{name}_event_ms"] = cuda_ms(lambda: fn(arg), iters=5,
-                                                warmup=1)
-        tr = trace_decision(lambda: server_fn(edge_fn(prompt)))
-        busy = (None if not tr["kernels"]
-                else tr["busy_ms"] / tr["traced_wall_ms"])
-        bound_ms = w_bytes / PEAK_BYTES_S * 1e3
-        (_, edge32, server32, *_) = serve_cli.build_split(
-            arch, reduced=False, edge_segments=1, codec_name="float32",
-            batch=1, seq=P, params=params)
-        split32 = model._softcap(server32(edge32(prompt)))
-        torch.cuda.synchronize()
-        bitwise = torch.equal(split32, mono)
-        print(f"{arch} split@1 codec=uint8, 1x{P} tokens: K1..K5 launches "
-              f"{dec_counts} a decision (the monolith {mono_counts}); logits "
-              f"{tuple(logits.shape)} finite, top-1 agreement with the "
-              f"monolith {top1_split:.4f}; edge {times['edge_ms']:.4f} ms "
-              f"server {times['server_ms']:.4f} ms monolith "
-              f"{times['monolith_ms']:.4f} ms by the host clock (thread CPU "
-              f"{times['edge_cpu_ms']:.4f} / {times['server_cpu_ms']:.4f} / "
-              f"{times['monolith_cpu_ms']:.4f}), CUDA events "
-              f"{times['edge_event_ms']:.4f} / {times['server_event_ms']:.4f}"
-              f" / {times['monolith_event_ms']:.4f} ms; wire {wire} B raw "
-              f"{raw} B; a traced decision {tr['kernels']} kernels, device "
-              f"busy {tr['busy_ms']:.4f} ms of {tr['traced_wall_ms']:.4f} ms ("
-              + ("not measured" if busy is None else f"{100 * busy:.2f}%")
-              + f"); weights' bytes bound {bound_ms:.4f} ms; float32 codec: "
-              f"split bit for bit the monolith {bitwise} (max_abs_err "
-              f"{max_err(split32, mono):.3g})")
-        print(f"  top kernels: " + "; ".join(
-            f"{k[:60]} x{n} {ms:.4f} ms" for k, n, ms in tr["top"]))
-        check(bitwise, f"{arch}: the float32-codec split differs from the "
-              f"monolith by {max_err(split32, mono)}")
-        row["decision"] = dict(
-            params=n_params, weight_bytes=w_bytes, init_s=init_s,
-            init_peak_bytes=init_peak, launches=list(dec_counts),
-            top1_vs_monolith=top1_split, wire=wire, raw=raw, **times,
-            traced_kernels=tr["kernels"], traced_busy_ms=tr["busy_ms"],
-            traced_wall_ms=tr["traced_wall_ms"], busy_share=busy,
-            top=tr["top"], bound_ms=bound_ms, f32_split_bitwise=bitwise)
-        del edge_fn, server_fn, mono_fn, edge32, server32, payload, logits
-        del split32
-
-        # ---- (b) decode over a bf16 cache, then in f32 ---------------------
-        def decode_prompt(m, p, dtype):
-            c = m.init_cache(1, MAX, dtype, device=dev)
-            i = torch.zeros((), dtype=torch.int64, device=dev)
-            out = []
-            for t in range(P):
-                lg, c = m.decode_step(p, prompt[:, t:t + 1], c, i)
-                i += 1
-                out.append(lg)
-            return torch.cat(out, 1), c
-
-        reset_counts()
-        dec, caches = decode_prompt(model, params, torch.bfloat16)
-        torch.cuda.synchronize()
-        decode_counts = counts()
-        cache_bytes = sum(t.numel() * t.element_size()
-                          for t in tree_leaves(caches))
-        drops = pairs = None
-        oracle_cfg = cfg if cfg.moe is None else ample(cfg)
-        if cfg.moe is not None:
-            with torch.inference_mode():
-                full, trace = routed(lambda: DecoderModel(oracle_cfg)
-                                     .forward(params, prompt)[0])
-                check(all(bool(r["keep"].all()) for r in trace),
-                      f"{arch}: the forward at capacity C = G dropped pairs")
-                _, trace = routed(lambda: model.forward(params, prompt))
-            drops = sum(int((~r["keep"]).sum()) for r in trace)
-            pairs = sum(r["keep"].numel() for r in trace)
-        else:
-            full = mono
-
-        def greedy(c):
-            i = torch.full((), P, dtype=torch.int64, device=dev)
-            tok = dec[:, -1:].argmax(-1).to(torch.int32)
-            toks = []
-            for _ in range(NEW):
-                lg, c = model.decode_step(params, tok, c, i)
-                i += 1
-                toks.append(tok)
-                tok = lg.argmax(-1).to(torch.int32)
-            return torch.cat(toks, 1)
-
-        after_prompt = tree_map(lambda t: t.clone(), caches)
-        torch.cuda.synchronize()
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        ev0.record()
-        toks = greedy(caches)
-        ev1.record()
-        ev1.synchronize()
-        tok_host_ms = (time.perf_counter() - t0) * 1e3 / NEW
-        tok_ev_ms = ev0.elapsed_time(ev1) / NEW
-        i3 = torch.full((), P, dtype=torch.int64, device=dev)
-        trd = trace_decision(lambda: model.decode_step(
-            params, toks[:, :1], after_prompt, i3))
-        busy_d = (None if not trd["kernels"]
-                  else trd["busy_ms"] / trd["traced_wall_ms"])
-        tok_bound = (w_bytes + cache_bytes) / PEAK_BYTES_S * 1e3
-        del caches, after_prompt, mono
-
-        # the f32 copy, cast leaf by leaf in place (the MoE's 56 GB of f32
-        # fit beside no second copy), decoded over an f32 cache
-        gc.collect()
-        params32 = cast_in_place(params, torch.float32)
-        del params
-        model32 = DecoderModel(dataclasses.replace(oracle_cfg,
-                                                   dtype="float32"))
-        with torch.inference_mode():
-            full32 = model32.forward(params32, prompt)[0]
-        dec32, _ = decode_prompt(model32, params32, torch.float32)
-        err32 = max_err(dec32, full32)
-        top1_32 = (dec32.argmax(-1) == full32.argmax(-1)).float().mean() \
-            .item()
-        err = max_err(dec, full)
-        top1 = (dec.argmax(-1) == full.argmax(-1)).float().mean().item()
-        err_truth = max_err(dec, full32)
-        floor = max_err(full, full32)
-        top1_truth = (dec.argmax(-1) == full32.argmax(-1)).float().mean() \
-            .item()
-        top1_floor = (full.argmax(-1) == full32.argmax(-1)).float().mean() \
-            .item()
-        print(f"{arch} decode B=1, {P} prompt tokens one at a time into a "
-              f"{MAX}-deep bf16 cache ({cache_bytes} B; recurrent states "
-              f"f32), against the forward"
-              + (" at capacity_factor = n_experts / top_k (the default "
-                 f"forward drops {drops} of {pairs} (token, k) pairs)"
-                 if drops is not None else "")
-              + f": f32 model and cache max_abs_err {err32:.4g} (tol "
-              f"{LM_DECODE_TOL}), top-1 {top1_32:.4f} (limit {FAM_TOP1}); "
-              f"bf16 max_abs_err {err:.4g}, top-1 {top1:.4f} against the "
-              f"bf16 forward; {err_truth:.4g} and top-1 {top1_truth:.4f} "
-              f"against the f32 forward, where the bf16 forward is "
-              f"{floor:.4g} and {top1_floor:.4f} (limit {LM_BF16_FLOOR}x); "
-              f"K1..K5 launches while decoding {decode_counts}; {NEW} greedy "
-              f"tokens {toks[0].tolist()}; {tok_ev_ms:.4f} ms a token by "
-              f"CUDA events, {tok_host_ms:.4f} ms by the host clock; a "
-              f"traced step {trd['kernels']} kernels, busy "
-              f"{trd['busy_ms']:.4f} ms of {trd['traced_wall_ms']:.4f} ms ("
-              + ("not measured" if busy_d is None else f"{100 * busy_d:.2f}%")
-              + f"); bytes bound {tok_bound:.4f} ms a token (weights + "
-              f"cache once)")
-        check(decode_counts == (0,) * 5, f"{arch}: decoding launched K1..K5 "
-              f"{decode_counts}")
-        check(err32 <= LM_DECODE_TOL and top1_32 >= FAM_TOP1,
-              f"{arch}: f32 decode differs from the forward by {err32} (tol "
-              f"{LM_DECODE_TOL}), top-1 {top1_32} (limit {FAM_TOP1})")
-        check(err_truth <= LM_BF16_FLOOR * floor,
-              f"{arch}: bf16 decode is {err_truth} from the f32 forward, "
-              f"more than {LM_BF16_FLOOR} x the bf16 forward's {floor}")
-        row["decode"] = dict(
-            prompt=P, new_tokens=NEW, cache_len=MAX, cache_bytes=cache_bytes,
-            f32_max_abs_err=err32, f32_top1=top1_32, tol=LM_DECODE_TOL,
-            bf16_max_abs_err=err, bf16_top1=top1,
-            bf16_vs_f32_err=err_truth, bf16_vs_f32_top1=top1_truth,
-            bf16_forward_vs_f32_err=floor,
-            bf16_forward_vs_f32_top1=top1_floor,
-            forward_drops=drops, forward_pairs=pairs,
-            launches=list(decode_counts), greedy_tokens=toks[0].tolist(),
-            ms_per_token_events=tok_ev_ms, ms_per_token_host=tok_host_ms,
-            traced_kernels=trd["kernels"], traced_busy_ms=trd["busy_ms"],
-            traced_wall_ms=trd["traced_wall_ms"], busy_share=busy_d,
-            top=trd["top"], bound_ms_per_token=tok_bound)
-        row["seconds"] = time.perf_counter() - t_arch
-        print(f"{arch}: {row['seconds']:.2f} s")
-        return row
-
-    for arch, k5_want in FAMILIES:
-        fam[arch] = full_width(arch, k5_want)
+        fam[arch] = decoder_full_width(arch, cfg, model, k5_want, dev, gen,
+                                       reset_counts, counts, arch=arch)
+        del model
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3130,6 +3329,337 @@ def lint_phase(card, lint) -> dict:
                 card=card, phase_s=time.perf_counter() - t_phase)
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the dense decoders at full width and long_500k's decode
+# ---------------------------------------------------------------------------
+# Gates, each as an earlier phase sets it: phase 17's, through the same
+# helper (decoder_full_width): a split decision's K5 launches (one a
+# layer, all on the tensor cores, no input copied), the float32 codec's
+# split bit for bit its monolith and the uint8 split's logits and payload
+# as phase 9 gates them; init's peak within FAM_INIT_PEAK of the
+# parameters' bytes; decode against the forward in f32 over an f32 cache
+# within LM_DECODE_TOL with top-1 agreement >= FAM_TOP1 (the dense
+# configs' first DENSE_F32_PROMPT prompt tokens: a decode step costs
+# 2.2-4.1 ms of host time a layer whatever its width, so the rest of
+# their prompt in f32 would cost the script another 17-26 s), and in bf16
+# within LM_BF16_FLOOR times the bf16 forward's own distance from the f32
+# forward (the scout's forward at a capacity that drops nothing, as phase
+# 17's MoE); the scout's router over all 16 experts and its shared expert in
+# its output (the sum rounds to bf16 three times: within 2^-6 of the
+# largest term).  long_500k: 28 K5 launches in the 8,192-token prefill,
+# all on the tensor cores; the window-gather decode against the
+# whole-cache decode within LM_BF16_FLOOR times the bf16 prefill's
+# distance from the f32 prefill at the prompt's last 32 positions (the
+# routes differ only in the attention's order of sums, but a bf16
+# rounding anywhere grows through 28 layers: two bf16 computations part
+# by about as much as bf16 and f32 do, as phase 16 shows for its two
+# forwards); the row just outside the window changed, the deep step's
+# logits bitwise unchanged on both routes, and the window's first row
+# changed, changed.
+DENSE_CONFIGS = (("llama3-8b", 32), ("qwen2.5-14b", 48), ("minitron-8b", 32))
+SCOUT = "llama4-scout-17b-a16e"
+SCOUT_LAYERS = 2          # of its 48, at full width: 215.5 GB fit no card
+DENSE_F32_PROMPT = 64     # prompt tokens the dense configs decode in f32
+LONG_PROMPT = 8192        # long_500k's prefill, two 4,096 windows deep
+LONG_TAIL = 32            # prompt positions held bf16 against f32
+SHARED_TOL = 2.0 ** -6
+
+
+def dense_phase(dev, gen, reset_counts, counts, card):
+    """Phase 21: (a) llama3-8b, qwen2.5-14b and minitron-8b uncut at full
+    width, each drawn on the card from seed 0 and freed before the next:
+    :func:`decoder_full_width`'s split decision and decode, as phase 17
+    runs them; (b) the same for llama4-scout-17b-a16e at full width with 2
+    of its 48 layers, its split through ``split_params``, with its router
+    and shared expert checked;
+    (c) Qwen3-0.6B at long_500k: an 8,192-token prefill through
+    ``forward(..., long_ctx=True)`` (K5 windowed at 4,096), its K/V rows
+    copied into a 524,288-deep bf16 cache, 32 greedy tokens with
+    ``windowed_decode_gather`` off and the same tokens with it on, then
+    one step at index 524,287 of a cache drawn from a seeded generator on
+    each route.  Returns the ``{"dense": ...}`` dict."""
+    import gc
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import blocks
+    from repro_torch.models.transformer import DecoderModel
+    from repro_torch.nn import attention as attn_mod
+    from repro_torch.nn.layers import swiglu
+    from repro_torch.nn.module import cast_tree, param_bytes, tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()  # the earlier phases' work is not this phase's
+    t_phase = time.perf_counter()
+    say = lambda msg: print(f"dense [{card}]: {msg}")  # noqa: E731
+    out = {"card": card, "held_before": torch.cuda.memory_allocated()}
+
+    def max_err(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    # ---- (a) the three dense configs, uncut -------------------------------
+    configs = {}
+    for arch, k5_want in DENSE_CONFIGS:
+        cfg = get_config(arch)
+        check(cfg.n_layers == k5_want and cfg.dtype == "bfloat16"
+              and cfg.moe is None, f"{arch}: not its published config")
+        configs[arch] = decoder_full_width(
+            arch, cfg, DecoderModel(cfg), k5_want, dev, gen, reset_counts,
+            counts, arch=arch, say=say, f32_prompt=DENSE_F32_PROMPT)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["configs"] = configs
+
+    # ---- (b) llama4-scout at full width, 2 of its 48 layers ---------------
+    full_cfg = get_config(SCOUT)
+    cfg = dataclasses.replace(full_cfg, n_layers=SCOUT_LAYERS,
+                              n_pattern=SCOUT_LAYERS)
+    check(full_cfg.d_model == 5120 and full_cfg.moe.n_experts == 16
+          and full_cfg.moe.top_k == 1 and full_cfg.n_heads == 40,
+          f"{SCOUT}: not its published config")
+    model = DecoderModel(cfg)
+    name = f"{SCOUT} ({SCOUT_LAYERS} of {full_cfg.n_layers} layers)"
+
+    def scout_moe(params, prompt):
+        """The scout's router reaches all 16 experts over the decision's
+        tokens, and its shared expert is in every output."""
+        with torch.inference_mode():
+            _, records = routed(lambda: model.forward(params, prompt))
+        experts = sorted({int(e) for r in records
+                          for e in r["expert_idx"].flatten().tolist()})
+        probs_ok = all(r["probs"].shape[-1] == cfg.moe.n_experts
+                       and bool((r["probs"] > 0).all()) for r in records)
+        mcfg = blocks.moe_config(cfg)
+        p0 = tree_map(lambda t: t[0], params["scan"]["b0_attn"]["moe"])
+        h = torch.randn((1, DEC_PROMPT, cfg.d_model), generator=gen(27)) \
+            .to(dev, torch.bfloat16)
+        with torch.inference_mode():
+            y, _ = blocks.moe_apply(p0, mcfg, h)
+            y_routed, _ = blocks.moe_apply(
+                {k: v for k, v in p0.items() if k != "shared"}, mcfg, h)
+            shared = swiglu(p0["shared"], h)
+        scale = max(y.abs().max().item(), y_routed.abs().max().item(),
+                    shared.abs().max().item())
+        shared_err = max_err(y.float() - y_routed.float(), shared)
+        say(f"{name} MoE: {len(records)} layers routed the decision over "
+            f"{mcfg.n_experts} experts (probabilities all non-zero "
+            f"{probs_ok}), top-{mcfg.top_k} picked {len(experts)} distinct "
+            f"experts {experts}; the layer's output less its routed part is "
+            f"the shared expert's within {shared_err:.4g} (limit "
+            f"{SHARED_TOL} x {scale:.4g}), the shared expert's largest "
+            f"{shared.abs().max().item():.4g}")
+        check(len(records) == cfg.n_layers and probs_ok
+              and mcfg.n_experts == 16 and mcfg.n_shared_experts == 1,
+              f"{name}: the router's probabilities over the experts: "
+              f"{len(records)} layers, all non-zero {probs_ok}")
+        check(shared_err <= SHARED_TOL * scale
+              and shared.abs().max().item() > SHARED_TOL * scale,
+              f"{name}: the shared expert is not in the layer's output "
+              f"({shared_err} against {SHARED_TOL} x {scale})")
+        return dict(n_experts=mcfg.n_experts, n_shared=mcfg.n_shared_experts,
+                    experts_picked=experts, probs_nonzero=probs_ok,
+                    shared_err=shared_err, shared_scale=scale)
+
+    row = decoder_full_width(name, cfg, model, SCOUT_LAYERS, dev, gen,
+                             reset_counts, counts, say=say, extra=scout_moe)
+    row["moe"] = row.pop("extra")
+    out["scout"] = dict(row, n_layers=SCOUT_LAYERS,
+                        published_layers=full_cfg.n_layers)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) Qwen3-0.6B at long_500k --------------------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-0.6b")
+    depth, W = SHAPES["long_500k"].seq_len, cfg.long_context_window
+    check(depth == 524288 and W == 4096 and not cfg.windowed_decode_gather,
+          f"long_500k: depth {depth}, window {W}")
+    model = DecoderModel(cfg)
+    model_g = DecoderModel(dataclasses.replace(cfg,
+                                               windowed_decode_gather=True))
+    params = serve_cli.init_params(model, dev)
+    w_bytes = param_bytes(params)
+    prompt = torch.randint(3, cfg.vocab, (1, LONG_PROMPT),
+                           generator=gen(23)).to(dev, torch.int32)
+    # the prefill, each attention block's rotated K and its V recorded as
+    # the forward projects them: the rows a decode step writes
+    rows, project = [], attn_mod._project_qkv
+
+    def recording(*args, **kwargs):
+        q, k, v = project(*args, **kwargs)
+        rows.append((k, v))
+        return q, k, v
+    attn_mod._project_qkv = recording
+    try:
+        reset_counts()
+        with torch.inference_mode():
+            full = model.forward(params, prompt, long_ctx=True)[0]
+        torch.cuda.synchronize()
+        pre_counts = counts()
+        pre_tc = flash_attention.tc_launches
+        pre_copies = flash_attention.copies
+    finally:
+        attn_mod._project_qkv = project
+    check(pre_counts == (0, 0, 0, 0, cfg.n_layers) and pre_tc == cfg.n_layers
+          and pre_copies == 0 and len(rows) == cfg.n_layers,
+          f"long_500k prefill: K1..K5 {pre_counts}, {pre_tc} on the tensor "
+          f"cores, {pre_copies} copies, {len(rows)} K/V rows recorded; "
+          f"expected {cfg.n_layers} windowed launches")
+    with torch.inference_mode():
+        prefill_ms = cuda_ms(lambda: model.forward(
+            params, prompt, long_ctx=True, last_only=True), iters=2,
+            warmup=1)
+        params32 = cast_tree(params, torch.float32)
+        tail32 = DecoderModel(dataclasses.replace(cfg, dtype="float32")) \
+            .forward(params32, prompt, long_ctx=True)[0][:, -LONG_TAIL:]
+    floor = max_err(full[:, -LONG_TAIL:], tail32)
+    first = full[:, -1:].argmax(-1).to(torch.int32)
+    del params32, tail32, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_cache(1, depth, torch.bfloat16, device=dev)
+    k_all, v_all = cache["scan"]["b0_attn"]["k"], cache["scan"]["b0_attn"]["v"]
+    cache_bytes = nbytes(k_all, v_all)
+    check(tuple(k_all.shape) == (cfg.n_layers, 1, depth, cfg.n_kv_heads,
+                                 cfg.head_dim) and k_all.numel() > 2 ** 31,
+          f"long_500k cache {tuple(k_all.shape)}")
+    for layer, (k, v) in enumerate(rows):
+        k_all[layer, :, :LONG_PROMPT].copy_(k)
+        v_all[layer, :, :LONG_PROMPT].copy_(v)
+    del rows, k, v
+    say(f"long_500k: qwen3-0.6b ({w_bytes} B of weights), prefill of "
+        f"{LONG_PROMPT} tokens with every attention block windowed at {W}: "
+        f"K1..K5 {pre_counts} ({pre_tc} on the tensor cores, {pre_copies} "
+        f"copies), {prefill_ms:.4f} ms by CUDA events (last position's "
+        f"logits); the bf16 prefill's last {LONG_TAIL} positions "
+        f"{floor:.4g} from the f32 prefill's; cache "
+        f"{tuple(k_all.shape)} x 2 bf16, {cache_bytes} B, its K/V rows "
+        f"0..{LONG_PROMPT - 1} the prefill's")
+
+    def greedy(m, forced=None):
+        """32 tokens from the prompt's next one; with ``forced``, those
+        tokens fed in turn (the other route's greedy ones)."""
+        i = torch.full((), LONG_PROMPT, dtype=torch.int64, device=dev)
+        tok, toks, lgs = first, [], []
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        for t in range(DEC_NEW):
+            if forced is not None:
+                tok = forced[:, t:t + 1]
+            lg, _ = m.decode_step(params, tok, cache, i, long_ctx=True)
+            i += 1
+            toks.append(tok)
+            lgs.append(lg)
+            tok = lg.argmax(-1).to(torch.int32)
+        ev1.record()
+        ev1.synchronize()
+        return torch.cat(toks, 1), torch.cat(lgs, 1), \
+            ev0.elapsed_time(ev1) / DEC_NEW
+
+    reset_counts()
+    toks_off, lg_off, ms_off = greedy(model)
+    _, lg_on, ms_on = greedy(model_g, toks_off)
+    torch.cuda.synchronize()
+    dec_counts = counts()
+    route_err = max_err(lg_off, lg_on)
+    same_next = (lg_on[:, :-1].argmax(-1) == toks_off[:, 1:]).float().mean() \
+        .item()
+    say(f"long_500k decode B=1 at positions {LONG_PROMPT}..."
+        f"{LONG_PROMPT + DEC_NEW - 1} over the {depth}-deep cache: "
+        f"{DEC_NEW} greedy tokens {toks_off[0].tolist()} with the window "
+        f"scored over the "
+        f"whole cache ({ms_off:.4f} ms a token by CUDA events), the same "
+        f"tokens with the window gathered ({ms_on:.4f} ms a token): logits "
+        f"max_abs_err {route_err:.4g} (limit {LM_BF16_FLOOR} x {floor:.4g}), "
+        f"the gathered route's next token the same {same_next:.4f} of the "
+        f"time; K1..K5 launches while decoding {dec_counts}")
+    check(dec_counts == (0,) * 5, f"long_500k decode launched K1..K5 "
+          f"{dec_counts}")
+    check(torch.isfinite(lg_off.float()).all() and route_err
+          <= LM_BF16_FLOOR * floor, f"long_500k: the gathered decode's logits "
+          f"are {route_err} from the whole-cache decode's (limit "
+          f"{LM_BF16_FLOOR} x {floor})")
+
+    # one step at the deepest index over a cache drawn from a seeded
+    # generator, on each route
+    draw = torch.Generator(device=dev).manual_seed(24)
+    for t in (k_all, v_all):
+        t.normal_(generator=draw)
+    idx = depth - 1
+    i_deep = torch.full((), idx, dtype=torch.int64, device=dev)
+    tok5 = torch.full((1, 1), 5, dtype=torch.int32, device=dev)
+    window_bytes = cache_bytes // depth * W
+    routes = {}
+    for route, m, b_bytes in (("gather off", model, cache_bytes),
+                              ("gather on", model_g, 2 * window_bytes)):
+        torch.cuda.reset_peak_memory_stats()
+
+        def step(m=m):
+            return m.decode_step(params, tok5, cache, i_deep,
+                                 long_ctx=True)[0]
+        lg = step().clone()
+        ms = cuda_ms(step, iters=3, warmup=1)
+        routes[route] = dict(logits=lg, ms=ms,
+                             bound_ms=(w_bytes + b_bytes) / PEAK_BYTES_S * 1e3,
+                             peak_bytes=torch.cuda.max_memory_allocated(),
+                             step=step)
+    deep_err = max_err(routes["gather off"]["logits"],
+                       routes["gather on"]["logits"])
+    # a row just outside the window, and then one inside it, changed in
+    # every layer
+    outside, inside = idx - W, idx - W + 1
+    for t in (k_all, v_all):
+        t[:, :, outside] = 8.0
+    unchanged = {r: torch.equal(v["step"](), v["logits"])
+                 for r, v in routes.items()}
+    for t in (k_all, v_all):
+        t[:, :, inside] = 8.0
+    moved = {r: not torch.equal(v["step"](), v["logits"])
+             for r, v in routes.items()}
+    torch.cuda.synchronize()
+    for r, v in routes.items():
+        say(f"long_500k one step at index {idx} over a cache drawn from a "
+            f"seeded generator, {r}: {v['ms']:.4f} ms by CUDA events (mean "
+            f"of 3), bytes bound {v['bound_ms']:.4f} ms (weights + "
+            + ("the whole cache once" if r == "gather off"
+               else f"the {W}-row window read and copied") + "), "
+            f"max_memory_allocated {v['peak_bytes']} B; row {outside} "
+            f"changed: logits bitwise unchanged {unchanged[r]}; row {inside} "
+            f"changed: logits changed {moved[r]}")
+    say(f"long_500k deep step: the two routes' logits {deep_err:.4g} apart "
+        f"(limit {LM_BF16_FLOOR} x {floor:.4g})")
+    check(deep_err <= LM_BF16_FLOOR * floor, f"long_500k deep step: the "
+          f"routes' logits {deep_err} apart")
+    check(all(unchanged.values()) and all(moved.values()),
+          f"long_500k deep step: a row outside the window changed the logits "
+          f"({unchanged}) or one inside it did not ({moved})")
+    out["long_500k"] = dict(
+        depth=depth, window=W, prompt=LONG_PROMPT, weight_bytes=w_bytes,
+        cache_bytes=cache_bytes, prefill_launches=list(pre_counts),
+        prefill_tc_launches=pre_tc, prefill_copies=pre_copies,
+        prefill_ms=prefill_ms, bf16_vs_f32_tail_err=floor,
+        floor_limit=LM_BF16_FLOOR, greedy_tokens=toks_off[0].tolist(),
+        decode_launches=list(dec_counts), ms_per_token_gather_off=ms_off,
+        ms_per_token_gather_on=ms_on, routes_max_abs_err=route_err,
+        routes_same_next_token=same_next, deep_routes_max_abs_err=deep_err,
+        deep={r: {k: v[k] for k in ("ms", "bound_ms", "peak_bytes")}
+              for r, v in routes.items()},
+        outside_row_unchanged=unchanged, inside_row_moved=moved,
+        seconds=time.perf_counter() - t0)
+    del cache, k_all, v_all, routes, params, lg_off, lg_on
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"phase {out['seconds']:.2f} s (target 90 s)")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3817,6 +4347,11 @@ def main() -> int:
         ("served GQA", 1, 16, 8, 128, 128, torch.bfloat16, None, 50, True),
         ("prefill GQA", 1, 16, 8, 4096, 128, torch.bfloat16, None, 10,
          True),
+        # qwen2.5-14b's and llama4-scout's group of 5 at a decision's length
+        ("GQA 5", 1, 40, 8, 128, 128, torch.bfloat16, None, 50, True),
+        # long_500k's prefill core: Qwen3-0.6B windowed at 4,096
+        ("long window", 1, 16, 8, 8192, 128, torch.bfloat16, 4096, 10,
+         True),
     ]
     k5_rows = {}
     for idx, (label, B, H, H_kv, S, D, dt, win, iters,
@@ -3852,6 +4387,22 @@ def main() -> int:
               f"K5 {label}: differs from plain by {err} (tol {tol})")
         check(torch.equal(got, again),
               f"K5 {label}: two runs differ (must repeat bit for bit)")
+        window_rel = None
+        if win is not None and S >= 2 * win:
+            # the rows whose window is full average ``win`` values each,
+            # far below ATTN_TOL in size: held together, relative to their
+            # size (K5_WINDOW_RTOL; a dropped 128-key tile moves them by
+            # over 5x that, which the plain version at a window 128 keys
+            # shorter shows here)
+            window_rel = rel_rows(got, want, win)
+            short = rel_rows(attention_ref(q.float(), kr.float(), vr.float(),
+                                           causal=True,
+                                           sliding_window=win - 128),
+                             want, win)
+            check(window_rel <= K5_WINDOW_RTOL < short / 5,
+                  f"K5 {label}: the full-window rows {window_rel:.3g} of "
+                  f"their size from plain (limit {K5_WINDOW_RTOL}); a window "
+                  f"128 keys shorter {short:.3g}")
         # five event readings (a mean over ``iters`` calls each); the
         # median is the row's time, as K1's rows take it
         ms_reps = [cuda_ms(lambda: flash_attention(q, k, v, causal=True,
@@ -3892,7 +4443,11 @@ def main() -> int:
               f"{lib_ms:.4f} ms (scaled_dot_product_attention), bound "
               f"{b_ms:.5f} ms ({b_by}, {flops / 1e9:.4g} GFLOP); "
               f"{flops / t_ms / 1e9:.1f} TFLOP/s, "
-              f"{100 * b_ms / t_ms:.2f}% of the bound")
+              f"{100 * b_ms / t_ms:.2f}% of the bound"
+              + ("" if window_rel is None else
+                 f"; the full-window rows {window_rel:.3g} of their size "
+                 f"from plain (limit {K5_WINDOW_RTOL}), a window 128 keys "
+                 f"shorter {short:.3g}"))
         if label == "served GQA":   # host-bound: the wrapper's host time
             k5_host = host_us(lambda: flash_attention(
                 q, k, v, causal=True, sliding_window=win))
@@ -3907,7 +4462,8 @@ def main() -> int:
                               tflops=flops / t_ms / 1e9,
                               bound_share=b_ms / t_ms, shape=[B, H, S, D],
                               kv_heads=H_kv, dtype=name, window=win,
-                              views=views, tensor_cores=tc)
+                              views=views, tensor_cores=tc,
+                              window_rows_rel_err=window_rel)
         del q, k, v, kr, vr, got, want, again
 
     # ---- 9. the LM split path at Qwen3-0.6B's full width -------------------
@@ -4265,7 +4821,13 @@ def main() -> int:
     analysis = lint_phase(card, lint)
     print(json.dumps({"analysis": analysis}, default=float))
 
-    # ---- 21. results -------------------------------------------------------
+    # ---- 21. the dense decoders at full width and long_500k's decode -------
+    # K5 runs every attention core of each split decision (32, 48, 32 and
+    # the scout's 2) and long_500k's 28 windowed prefill cores.
+    dense = dense_phase(dev, gen, reset_counts, counts, card)
+    print(json.dumps({"dense": dense}, default=float))
+
+    # ---- 22. results -------------------------------------------------------
     k1 = k1_rows["served edge"]
     def layer_row(rows, dev_us):
         """The served frame's row, with the 400x400 and batch-8 times."""
@@ -4333,6 +4895,17 @@ def main() -> int:
     for key in ("ms", "ms_reps", "library_ms", "bound_ms", "bound_by",
                 "max_abs_err", "shape", "kv_heads"):
         kernels[4][f"prefill_32k_{key}"] = sharded["k5_32k"][key]
+    for arch, row in list(dense["configs"].items()) + [(SCOUT,
+                                                         dense["scout"])]:
+        kernels[4][f"{arch}_decision_launches"] = row["decision"][
+            "launches"][4]
+    kernels[4]["long_500k_prefill_launches"] = \
+        dense["long_500k"]["prefill_launches"][4]
+    for pre, label in (("gqa5", "GQA 5"), ("long_window", "long window")):
+        for key in ("ms", "ms_reps", "device_us", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by", "max_abs_err", "shape",
+                    "kv_heads", "window", "window_rows_rel_err"):
+            kernels[4][f"{pre}_{key}"] = k5_rows[label][key]
     for pre, label in (("whisper_enc", "whisper encoder"),
                        ("whisper_enc_f32", "whisper encoder f32"),
                        ("whisper_dec", "whisper decoder"),

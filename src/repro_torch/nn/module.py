@@ -21,12 +21,25 @@ from torch.overrides import TorchFunctionMode
 Initializer = Callable[[torch.Generator, tuple, torch.dtype], torch.Tensor]
 
 
+def _normal(gen, shape, std: float, dtype) -> torch.Tensor:
+    """N(0, std^2) of ``shape`` in ``dtype`` on the generator's device.
+    f32 is drawn and scaled in place.  A narrower dtype is drawn straight
+    into its own storage (``normal_`` computes each value in f32 and
+    rounds it once), so a bf16 leaf never holds an f32 copy of itself:
+    drawing a 256,000 x 4,096 embedding costs its own bytes alone.  Its
+    values need not equal an f32 draw's cast down: the generator's stream
+    is spent differently."""
+    if dtype == torch.float32:
+        return torch.randn(shape, generator=gen, device=gen.device).mul_(std)
+    return torch.empty(shape, dtype=dtype, device=gen.device).normal_(
+        0.0, std, generator=gen)
+
+
 def normal_init(stddev: float = 0.02) -> Initializer:
     """Normal with a fixed standard deviation (the embedding's)."""
 
     def init(gen, shape, dtype=torch.float32):
-        x = torch.randn(shape, generator=gen, device=gen.device)
-        return x.mul_(stddev).to(dtype)
+        return _normal(gen, shape, stddev, dtype)
 
     return init
 
@@ -36,9 +49,7 @@ def fan_in_init(scale: float = 1.0, fan_axis: int = 0) -> Initializer:
 
     def init(gen, shape, dtype=torch.float32):
         fan_in = shape[fan_axis] if shape else 1
-        std = scale / math.sqrt(max(fan_in, 1))
-        x = torch.randn(shape, generator=gen, device=gen.device)
-        return x.mul_(std).to(dtype)   # in place: one f32 copy at a time
+        return _normal(gen, shape, scale / math.sqrt(max(fan_in, 1)), dtype)
 
     return init
 

@@ -9,6 +9,9 @@ import json
 from pathlib import Path
 
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 torch.set_num_threads(1)

@@ -19,6 +19,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.kernels.flash_attention import flash_attention as j_flash
@@ -404,11 +407,29 @@ def test_norms(norm):
     np.testing.assert_allclose(_np(got), _np(want), atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("mlp", ["swiglu", "gelu_mlp"])
+@pytest.mark.parametrize("mlp", ["swiglu", "gelu_mlp", "relu2"])
 def test_mlps(mlp):
-    jp = getattr(j_layers, mlp + "_init")(KeyGen(jax.random.PRNGKey(9))(),
-                                          32, 96)
+    """Each MLP kind against the reference's.  The squared ReLU
+    (minitron-8b) has no function in ``nn.layers``: both packages compute
+    it in ``models.blocks.mlp_apply`` over ``mlp_init``'s bias-free
+    up/down pair."""
     x = _rand((2, 7, 32), 6)
-    got = getattr(t_layers, mlp)(params_from_jax(jp, device="cpu"), _t(x))
-    want = getattr(j_layers, mlp)(jp, jnp.asarray(x))
+    if mlp == "relu2":
+        from repro.models import blocks as j_blocks
+        from repro_torch.models import blocks as t_blocks
+        cfg = dataclasses.replace(ARCHS["minitron-8b"].reduced(), d_model=32,
+                                  d_ff=96)
+        assert cfg.mlp == "relu2"
+        jp = j_blocks.mlp_init(KeyGen(jax.random.PRNGKey(9))(), cfg,
+                               jnp.float32)
+        assert sorted(jp) == ["down", "up"] and "bias" not in jp["up"]
+        got = t_blocks.mlp_apply(cfg, params_from_jax(jp, device="cpu"),
+                                 _t(x))
+        want = j_blocks.mlp_apply(cfg, jp, jnp.asarray(x))
+    else:
+        jp = getattr(j_layers, mlp + "_init")(
+            KeyGen(jax.random.PRNGKey(9))(), 32, 96)
+        got = getattr(t_layers, mlp)(params_from_jax(jp, device="cpu"),
+                                     _t(x))
+        want = getattr(j_layers, mlp)(jp, jnp.asarray(x))
     np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)

@@ -22,6 +22,9 @@ import json
 import math
 
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro import configs as j_configs

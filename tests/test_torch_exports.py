@@ -6,6 +6,9 @@ are planned against shared memory; ``vmem_feasible`` is
 reference's kernel wrappers."""
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 import repro.core as j_core

@@ -12,6 +12,8 @@ At ``n_servers=1`` the port's fleet reduces bitwise to its own
 import numpy as np
 import pytest
 
+pytest.importorskip("torch")
+
 from repro.serving import fleet as j_fleet
 from repro.serving import netsim as j_net
 from repro.serving import profiles as j_prof

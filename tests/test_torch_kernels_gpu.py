@@ -14,6 +14,9 @@ and 1e-2 in bf16 against the plain version in f32 on the upcast inputs
 (the kernel rounds P to bf16 for its tensor-core product, and its output).
 """
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro_torch.core.miniconv import (LayerSpec, MiniConvSpec,
@@ -379,6 +382,12 @@ GQA_CASES = [pytest.param(n_rep, D, window, dtype, True,
              for n_rep in (1, 2, 8)]
 GQA_CASES.append(pytest.param(2, 64, None, torch.bfloat16, False,
                               id="bf16-None-64-2-non-causal"))
+# qwen2.5-14b's and llama4-scout's group: 40 query heads over 8 KV heads
+GQA_CASES += [pytest.param(5, 128, window, dtype, True,
+                           id=f"{name}-{window}-128-5")
+              for dtype, name in ((torch.float32, "f32"),
+                                  (torch.bfloat16, "bf16"))
+              for window in (None, 48)]
 
 
 @pytest.mark.parametrize("n_rep,D,window,dtype,causal", GQA_CASES)
@@ -430,6 +439,30 @@ def test_flash_kernel_bf16_routes(cuda, S, D, H, H_kv, window):
     assert _counts() == (before[0] + 1, before[1] + tc, before[2])
     torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=1e-2)
     assert torch.equal(got, run())
+
+
+def test_flash_kernel_long_context_prefill_window(cuda):
+    """long_500k's prefill core: Qwen3-0.6B's (1,16/8,8192,128) bf16
+    views with every attention block windowed at 4,096 (the config's
+    ``long_context_window``), on the tensor-core route, against the plain
+    version in f32.  The rows whose window is full average 4,096 values,
+    far below 1e-2 in size, so they are also held together relative to
+    their size, at 2^-6 (chip_smoke's ``K5_WINDOW_RTOL``): the plain
+    version at a window 128 keys shorter, a dropped tile, misses it by
+    over 5x."""
+    S, W = 8192, 4096
+    q, k, v = _gqa_views(1, 16, 8, S, 128, torch.bfloat16, cuda, 81)
+    before = _counts()
+    got = fmod.flash_attention(q, k, v, causal=True, sliding_window=W)
+    want = _plain_gqa(q, k, v, W)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0] + 1, before[1] + 1, before[2])
+    torch.testing.assert_close(got.float(), want, atol=1e-2, rtol=1e-2)
+
+    def rel(a):
+        d = a[:, :, W:].float() - want[:, :, W:]
+        return float(d.norm() / want[:, :, W:].norm())
+    assert rel(got) <= 2.0 ** -6 < rel(_plain_gqa(q, k, v, W - 128)) / 5
 
 
 def test_flash_kernel_copies_only_what_it_cannot_address(cuda):

@@ -13,6 +13,9 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 from hypothesis import given, settings, strategies as st
 
 from repro.core import latency as j_lat

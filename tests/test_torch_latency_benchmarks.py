@@ -16,6 +16,9 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro import deploy as j_deploy

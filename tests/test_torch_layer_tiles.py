@@ -21,6 +21,9 @@ is checked here by emulating the kernel's index arithmetic in numpy:
 """
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro_torch.core import passplan as pp

@@ -10,6 +10,9 @@ import json
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro_torch.benchmarks import learning, population

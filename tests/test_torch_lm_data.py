@@ -10,6 +10,9 @@ at position 0, and a learnable bigram structure.
 import jax
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.data import SyntheticLM as JSyntheticLM

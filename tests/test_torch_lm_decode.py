@@ -20,6 +20,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.models.registry import get_model as j_get_model
@@ -157,6 +160,12 @@ def _qwen3():
     return j_get_model("qwen3-0.6b", reduced=True)[0]
 
 
+def _minitron():
+    cfg = j_get_model("minitron-8b", reduced=True)[0]
+    assert (cfg.norm, cfg.mlp, cfg.qkv_bias) == ("layernorm", "relu2", False)
+    return cfg
+
+
 MODELS = {
     "qwen3-0.6b": (_qwen3, False),
     # GQA (4 query heads over 2 KV heads) with swa blocks, their window
@@ -167,6 +176,13 @@ MODELS = {
     # the long-context variant: every attn block windowed
     "long-ctx": (lambda: dataclasses.replace(
         _qwen3(), long_context_window=6, masked_cache_update=False), True),
+    # minitron-shaped long context (LayerNorm, squared ReLU, no QKV bias,
+    # untied head), its window scored over the whole cache and gathered
+    "minitron-long-ctx": (lambda: dataclasses.replace(
+        _minitron(), long_context_window=6), True),
+    "minitron-long-ctx-gather": (lambda: dataclasses.replace(
+        _minitron(), long_context_window=6, windowed_decode_gather=True),
+        True),
 }
 
 

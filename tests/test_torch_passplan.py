@@ -9,6 +9,8 @@ import dataclasses
 
 import pytest
 
+pytest.importorskip("torch")
+
 from repro.core import backends as j_backends
 from repro.core import passplan as j_passplan
 from repro.core import miniconv as j_miniconv

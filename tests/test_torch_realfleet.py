@@ -29,6 +29,9 @@ import time
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.core import wire as j_wire

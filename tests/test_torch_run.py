@@ -17,6 +17,9 @@ import types
 from pathlib import Path
 
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro_torch.benchmarks import (break_even, decision_latency,

@@ -17,6 +17,8 @@ import json
 import numpy as np
 import pytest
 
+pytest.importorskip("torch")
+
 from repro import deploy as j_deploy
 from repro.serving import netsim as j_net
 from repro.serving import scenario as j_sc

@@ -17,6 +17,9 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro_torch import deploy as t_deploy

@@ -24,6 +24,9 @@ import socket
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 import torch.distributed as dist
 

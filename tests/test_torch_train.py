@@ -13,6 +13,9 @@ import importlib
 
 import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.rl import rollout as j_rollout

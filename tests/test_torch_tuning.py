@@ -15,6 +15,9 @@ import json
 from pathlib import Path
 
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro.core import tuning as j_tuning
