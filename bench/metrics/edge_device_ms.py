@@ -1,0 +1,12 @@
+"""Device time a tick of the operations launched under the ``edge`` span
+(the encoder and the codec's encode), from the profiler's trace."""
+
+UNIT = "ms"
+
+
+def read(rec: dict):
+    t = rec.get("trace")
+    ops = [d for _, _, d, span in (t or {}).get("ops", ()) if span == "edge"]
+    if not ops:
+        return None
+    return sum(ops) / t["ticks"] / 1e3
