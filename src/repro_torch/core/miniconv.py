@@ -22,6 +22,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.nn.layers import conv2d, conv2d_init
 
@@ -199,49 +200,51 @@ def miniconv_apply(params, spec: MiniConvSpec, x, *, use_kernel=False,
     picks its own halo tiles (``PassPlan.tile_plan``).  On CPU tensors
     every tier computes with the plain PyTorch versions of its kernels.
     """
-    from repro_torch.core.backends import get_backend  # lazy: avoids cycle
-    backend = get_backend(use_kernel)
-    mode = backend.mode
-    hw = hb = None
-    if head is not None:
-        hw, hb = ((head["kernel"], head.get("bias"))
-                  if isinstance(head, dict) else head)
-    if mode == "fused":
-        from repro_torch.kernels.miniconv_pass import (
-            miniconv_encoder, miniconv_encoder_stream)
-        if plan is None:
-            plan = spec.plan(x.shape[1], x.shape[2])
-        elif (plan.in_h, plan.in_w) != (x.shape[1], x.shape[2]):
-            raise ValueError(
-                f"plan was built for {(plan.in_h, plan.in_w)} input but got "
-                f"{tuple(x.shape[1:3])}; rebuild with spec.plan(h, w)")
-        ws = [params[f"layer{i}"]["kernel"] for i in range(len(spec.layers))]
-        bs = [params[f"layer{i}"]["bias"] for i in range(len(spec.layers))]
-        if backend.streamed and stream_chunk is None:
-            stream_chunk = plan.max_safe_batch()
-        if stream_chunk is not None:
-            return miniconv_encoder_stream(x, ws, bs, plan,
-                                           chunk_b=stream_chunk,
-                                           tile_h=tile_h, head_w=hw,
-                                           head_b=hb, head_act=head_act)
-        return miniconv_encoder(x, ws, bs, plan, tile_h=tile_h, head_w=hw,
-                                head_b=hb, head_act=head_act)
-    if mode in ("per_pass", "grouped"):
-        from repro_torch.kernels.ops import miniconv_layer  # lazy: cycles
-    for i, l in enumerate(spec.layers):
-        p = params[f"layer{i}"]
-        if mode == "xla":
-            x = conv2d(p, x, stride=l.stride, padding="SAME")
-        else:
-            x = miniconv_layer(x, p["kernel"], p["bias"], stride=l.stride,
-                               fused_groups=(mode == "grouped"))
-        x = _ACTS[l.activation](x)
-    if head is not None:
-        z = x.reshape(x.shape[0], -1) @ hw
-        if hb is not None:
-            z = z + hb
-        return x, _ACTS[head_act](z)
-    return x
+    with tracing.span("encoder"):
+        from repro_torch.core.backends import get_backend  # lazy: avoids cycle
+        backend = get_backend(use_kernel)
+        mode = backend.mode
+        hw = hb = None
+        if head is not None:
+            hw, hb = ((head["kernel"], head.get("bias"))
+                      if isinstance(head, dict) else head)
+        if mode == "fused":
+            from repro_torch.kernels.miniconv_pass import (
+                miniconv_encoder, miniconv_encoder_stream)
+            if plan is None:
+                plan = spec.plan(x.shape[1], x.shape[2])
+            elif (plan.in_h, plan.in_w) != (x.shape[1], x.shape[2]):
+                raise ValueError(
+                    f"plan was built for {(plan.in_h, plan.in_w)} input but "
+                    f"got {tuple(x.shape[1:3])}; rebuild with spec.plan(h, w)")
+            n = len(spec.layers)
+            ws = [params[f"layer{i}"]["kernel"] for i in range(n)]
+            bs = [params[f"layer{i}"]["bias"] for i in range(n)]
+            if backend.streamed and stream_chunk is None:
+                stream_chunk = plan.max_safe_batch()
+            if stream_chunk is not None:
+                return miniconv_encoder_stream(x, ws, bs, plan,
+                                               chunk_b=stream_chunk,
+                                               tile_h=tile_h, head_w=hw,
+                                               head_b=hb, head_act=head_act)
+            return miniconv_encoder(x, ws, bs, plan, tile_h=tile_h, head_w=hw,
+                                    head_b=hb, head_act=head_act)
+        if mode in ("per_pass", "grouped"):
+            from repro_torch.kernels.ops import miniconv_layer  # lazy: cycles
+        for i, l in enumerate(spec.layers):
+            p = params[f"layer{i}"]
+            if mode == "xla":
+                x = conv2d(p, x, stride=l.stride, padding="SAME")
+            else:
+                x = miniconv_layer(x, p["kernel"], p["bias"], stride=l.stride,
+                                   fused_groups=(mode == "grouped"))
+            x = _ACTS[l.activation](x)
+        if head is not None:
+            z = x.reshape(x.shape[0], -1) @ hw
+            if hb is not None:
+                z = z + hb
+            return x, _ACTS[head_act](z)
+        return x
 
 
 def miniconv_feature_shape(spec: MiniConvSpec, h: int, w: int) -> tuple:

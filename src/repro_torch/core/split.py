@@ -16,6 +16,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.wire import WireCodec, get_codec
 from repro_torch.device import DeviceLike
 
@@ -43,14 +44,19 @@ class SplitModel:
     def edge_step_batch(self, edge_params, obs_batch):
         """Encode a stacked (B, ...) batch in ONE edge call, quantised per
         example (each payload is the single-frame path's)."""
-        return self.codec.encode_batch(self.edge_apply(edge_params,
-                                                       obs_batch))
+        with tracing.span("split.edge"):
+            feats = self.edge_apply(edge_params, obs_batch)
+            with tracing.span("codec.encode"):
+                return self.codec.encode_batch(feats)
 
     def server_step_batch(self, server_params, payload_batch):
         """Serve a stacked micro-batch payload (see ``wire.stack_payloads``)
         with one decode + one server_apply over the leading batch axis."""
-        feats = self.codec.decode_batch(payload_batch)
-        return self.server_apply(server_params, feats)
+        with tracing.span("split.server"):
+            with tracing.span("codec.decode"):
+                feats = self.codec.decode_batch(payload_batch)
+            with tracing.span("server.apply"):
+                return self.server_apply(server_params, feats)
 
     def wire_bytes(self, feature_shape: Optional[tuple] = None, *,
                    batch: int = 1) -> int:

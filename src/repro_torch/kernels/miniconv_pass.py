@@ -36,6 +36,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.core.passplan import (ENCODER_THREADS, SMEM_LIMIT,
                                       plan_conv_tiles)
 from repro_torch.kernels._build import (aligned, check_rc, launcher,
@@ -328,52 +329,58 @@ def _launch_encoder(x, weights, biases, plan, head_w, head_b, head_act,
     """Launch K1 (``chunk_b`` None: one block per tile item) or K4 (at
     most ``chunk_b`` frames' items in flight, in persistent blocks) on
     CUDA tensors; returns what :func:`miniconv_encoder` returns."""
-    B = x.shape[0]
-    L = len(plan.layers)
-    streamed = chunk_b is not None
-    tp, desc = _desc_array(plan, B, streamed)
-    x = _kernel_arg(x, "x")
-    # a layer whose weights are not staged is read from device memory in
-    # the staged layout: (kh, kw, c_in, co_pad), zero past c_out
-    ws = [_kernel_arg(t if lt.w_off >= 0 or lt.co_pad == t.shape[-1]
-                      else F.pad(t, (0, lt.co_pad - t.shape[-1])), "weight")
-          for t, lt in zip(weights, tp.layers)]
-    bs = [_kernel_arg(t, "bias") for t in biases]
-    feats = torch.empty((B,) + plan.feature_shape, dtype=torch.float32,
-                        device=dev)
-    z = hw = hb = partial = done = None
-    d_out = 0
-    if head_w is not None:
-        hw = _kernel_arg(head_w, "head_w")
-        hb = None if head_b is None else _kernel_arg(head_b, "head_b")
-        d_out = hw.shape[1]
-        z = torch.empty((B, d_out), dtype=torch.float32, device=dev)
-        partial = torch.empty((B * tp.n_tiles * head_parts(d_out) * d_out,),
-                              dtype=torch.float32, device=dev)
-    if head_w is not None or streamed:
-        # per-frame tile counts, then K4's item counter
-        done = torch.zeros((B + streamed,), dtype=torch.int32, device=dev)
+    with tracing.span("encoder.prepare"):
+        B = x.shape[0]
+        L = len(plan.layers)
+        streamed = chunk_b is not None
+        tp, desc = _desc_array(plan, B, streamed)
+        x = _kernel_arg(x, "x")
+        # a layer whose weights are not staged is read from device memory
+        # in the staged layout: (kh, kw, c_in, co_pad), zero past c_out
+        ws = [_kernel_arg(t if lt.w_off >= 0 or lt.co_pad == t.shape[-1]
+                          else F.pad(t, (0, lt.co_pad - t.shape[-1])),
+                          "weight")
+              for t, lt in zip(weights, tp.layers)]
+        bs = [_kernel_arg(t, "bias") for t in biases]
+        feats = torch.empty((B,) + plan.feature_shape, dtype=torch.float32,
+                            device=dev)
+        z = hw = hb = partial = done = None
+        d_out = 0
+        if head_w is not None:
+            hw = _kernel_arg(head_w, "head_w")
+            hb = None if head_b is None else _kernel_arg(head_b, "head_b")
+            d_out = hw.shape[1]
+            z = torch.empty((B, d_out), dtype=torch.float32, device=dev)
+            partial = torch.empty(
+                (B * tp.n_tiles * head_parts(d_out) * d_out,),
+                dtype=torch.float32, device=dev)
+        if head_w is not None or streamed:
+            # per-frame tile counts, then K4's item counter
+            done = torch.zeros((B + streamed,), dtype=torch.int32,
+                               device=dev)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+        def ptr(t):
+            return None if t is None else t.data_ptr()
 
-    args = [x.data_ptr(), feats.data_ptr(), ptr(z), ptr(partial), ptr(done),
-            desc, L,
-            (ctypes.c_void_p * L)(*[t.data_ptr() for t in ws]),
-            (ctypes.c_void_p * L)(*[t.data_ptr() for t in bs]),
-            ptr(hw), ptr(hb), d_out, _ACT_CODES[head_act],
-            head_parts(max(d_out, 1)), B]
-    if streamed:
-        fn = launcher("miniconv_encoder", "miniconv_encoder_stream_launch",
-                      _STREAM_ARGS)
-        args.append(tp.stream_blocks(B, chunk_b))
-    else:
-        fn = launcher("miniconv_encoder", "miniconv_encoder_launch",
-                      _ENCODER_ARGS)
-    rc = fn(*args, tp.smem_bytes, dev.index or 0,
-            torch.cuda.current_stream(dev).cuda_stream)
-    check_rc(rc, "miniconv_encoder_stream" if streamed
-              else "miniconv_encoder")
+        args = [x.data_ptr(), feats.data_ptr(), ptr(z), ptr(partial),
+                ptr(done), desc, L,
+                (ctypes.c_void_p * L)(*[t.data_ptr() for t in ws]),
+                (ctypes.c_void_p * L)(*[t.data_ptr() for t in bs]),
+                ptr(hw), ptr(hb), d_out, _ACT_CODES[head_act],
+                head_parts(max(d_out, 1)), B]
+        if streamed:
+            args.append(tp.stream_blocks(B, chunk_b))
+    with tracing.span("encoder.launch"):
+        if streamed:
+            fn = launcher("miniconv_encoder",
+                          "miniconv_encoder_stream_launch", _STREAM_ARGS)
+        else:
+            fn = launcher("miniconv_encoder", "miniconv_encoder_launch",
+                          _ENCODER_ARGS)
+        rc = fn(*args, tp.smem_bytes, dev.index or 0,
+                torch.cuda.current_stream(dev).cuda_stream)
+        check_rc(rc, "miniconv_encoder_stream" if streamed
+                  else "miniconv_encoder")
     return feats if z is None else (feats, z)
 
 
@@ -394,8 +401,9 @@ def miniconv_encoder(x, weights, biases, plan, *, tile_h: int = 8,
     launch.  ``tile_h`` is accepted for the reference's signature and does
     not change the result.
     """
-    head_w, dev = _check_encoder_args(x, weights, biases, plan, head_w,
-                                      head_b, head_act)
+    with tracing.span("encoder.check"):
+        head_w, dev = _check_encoder_args(x, weights, biases, plan, head_w,
+                                          head_b, head_act)
     if dev.type == "cpu":
         return miniconv_encoder_ref(x, weights, biases, plan, head_w=head_w,
                                     head_b=head_b, head_act=head_act)
@@ -435,8 +443,9 @@ def miniconv_encoder_stream(x, weights, biases, plan, *, chunk_b: int,
         return miniconv_encoder(x, weights, biases, plan, tile_h=tile_h,
                                 head_w=head_w, head_b=head_b,
                                 head_act=head_act)
-    head_w, dev = _check_encoder_args(x, weights, biases, plan, head_w,
-                                      head_b, head_act)
+    with tracing.span("encoder.check"):
+        head_w, dev = _check_encoder_args(x, weights, biases, plan, head_w,
+                                          head_b, head_act)
     if dev.type == "cpu":
         return miniconv_encoder_stream_ref(x, weights, biases, plan,
                                            head_w=head_w, head_b=head_b,

@@ -72,7 +72,8 @@ def test_port_files_exist():
                 "analysis/__main__.py", "analysis/core.py",
                 "analysis/baseline.py", "analysis/rules_concurrency.py",
                 "analysis/rules_rng.py", "analysis/rules_timing.py",
-                "analysis/rules_schema.py", "analysis/rules_kernel.py"):
+                "analysis/rules_schema.py", "analysis/rules_kernel.py",
+                "tracing.py"):
         assert mod in names, mod
     assert len([n for n in names if n.startswith("configs/")]) == 11
     assert {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")} == \

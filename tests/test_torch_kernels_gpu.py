@@ -323,6 +323,78 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
         kmod.miniconv_encoder(x.cpu(), ws, bs, plan)
 
 
+@pytest.mark.parametrize("B,kernel", [(64, "encoder_stream_kernel"),
+                                      (8, "encoder_kernel")],
+                         ids=["K4", "K1"])
+def test_split_spans_on_card(cuda, B, kernel):
+    """The split path's full span tree on the card, where the K1/K4
+    wrapper adds ``encoder.prepare`` and ``encoder.launch``; under the
+    profiler the encoder kernel's launch lies inside ``encoder.launch``
+    on the profiler's clock.  64 frames at 84x84 stream through K4
+    (``max_safe_batch`` 32); 8 fall through to K1."""
+    import json
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    from repro_torch.deploy import Deployment, DeploymentConfig
+    cfg = DeploymentConfig.standard(k=4, c_in=12, h=84, backend="fused",
+                                    head_dim=512, max_batch=64)
+    dep = Deployment.build(cfg, device=cuda)
+    params = dep.init(torch.Generator().manual_seed(0))
+    obs = torch.rand((B, 84, 84, 12),
+                     generator=torch.Generator().manual_seed(1)).to(cuda)
+
+    def tick():
+        with torch.inference_mode():
+            payload = dep.split.edge_step_batch(params["edge"], obs)
+            return dep.split.server_step_batch(params["server"], payload)
+
+    want = tick()
+    torch.cuda.synchronize()
+    tracing.records()
+    tracing.enable()
+    try:
+        tracing.request(3)
+        got = tick()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tick()
+            torch.cuda.synchronize()
+    finally:
+        tracing.disable()
+    assert torch.equal(got, want)
+    recs = tracing.records()
+    tree = ["split.edge", "encoder", "encoder.check", "encoder.prepare",
+            "encoder.launch", "codec.encode", "split.server",
+            "codec.decode", "server.apply"]
+    assert [r[0] for r in recs] == tree * 2
+    parents = [None, 0, 1, 1, 1, 0, None, 6, 6]
+    assert [r[3] for r in recs[:9]] == parents
+    assert [r[3] - 9 if r[3] is not None else None
+            for r in recs[9:]] == parents
+    assert all(r[4] == 3 for r in recs)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/trace.json"
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans = {e["name"]: e for e in events
+             if e.get("cat") == "user_annotation"}
+    assert set(spans) == set(tree)
+    launch = spans["encoder.launch"]
+    corr = [e["args"]["correlation"] for e in events
+            if e.get("cat") == "kernel" and f"::{kernel}(" in e["name"]]
+    assert len(corr) == 1
+    host = [e for e in events if e.get("cat") in ("cuda_runtime",
+                                                  "cuda_driver")
+            and (e.get("args") or {}).get("correlation") == corr[0]]
+    assert len(host) == 1
+    assert launch["ts"] <= host[0]["ts"] <= launch["ts"] + launch["dur"]
+
+
 @pytest.mark.parametrize("S", [100, 128, 512])
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("window", [None, 64])
