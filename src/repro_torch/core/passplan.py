@@ -24,8 +24,9 @@ kernel's 16 MiB VMEM; the port models its own CUDA kernels
 tiles: one block computes one tile of the last layer's output and every
 earlier layer's region under it, all in its shared memory.
 :meth:`PassPlan.tile_plan` (:class:`TilePlan`) picks the tile size and
-lays out each region, its origin and its buffer; the kernels read that
-plan as it is, so the CPU tests reach all of the tile arithmetic.
+the frames of a layer pass by a cost model (:func:`tile_cost`), and lays
+out each region, its origin and its buffer; the kernels read that plan as
+it is, so the CPU tests reach all of the tile arithmetic.
 """
 from __future__ import annotations
 
@@ -89,14 +90,29 @@ SMEM_STATIC = 16 + 4 * 4 * ENCODER_THREADS
 # thread's register tile that the kernel is compiled for.
 TASK_SHAPES = ((2, 8), (1, 16), (1, 8), (2, 4), (1, 4))
 # Frames one K4 item carries through the projection: the item's tile of
-# each frame is computed in turn, then their partial projections read
-# each row of W once for all of them.
+# each frame is computed a pass of ``TilePlan.frames`` frames at a time,
+# then their partial projections read each row of W once for all of them.
 FRAMES_PER_ITEM = 4
-# Warps an SM needs resident to hide its load and FMA latencies.
-_WARPS_TO_FILL_SM = 16
-# Instructions of one thread to stage one input value (index arithmetic
-# and a 4-byte cp.async), against one FMA, for the tile-size model.
-_LOAD_COST = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderCost:
+    """The constants of the fused kernels' tile model: the SM cycles one
+    (tap, input channel) step of a thread takes beyond issuing its own
+    instructions (its shared-memory loads' latency, which only other
+    warps can hide), and the cycles of one thread to stage one input
+    value (index arithmetic, a 4-byte cp.async and its wait)."""
+
+    step_latency: float
+    load_cost: float
+
+
+# A best grid point of ``python -m repro_torch.benchmarks.encoder_tiles
+# --fit`` over its sweep of every K4 layout at the benchmark's two shapes,
+# timed on the card (NVIDIA H100 80GB HBM3, 700 W): its picks are the
+# fastest layouts at both, and the rank correlation of its modelled costs
+# with the times is 0.975 (25 and 64 read the same).
+ENCODER_COST = EncoderCost(step_latency=20, load_cost=32)
 
 
 # ---------------------------------------------------------------------------
@@ -291,10 +307,11 @@ class PassPlan:
 
     def max_safe_batch(self) -> int:
         """Frames whose tile items fill one wave of the streamed kernel's
-        resident blocks (each item carries ``group`` frames): the batch
-        the card holds at once.  Larger batches stream through K4, which
-        fetches each block's next tile while it computes the current
-        one."""
+        resident blocks (each item carries ``group`` frames), under K4's
+        throughput plan (tile size and frames a pass, which set the blocks
+        an SM holds): the batch the card holds at once.
+        Larger batches stream through K4, which fetches each block's next
+        pass while it computes the current one."""
         tp = self.tile_plan(None, streamed=True)
         return tp.group * -(-tp.resident_blocks // tp.n_tiles)
 
@@ -385,9 +402,14 @@ class TilePlan:
     columns split by phase modulo the reading layer's stride (column x at
     ``(x % s) * (row / s) + x // s``), so neighbouring threads of a
     stride-s layer read neighbouring floats.  The last layer's region is
-    the tile itself, HWC, one slot per frame of the item.  K4 keeps two
-    input buffers (``in_offs``) to fetch its next frame's tile while it
-    computes this one.
+    the tile itself, HWC, one slot per frame of the item.
+
+    One layer pass covers ``frames`` frames of an item (1 in K1): each
+    region, and the input buffer, holds that many frames one after the
+    other, and a layer's register tile is chosen for the pass's pixels.
+    K4 fetches its next pass's input into the same buffer as soon as the
+    first layer, its only reader, has read it, so that it lands while the
+    later layers run.  ``work`` and ``chain`` model one pass.
     """
 
     tile_h: int
@@ -400,11 +422,12 @@ class TilePlan:
     in_row: int
     in_org_h: tuple[int, int]
     in_org_w: tuple[int, int]
-    in_offs: tuple[int, ...]
+    in_off: int                 # the input buffer, ``frames`` frames
     layers: tuple[LayerTile, ...]
     smem_floats: int
-    work: float                 # SM cycles of one frame's tile (model)
-    chain: float                # instructions of its busiest thread (model)
+    frames: int                 # frames of one layer pass
+    work: float                 # SM issue cycles of one pass (model)
+    chain: float                # cycles of its busiest thread (model)
 
     @property
     def n_tiles(self) -> int:
@@ -414,6 +437,13 @@ class TilePlan:
     def n_items(self, batch: int) -> int:
         """Items of a ``batch``-frame launch."""
         return -(-batch // self.group) * self.n_tiles
+
+    def n_passes(self, batch: int) -> int:
+        """Layer passes of a ``batch``-frame launch: each item's frames
+        ``frames`` at a time, the last item's ragged."""
+        full, left = divmod(batch, self.group)
+        per = _cdiv(self.group, self.frames)
+        return (full * per + _cdiv(left, self.frames)) * self.n_tiles
 
     def stream_blocks(self, batch: int, chunk_b: int) -> int:
         """Persistent blocks of a K4 launch over ``batch`` frames with
@@ -449,28 +479,31 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def layer_cycles(n_pix: int, l: "LayerPlan", shape: tuple[int, int]
-                 ) -> tuple[float, int]:
-    """(SM cycles, busiest thread's instructions) of one tile's layer
-    region of ``n_pix`` outputs, a thread owning ``shape`` = (pixels,
-    channels).  Per (tap, input channel) a task issues P x CB FMAs, P
-    input loads (neighbouring lanes on neighbouring floats, one
-    wavefront) and CB / 4 16-byte weight loads (one address across the
-    warp).  An SM issues 4 warp FMAs a cycle and serves one shared-memory
-    wavefront a cycle."""
+def layer_cycles(n_pix: int, l: "LayerPlan", shape: tuple[int, int],
+                 model: EncoderCost = ENCODER_COST) -> tuple[float, float]:
+    """(SM issue cycles, cycles of the busiest thread) of one layer pass
+    over ``n_pix`` outputs (a pass's frames together), a thread owning
+    ``shape`` = (pixels, channels).  Per (tap, input channel) a task
+    issues P x CB FMAs, P input loads (neighbouring lanes on neighbouring
+    floats, one wavefront) and CB / 4 16-byte weight loads (one address
+    across the warp); an SM issues 4 warp FMAs a cycle and serves one
+    shared-memory wavefront a cycle.  A thread's chain is its tasks'
+    steps, each its instructions plus the loads' latency: however few
+    warps a pass fills, it lasts that long."""
     p, cb = shape
     taps = l.kernel * l.kernel * l.c_in
     tasks = _cdiv(n_pix, p) * _cdiv(l.c_out, cb)
     sm = _cdiv(tasks, 32) * taps * max(p * cb / 4, p + cb / 4)
-    chain = _cdiv(tasks, ENCODER_THREADS) * taps * (p * cb + p + cb // 4)
+    chain = (_cdiv(tasks, ENCODER_THREADS) * taps
+             * (p * cb + p + cb / 4 + model.step_latency))
     return sm, chain
 
 
 def task_shape(n_pix: int, l: "LayerPlan") -> tuple[int, int]:
-    """(pixels, channels) of each thread's register tile for a layer
-    region of ``n_pix`` outputs: the shape whose region takes the fewest
-    cycles by :func:`layer_cycles` on an SM of its own, then the one that
-    uses the SM least."""
+    """(pixels, channels) of each thread's register tile for a layer pass
+    over ``n_pix`` outputs: the shape whose pass takes the fewest cycles
+    by :func:`layer_cycles` on an SM of its own, then the one that uses
+    the SM least."""
     def key(shape):
         sm, chain = layer_cycles(n_pix, l, shape)
         return (max(sm, chain), sm)
@@ -483,17 +516,37 @@ def _split_row(width: int, stride: int) -> int:
     return stride * _cdiv(width, stride)
 
 
+def pass_cycles(plan: "PassPlan", tp: TilePlan,
+                model: EncoderCost = ENCODER_COST) -> tuple[float, float]:
+    """(SM issue cycles, cycles of the busiest thread) of one pass of
+    ``tp``'s layout: its layers by :func:`layer_cycles` at their register
+    tiles, and the staging of its frames' input regions."""
+    work = chain = 0.0
+    for l, lt in zip(plan.layers, tp.layers):
+        sm, ch = layer_cycles(tp.frames * lt.ext_h * lt.ext_w, l,
+                              (lt.pix, lt.co_block), model)
+        work, chain = work + sm, chain + ch
+    staged = tp.frames * tp.in_ext_h * tp.in_ext_w * plan.layers[0].c_in
+    work += _cdiv(staged, 32) * model.load_cost / 4
+    chain += _cdiv(staged, ENCODER_THREADS) * model.load_cost
+    return work, chain
+
+
 def tile_layout(plan: "PassPlan", th: int, tw: int, streamed: bool = False,
-                staged_weights: bool = True) -> TilePlan:
+                staged_weights: bool = True, *, frames: int = 1) -> TilePlan:
     """The tile plan for ``th`` x ``tw`` output tiles: each layer's
     region, walked back from the tile through every layer's stride,
     kernel and SAME padding, and one block's shared memory, laid out as
     weights (unless ``staged_weights`` is False: the kernel then reads
     them, padded to ``co_pad`` columns, from device memory; ``w_off`` is
-    -1) and biases, then the input buffers (two if ``streamed``), then the
-    regions, each 16-byte aligned.  A streamed item carries
-    ``FRAMES_PER_ITEM`` frames."""
+    -1) and biases, then the input buffer of ``frames`` frames, then the
+    regions of ``frames`` frames, each 16-byte aligned.  A streamed item
+    carries ``FRAMES_PER_ITEM`` frames, and a pass ``frames`` of them; K1
+    (``streamed`` False) takes one frame and one pass."""
     group = FRAMES_PER_ITEM if streamed else 1
+    if not 1 <= frames <= group:
+        raise ValueError(f"no {'K4' if streamed else 'K1'} layout with "
+                         f"{frames} frames a pass")
     regions = []                # per layer, last first: (eh, ew, org_h, org_w)
     eh, ew, mh, ah, mw, aw = th, tw, th, 0, tw, 0
     for l in reversed(plan.layers):
@@ -510,21 +563,16 @@ def tile_layout(plan: "PassPlan", th: int, tw: int, streamed: bool = False,
         return start
 
     shapes, wb = [], []
-    work = chain = 0.0
     for l, (reh, rew, _, _) in zip(plan.layers, regions):
-        p, cb = task_shape(reh * rew, l)
+        p, cb = task_shape(frames * reh * rew, l)
         co_pad = _cdiv(l.c_out, cb) * cb
         shapes.append((p, cb, co_pad))
         n_w = l.kernel * l.kernel * l.c_in * co_pad
         wb.append((alloc(n_w) if staged_weights else -1, alloc(co_pad)))
-        sm, ch = layer_cycles(reh * rew, l, (p, cb))
-        work, chain = work + sm, chain + ch
     first = plan.layers[0]
     in_row = _split_row(ew, first.stride)
     in_elems = eh * in_row * first.c_in
-    work += _cdiv(eh * ew * first.c_in, 32) * _LOAD_COST / 4
-    chain += _cdiv(eh * ew * first.c_in, ENCODER_THREADS) * _LOAD_COST
-    in_offs = tuple(alloc(in_elems) for _ in range(2 if streamed else 1))
+    in_off = alloc(frames * in_elems)
     layers = []
     n = len(plan.layers)
     for i, (l, (reh, rew, oh, ow), (p, cb, co_pad), (w_off, b_off)) in \
@@ -535,31 +583,59 @@ def tile_layout(plan: "PassPlan", th: int, tw: int, streamed: bool = False,
         else:
             nxt = plan.layers[i + 1].stride
             row = _split_row(rew, nxt)
-            out_off = alloc(reh * row * l.c_out)
+            out_off = alloc(frames * reh * row * l.c_out)
         layers.append(LayerTile(ext_h=reh, ext_w=rew, row=row,
                                 next_stride=nxt, org_h=oh, org_w=ow, pix=p,
                                 co_block=cb, co_pad=co_pad, w_off=w_off,
                                 b_off=b_off, out_off=out_off))
-    return TilePlan(tile_h=th, tile_w=tw, tiles_y=_cdiv(plan.out_h, th),
-                    tiles_x=_cdiv(plan.out_w, tw), group=group, in_ext_h=eh,
-                    in_ext_w=ew, in_row=in_row, in_org_h=(mh, ah),
-                    in_org_w=(mw, aw), in_offs=in_offs, layers=tuple(layers),
-                    smem_floats=off, work=work, chain=chain)
+    tp = TilePlan(tile_h=th, tile_w=tw, tiles_y=_cdiv(plan.out_h, th),
+                  tiles_x=_cdiv(plan.out_w, tw), group=group, in_ext_h=eh,
+                  in_ext_w=ew, in_row=in_row, in_org_h=(mh, ah),
+                  in_org_w=(mw, aw), in_off=in_off, layers=tuple(layers),
+                  smem_floats=off, frames=frames, work=0.0, chain=0.0)
+    work, chain = pass_cycles(plan, tp)
+    return dataclasses.replace(tp, work=work, chain=chain)
 
 
 def tile_cost(tp: TilePlan, batch: Optional[int]) -> float:
-    """Modelled cycles of a ``batch``-frame launch: the larger of every
-    frame's tiles' SM cycles spread over the card's SMs, slowed where the
-    resident blocks hold fewer warps than an SM needs to hide its
-    latencies, and the waves of resident blocks times one tile on an SM
-    of its own.  ``batch=None`` counts throughput alone, per frame."""
-    fill = min(1.0, tp.blocks_per_sm * ENCODER_THREADS / 32
-               / _WARPS_TO_FILL_SM)
+    """Modelled SM cycles of a launch of ``tp`` over ``batch`` frames
+    (K4's layouts; a K1 layout, one frame an item, prices K1): the
+    larger of every pass's issue cycles spread over the card's SMs, and
+    the rounds of items over the resident blocks times an item's passes,
+    each the chain of its busiest thread, which lasts as long however few
+    warps carry it.  The blocks an SM holds overlap their chains, so at
+    large batches a pass costs an SM the larger of its issue cycles and
+    its chain over those blocks.  ``batch=None`` counts throughput alone,
+    per frame."""
+    per_item = _cdiv(tp.group, tp.frames)
     if batch is None:
-        return tp.n_tiles * tp.work / (N_SMS * fill)
-    tiles = batch * tp.n_tiles
-    return max(tiles * tp.work / (N_SMS * fill),
-               _cdiv(tiles, tp.resident_blocks) * max(tp.work, tp.chain))
+        per_pass = max(tp.work, tp.chain / tp.blocks_per_sm)
+        return tp.n_tiles * per_item / tp.group * per_pass / N_SMS
+    return max(tp.n_passes(batch) * tp.work / N_SMS,
+               _cdiv(tp.n_items(batch), tp.resident_blocks) * per_item
+               * tp.chain)
+
+
+def tile_candidates(plan: "PassPlan", staged_weights: bool = True
+                    ) -> list[TilePlan]:
+    """Every K4 layout :func:`plan_tiles` chooses from: square tiles (cut
+    to the output's sides) and passes of a whole share of an item's
+    frames (1, 2 or 4 of ``FRAMES_PER_ITEM``), whose shared memory fits a
+    block."""
+    out = []
+    for t in range(1, max(plan.out_h, plan.out_w) + 1):
+        th, tw = min(t, plan.out_h), min(t, plan.out_w)
+        fits = False
+        for frames in (f for f in range(1, FRAMES_PER_ITEM + 1)
+                       if FRAMES_PER_ITEM % f == 0):
+            tp = tile_layout(plan, th, tw, True, staged_weights,
+                             frames=frames)
+            if tp.smem_bytes + SMEM_STATIC <= SMEM_LIMIT:
+                out.append(tp)
+                fits = True
+        if not fits:
+            break               # larger tiles only need more
+    return out
 
 
 @functools.lru_cache(maxsize=512)
@@ -567,30 +643,41 @@ def plan_tiles(plan: "PassPlan", batch: Optional[int] = 1, *,
                streamed: bool = False) -> TilePlan:
     """The tile plan of a fused launch over ``batch`` frames.
 
-    The tile size is the one :func:`tile_cost` finds cheapest among the
-    square tiles (cut to the output's sides) whose K4 layout, two input
-    buffers included, fits one block's shared memory; ties go to the
-    larger tile.  The layers' weights are staged in shared memory unless
-    no tile fits with them.  K1 and K4 take the same tile size at the same
-    batch, and sum each frame's projection in the same order.  Raises
-    ``ValueError`` when not even a 1x1 tile fits.
+    The candidates are K4's layouts (:func:`tile_candidates`: tile size
+    and frames a pass), priced by :func:`tile_cost`, which charges each
+    pass the chain of its busiest thread, paid however few warps the pass
+    fills: passes of more frames, or larger tiles, fill more warps for
+    about the same chain, as long as the blocks' shared memory still lets
+    two share an SM.  Past one wave of K4's resident blocks (``batch``
+    None, or more than ``max_safe_batch`` frames: what runs is K4) the
+    cheapest layout wins; up to it (what runs is K1, one block per tile of
+    one frame) the tile size is the one whose K1 layout is cheapest, and
+    K4 takes its cheapest layout at that tile size.  Ties go to the larger
+    tile, then the fewer frames a pass.  So K1 and K4 take the same tile
+    size at the same batch, and sum each frame's projection in the same
+    order.  The layers' weights are staged in shared memory unless no tile
+    fits with them.  Raises ``ValueError`` when not even a 1x1 tile fits.
     """
     if batch is not None and batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
     for staged in (True, False):
-        best = None
-        for t in range(1, max(plan.out_h, plan.out_w) + 1):
-            th, tw = min(t, plan.out_h), min(t, plan.out_w)
-            tp = tile_layout(plan, th, tw, True, staged)
-            if tp.smem_bytes + SMEM_STATIC > SMEM_LIMIT:
-                break           # larger tiles only need more
-            key = (tile_cost(tp, batch), -t)
-            if best is None or key < best[0]:
-                best = (key, tp)
-        if best is not None:
-            tp = best[1]
-            return (tp if streamed else
-                    tile_layout(plan, tp.tile_h, tp.tile_w, False, staged))
+        cands = tile_candidates(plan, staged)
+        if not cands:
+            continue
+
+        def cheapest(layouts, b):
+            return min(layouts, key=lambda c: (tile_cost(c, b), -c.tile_h,
+                                               c.frames))
+        if batch is None or batch > plan.max_safe_batch():
+            tp = cheapest(cands, batch)
+        else:
+            sides = dict.fromkeys((c.tile_h, c.tile_w) for c in cands)
+            k1 = cheapest([tile_layout(plan, th, tw, False, staged)
+                           for th, tw in sides], batch)
+            tp = cheapest([c for c in cands if c.tile_h == k1.tile_h],
+                          batch)
+        return (tp if streamed else
+                tile_layout(plan, tp.tile_h, tp.tile_w, False, staged))
     raise ValueError(f"no halo tile of {plan.in_h}x{plan.in_w} input fits "
                      f"the {SMEM_LIMIT} B of shared memory a block may use")
 
@@ -842,11 +929,12 @@ def pick_conv_plan(cands: list[ConvTilePlan], model: ConvCost = CONV_COST
 
 
 __all__ = ["CONV_COST", "CONV_MAX_THREADS", "ConvCost", "ConvTilePlan",
-           "ENCODER_THREADS", "FRAMES_PER_ITEM", "HeadPlan", "LayerPlan",
-           "LayerTile", "MAX_BLOCKS_PER_SM", "N_SMS", "PASS_TASK_SHAPES",
-           "PassPlan", "SMEM_LIMIT", "SMEM_PER_SM", "SMEM_STATIC",
-           "ShaderPass", "TASK_SHAPES", "TilePlan", "build_pass_plan",
-           "conv_candidates", "conv_cost", "conv_tile_layout",
-           "count_passes", "layer_cycles", "out_size", "out_spatial_chain",
-           "pick_conv_plan", "plan_conv_tiles", "plan_tiles", "same_pads",
-           "task_shape", "tile_cost", "tile_layout"]
+           "ENCODER_COST", "ENCODER_THREADS", "EncoderCost",
+           "FRAMES_PER_ITEM", "HeadPlan", "LayerPlan", "LayerTile",
+           "MAX_BLOCKS_PER_SM", "N_SMS", "PASS_TASK_SHAPES", "PassPlan",
+           "SMEM_LIMIT", "SMEM_PER_SM", "SMEM_STATIC", "ShaderPass",
+           "TASK_SHAPES", "TilePlan", "build_pass_plan", "conv_candidates",
+           "conv_cost", "conv_tile_layout", "count_passes", "layer_cycles",
+           "out_size", "out_spatial_chain", "pass_cycles", "pick_conv_plan",
+           "plan_conv_tiles", "plan_tiles", "same_pads", "task_shape",
+           "tile_candidates", "tile_cost", "tile_layout"]

@@ -49,10 +49,11 @@ PORT_MODES = ("eager", "cuda")
 _LAUNCH_OVERHEAD_S = 25e-6
 # Seconds per cycle of the fused kernels' tile model
 # (``passplan.tile_cost``): K4 on 64 frames of 400x400x4 with the
-# 512-wide head took 1.6696 ms of device time for 520,479 modelled cycles.
-# (K1 on one 84x84 frame takes 5.2e-9 a cycle: the model leaves out a
+# 512-wide head took 1.3974-1.3990 ms of device time for 504,242 modelled
+# cycles (NVIDIA H100 80GB HBM3, 700 W).
+# (K1 on one 84x84 frame takes 1.5e-9 a cycle: the model leaves out a
 # launch's fixed costs, which the launch overhead below carries.)
-_TILE_CYCLE_S = 3.2e-9
+_TILE_CYCLE_S = 2.8e-9
 # fp32 FLOP/s of the layer kernels (K2, K3) over the whole card: K3's three
 # launches on 2 frames of 400x400x4 (262 MFLOP) took 0.1023 ms.
 _LAYER_FLOP_RATE = 2.56e12

@@ -252,7 +252,8 @@ class Deployment:
         or plain ``fused`` at a ``max_batch`` past ``max_safe_batch``,
         streams the batch through the persistent kernel with
         ``stream_chunk`` frames in flight; ``build_log`` records both
-        decisions.
+        decisions and, when it streams, the persistent kernel's plan (tile,
+        frames a layer pass, its input buffer).
         """
         config.validate()
         dev = resolve_device(device)
@@ -302,6 +303,14 @@ class Deployment:
                     f"frames stream through the persistent kernel, which "
                     f"fetches each block's next tile while it computes, "
                     f"{max_safe} frames in flight")
+            if stream_chunk is not None:
+                k4 = plan.tile_plan(config.max_batch, streamed=True)
+                log.append(
+                    f"stream plan: K4 tiles of {k4.tile_h}x{k4.tile_w}, "
+                    f"{k4.frames} frame(s) a layer pass, 1 input buffer "
+                    f"refilled after the first layer, {k4.smem_bytes} B a "
+                    f"block, {k4.blocks_per_sm} blocks an SM at max_batch="
+                    f"{config.max_batch}")
         codec = get_codec(config.codec)
         mode = backend.mode
         head_act = config.head_act

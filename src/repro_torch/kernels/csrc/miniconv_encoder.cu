@@ -42,12 +42,26 @@
 //   warp.  Per (tap, input channel) a thread issues P + CB/4 loads for
 //   P x CB FMAs.
 // * Each output's sum runs bias, then (i, j, c) in order, whatever the
-//   tile size: features repeat bit for bit, and K4 equals K1.
+//   tile size or the frames of a pass: features repeat bit for bit, and
+//   K4 equals K1.
+// * A layer pass covers `frames` (F) frames of an item at once.  Its
+//   tasks are indexed over (frame, pixel group, channel block), so the F
+//   frames share one sweep of the block's threads and one __syncthreads
+//   a layer; each region holds F frames, one after the other.  A layer
+//   pass is a chain of (tap, channel) steps as long as a thread's tasks,
+//   however few warps carry it: a tile's later layers fill one or two
+//   warps, and an 84x84 tile's first fills half the block.  F frames a
+//   pass fill F times the warps for the chain of one, and pay each
+//   layer's barrier and its short tail once for F frames.
 // * K4 is persistent: its blocks walk the items, each one tile of up to
-//   four consecutive frames, and fetch the next frame's input region with
-//   cp.async into a second buffer while they compute the current one.
-//   K1 runs the same frame body, one block per tile of one frame, with no
-//   prefetch.
+//   four consecutive frames, a pass of F frames at a time.  The next
+//   pass's input region is fetched with cp.async into the one input
+//   buffer as soon as the first layer, its only reader, has finished with
+//   it, so that it lands while the later layers, the projection and the
+//   SM's other block run.  One F-frame buffer, and not two, lets larger
+//   tiles and F frames' regions fit beside two resident blocks an SM.  K1
+//   runs the same pass body with F = 1, one block per tile of one frame
+//   and no prefetch.
 // * The projection needs all of a frame's tiles, and uses no float
 //   atomics.  Each item multiplies its frames' features by their rows of
 //   W, in ascending feature order, into a partial sum per (frame, tile,
@@ -58,6 +72,9 @@
 //   and that block sums the bias and the partials in a fixed order.  K1 and
 //   K4 take the same tile size at the same batch and sum each frame alike,
 //   so their z agree bit for bit too.
+// * PassPlan.tile_plan picks K4's tile size and F with its cost model
+//   (core/passplan.py: tile_cost), which charges each pass the chain of
+//   its busiest thread beside the issue slots of its warps.
 //
 // C interface, bound with ctypes by repro_torch/kernels/miniconv_pass.py.
 #include <cuda_runtime.h>
@@ -79,7 +96,8 @@ struct Layer {
   // one tile's output region: ext_h x ext_w from
   // (ty * mul_h - add_h, tx * mul_w - add_w); `row` floats a region row,
   // its columns split by phase modulo next_stride (0: the last layer,
-  // whose region is the tile, HWC, one slot per frame of the item)
+  // whose region is the tile, HWC, one slot per frame of the item); a
+  // pass's frames lie ext_h * row * c_out floats apart
   int ext_h, ext_w, row, next_stride, mul_h, add_h, mul_w, add_w;
   int pix, co_block, co_pad;  // register tile: pix x co_block accumulators
   int w_off, b_off, out_off;  // shared-memory offsets, floats
@@ -93,8 +111,9 @@ struct Params {
   Layer layers[kMaxLayers];
   int n_layers;
   int tile_h, tile_w, tiles_y, tiles_x, group;
+  int frames;                 // frames of one layer pass (K1: 1)
   int in_ext_h, in_ext_w, in_row, in_mul_h, in_add_h, in_mul_w, in_add_w;
-  int in_off[2];              // input buffers (K1 uses the first)
+  int in_off;                 // the input buffer, `frames` frames
   const float* x;             // (B, in_h, in_w, c_in) NHWC
   float* feats;               // (B, out_h, out_w, c_out) of the last layer
   float* z;                   // (B, head_dim) or null
@@ -185,25 +204,28 @@ __device__ void stage_weights(const Params& p, float* smem) {
   }
 }
 
-// Issues the cp.async copies of frame n's input region under tile
-// (ty, tx) into `dst` (CHW, rows split by phase modulo the first layer's
-// stride), zeros outside the frame.  Warp w copies rows w, w + 8, ...,
-// its lanes neighbouring columns, so no copy divides.  The caller commits
-// and waits.
-__device__ void fetch_input(const Params& p, long long n, int ty, int tx,
-                            float* dst) {
+// Issues the cp.async copies of the input regions of frames n .. n+nf-1
+// under tile (ty, tx) into `dst` (per frame CHW, rows split by phase
+// modulo the first layer's stride; the frames one after the other), zeros
+// outside the frame.  Warp w copies (frame, row) pairs w, w + 8, ..., its
+// lanes neighbouring columns, so no copy divides.  The caller commits and
+// waits.
+__device__ void fetch_input(const Params& p, long long n, int nf, int ty,
+                            int tx, float* dst) {
   const Layer& L = p.layers[0];
   const int C = L.c_in, S = L.stride, Eh = p.in_ext_h, Ew = p.in_ext_w;
   const int iy0 = ty * p.in_mul_h - p.in_add_h;
   const int ix0 = tx * p.in_mul_w - p.in_add_w;
-  const float* frame = p.x + n * L.in_h * L.in_w * static_cast<long long>(C);
+  const long long frame_len = L.in_h * L.in_w * static_cast<long long>(C);
   const int plane = Eh * p.in_row, half = p.in_row / S;
   const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < Eh; r += kThreads / 32) {
+  for (int fr = threadIdx.x >> 5; fr < nf * Eh; fr += kThreads / 32) {
+    const int f = fr / Eh, r = fr - f * Eh;
+    const float* frame = p.x + (n + f) * frame_len;
     const int gy = iy0 + r;
     const bool row_ok = gy >= 0 && gy < L.in_h;
     const float* src_row = frame + static_cast<long long>(gy) * L.in_w * C;
-    float* dst_row = dst + r * p.in_row;
+    float* dst_row = dst + f * plane * C + r * p.in_row;
     for (int col = lane; col < Ew; col += 32) {
       const int gx = ix0 + col;
       const bool ok = row_ok && gx >= 0 && gx < L.in_w;
@@ -215,19 +237,22 @@ __device__ void fetch_input(const Params& p, long long n, int ty, int tx,
   }
 }
 
-// One layer over one tile's output region.  `in` is the previous region
-// (CHW, in_row floats a row split by phase modulo this layer's stride);
-// `smem` holds the staged bias and weights; (oy0, ox0) is the region's first
-// output position in the layer's output.  An intermediate layer writes its
-// region to `out` (CHW, split for the next layer), zero where it lies
-// outside the layer's output.  The last layer (feats != null) writes the
-// tile's positions inside the frame to `feats` (the frame's NHWC
-// features) and to `out`, the frame's HWC slot (zero outside), for the
-// head.
+// One layer over one tile's output region of `nf` frames.  `in` holds the
+// previous region of each frame (CHW, in_row floats a row split by phase
+// modulo this layer's stride; frames in_plane * c_in floats apart);
+// `smem` holds the staged bias and weights; (oy0, ox0) is the region's
+// first output position in the layer's output.  A task is (frame, pixel
+// group, channel block): the frames' pixels are numbered one frame after
+// the other and cut into groups like one region's.  An intermediate layer
+// writes each frame's region to `out` (CHW, split for the next layer),
+// zero where it lies outside the layer's output.  The last layer (feats
+// != null) writes the tile's positions inside the frame to `feats` (the
+// first frame's NHWC features; the next frames follow) and to `out`, the
+// frames' HWC slots (zero outside), for the head.
 template <int P, int CB, bool kStaged>
 __device__ void conv_region(const Layer& L, const float* in, int in_row,
                             int in_plane, const float* smem, int oy0,
-                            int ox0, float* out, float* feats) {
+                            int ox0, float* out, float* feats, int nf) {
   // weights staged in shared memory, or read in place from device memory:
   // two instantiations, so that the hot loop's loads are of one kind
   const float* ws = kStaged ? smem + L.w_off : L.w;
@@ -238,9 +263,11 @@ __device__ void conv_region(const Layer& L, const float* in, int in_row,
   const int out_w = L.out_w, co_pad = L.co_pad, act = L.act;
   const int row = L.row, NS = L.next_stride;
   const int n_pix = ext_h * ext_w;
-  const int groups = (n_pix + P - 1) / P;
+  const int all_pix = nf * n_pix;
+  const int groups = (all_pix + P - 1) / P;
   const int tasks = groups * (co_pad / CB);
   const int in_half = in_row / S;
+  const int in_frame = in_plane * C;
   for (int task = threadIdx.x; task < tasks; task += kThreads) {
     const int cb = task / groups;
     const int g = task - cb * groups;
@@ -250,15 +277,17 @@ __device__ void conv_region(const Layer& L, const float* in, int in_row,
 #pragma unroll
     for (int k = 0; k < P; ++k) {
       const int px = g + k * groups;  // pixels groups apart: lanes adjacent
-      pix[k] = px < n_pix ? px : -1;
-      const int py = px < n_pix ? px / ext_w : 0;
-      const int pxx = px < n_pix ? px - py * ext_w : 0;
+      const bool ok = px < all_pix;
+      pix[k] = ok ? px : -1;
+      const int f = ok ? px / n_pix : 0;
+      const int lp = ok ? px - f * n_pix : 0;
+      const int py = lp / ext_w;
+      const int pxx = lp - py * ext_w;
       const int gy = oy0 + py, gx = ox0 + pxx;
-      live[k] = pix[k] >= 0 && gy >= 0 && gy < out_h && gx >= 0 &&
-                gx < out_w;
+      live[k] = ok && gy >= 0 && gy < out_h && gx >= 0 && gx < out_w;
       any |= live[k];
       // input column pxx * S + j sits at phase j % S, index pxx + j / S
-      base[k] = py * S * in_row + pxx;
+      base[k] = f * in_frame + py * S * in_row + pxx;
     }
     float acc[P][CB];
     if (any) {
@@ -298,20 +327,27 @@ __device__ void conv_region(const Layer& L, const float* in, int in_row,
 #pragma unroll
     for (int k = 0; k < P; ++k) {
       if (pix[k] < 0) continue;
-      const int py = pix[k] / ext_w;
-      const int pxx = pix[k] - py * ext_w;
+      const int f = pix[k] / n_pix;
+      const int lp = pix[k] - f * n_pix;
+      const int py = lp / ext_w;
+      const int pxx = lp - py * ext_w;
       const int at = NS ? py * row + (pxx % NS) * (row / NS) + pxx / NS : 0;
+      float* o = out + f * out_plane * c_out;
+      float* fo = feats == nullptr
+                      ? nullptr
+                      : feats + static_cast<long long>(f) * out_h * out_w *
+                                    c_out;
 #pragma unroll
       for (int q = 0; q < CB; ++q) {
         const int co = cb * CB + q;
         if (co >= c_out) continue;
         const float v = live[k] ? activate(acc[k][q], act) : 0.0f;
-        if (feats == nullptr) {
-          out[co * out_plane + at] = v;
+        if (fo == nullptr) {
+          o[co * out_plane + at] = v;
         } else {
-          out[pix[k] * c_out + co] = v;
+          o[lp * c_out + co] = v;
           if (live[k])
-            feats[((oy0 + py) * out_w + ox0 + pxx) * c_out + co] = v;
+            fo[((oy0 + py) * out_w + ox0 + pxx) * c_out + co] = v;
         }
       }
     }
@@ -321,59 +357,68 @@ __device__ void conv_region(const Layer& L, const float* in, int in_row,
 template <int P, int CB>
 __device__ void conv_layer(const Layer& L, const float* in, int in_row,
                            int in_plane, const float* smem, int oy0, int ox0,
-                           float* out, float* feats) {
+                           float* out, float* feats, int nf) {
   if (L.w_off >= 0)
     conv_region<P, CB, true>(L, in, in_row, in_plane, smem, oy0, ox0, out,
-                             feats);
+                             feats, nf);
   else
     conv_region<P, CB, false>(L, in, in_row, in_plane, smem, oy0, ox0, out,
-                              feats);
+                              feats, nf);
 }
 
 __device__ void run_layer(const Layer& L, const float* in, int in_row,
                           int in_plane, const float* smem, int oy0, int ox0,
-                          float* out, float* feats) {
+                          float* out, float* feats, int nf) {
   switch (L.pix * 100 + L.co_block) {  // PassPlan: TASK_SHAPES
     case 208:
-      conv_layer<2, 8>(L, in, in_row, in_plane, smem, oy0, ox0, out, feats);
+      conv_layer<2, 8>(L, in, in_row, in_plane, smem, oy0, ox0, out, feats,
+                       nf);
       break;
     case 116:
-      conv_layer<1, 16>(L, in, in_row, in_plane, smem, oy0, ox0, out, feats);
+      conv_layer<1, 16>(L, in, in_row, in_plane, smem, oy0, ox0, out, feats,
+                        nf);
       break;
     case 108:
-      conv_layer<1, 8>(L, in, in_row, in_plane, smem, oy0, ox0, out, feats);
+      conv_layer<1, 8>(L, in, in_row, in_plane, smem, oy0, ox0, out, feats,
+                       nf);
       break;
     case 204:
-      conv_layer<2, 4>(L, in, in_row, in_plane, smem, oy0, ox0, out, feats);
+      conv_layer<2, 4>(L, in, in_row, in_plane, smem, oy0, ox0, out, feats,
+                       nf);
       break;
     default:  // 104; the launcher refuses any other shape
-      conv_layer<1, 4>(L, in, in_row, in_plane, smem, oy0, ox0, out, feats);
+      conv_layer<1, 4>(L, in, in_row, in_plane, smem, oy0, ox0, out, feats,
+                       nf);
       break;
   }
 }
 
-// Frame j of item `it`: every layer over its regions, from the staged input
-// region `in`; the last layer's tile lands in the frame's slot.  All
-// threads of the block call this, and it ends with them in step.
-__device__ void encode_frame(const Params& p, float* smem, const float* in,
-                             const Item& it, int j) {
-  const int last = p.n_layers - 1;
-  const Layer& fin = p.layers[last];
-  const long long n = it.n0 + j;
-  float* feats = p.feats + n * fin.out_h * fin.out_w *
-                               static_cast<long long>(fin.c_out);
+// Layer l of one pass: frames j .. j+nf-1 of item `it`, layer 0 from the
+// staged input regions `x_in`; the last layer's tiles land in the frames'
+// slots.  All threads of the block call this, and it ends with them in
+// step.  Each kernel calls it from one loop over the layers, so that its
+// register-tile instantiations are inlined once.
+__device__ void encode_layer(const Params& p, float* smem, const float* x_in,
+                             const Item& it, int j, int nf, int l) {
+  const Layer& L = p.layers[l];
+  const float* in = x_in;
   int in_row = p.in_row, in_plane = p.in_ext_h * p.in_row;
-  for (int l = 0; l < p.n_layers; ++l) {
-    const Layer& L = p.layers[l];
-    float* out = smem + L.out_off;
-    if (l == last) out += j * p.tile_h * p.tile_w * L.c_out;
-    run_layer(L, in, in_row, in_plane, smem, it.ty * L.mul_h - L.add_h,
-              it.tx * L.mul_w - L.add_w, out, l == last ? feats : nullptr);
-    __syncthreads();  // the region is the next layer's input
-    in = out;
-    in_row = L.row;
-    in_plane = L.ext_h * L.row;
+  if (l > 0) {
+    const Layer& Q = p.layers[l - 1];
+    in = smem + Q.out_off;
+    in_row = Q.row;
+    in_plane = Q.ext_h * Q.row;
   }
+  float* out = smem + L.out_off;
+  float* feats = nullptr;
+  if (l == p.n_layers - 1) {
+    out += j * p.tile_h * p.tile_w * L.c_out;
+    feats = p.feats + (it.n0 + j) * L.out_h * L.out_w *
+                          static_cast<long long>(L.c_out);
+  }
+  run_layer(L, in, in_row, in_plane, smem, it.ty * L.mul_h - L.add_h,
+            it.tx * L.mul_w - L.add_w, out, feats, nf);
+  __syncthreads();  // the region is the next layer's input
 }
 
 // The projection's share of item `it`, once all its frames' tiles sit in
@@ -511,12 +556,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     encoder_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) float smem[];
   const Item it = item_of(p, blockIdx.x);
-  fetch_input(p, it.n0, it.ty, it.tx, smem + p.in_off[0]);
+  fetch_input(p, it.n0, 1, it.ty, it.tx, smem + p.in_off);
   stage_weights(p, smem);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  encode_frame(p, smem, smem + p.in_off[0], it, 0);
+  for (int l = 0; l < p.n_layers; ++l)
+    encode_layer(p, smem, smem + p.in_off, it, 0, 1, l);
   if (p.z != nullptr) head_item(p, smem, it);
 }
 
@@ -524,39 +570,47 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // k, and each block that finishes an item takes the next one nobody has
 // taken (an int counter after the frames' `done` counts), so a block that
 // reduces a frame's projection delays no other block's items.  Each
-// item's frames run in turn; the next frame's input region (of this item
-// or the next) lands in the other buffer while this one computes.
+// item's frames run `frames` at a time, one pass of every layer each.  The
+// next pass's input regions (of this item or the next) land in the input
+// buffer as soon as this pass's first layer has read it.
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     encoder_stream_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(16) float smem[];
   __shared__ long long next_item;
+  float* const in = smem + p.in_off;
   long long s = blockIdx.x;
   int j = 0;
   Item it = item_of(p, s < p.n_items ? s : 0);
-  if (s < p.n_items) fetch_input(p, it.n0, it.ty, it.tx, smem + p.in_off[0]);
+  if (s < p.n_items)
+    fetch_input(p, it.n0, min(p.frames, it.nf), it.ty, it.tx, in);
   stage_weights(p, smem);
   cp_async_commit();
-  int cur = 0;
   while (s < p.n_items) {
+    const int nf = min(p.frames, it.nf - j);
+    const bool ends_item = j + nf == it.nf;
     long long s2 = s;
-    int j2 = j + 1;
-    if (j2 == it.nf) {
+    int j2 = j + nf;
+    if (ends_item) {
       if (threadIdx.x == 0)
         next_item = gridDim.x + atomicAdd(p.done + p.batch, 1);
       __syncthreads();
       s2 = next_item;
       j2 = 0;
     }
-    const Item it2 = item_of(p, s2 < p.n_items ? s2 : s);
-    if (s2 < p.n_items)
-      fetch_input(p, it2.n0 + j2, it2.ty, it2.tx, smem + p.in_off[cur ^ 1]);
-    cp_async_commit();
-    cp_async_wait<1>();  // this frame's region has landed
+    const bool more = s2 < p.n_items;
+    const Item it2 = item_of(p, more ? s2 : s);
+    cp_async_wait<0>();  // this pass's regions have landed
     __syncthreads();
-    encode_frame(p, smem, smem + p.in_off[cur], it, j);
-    if (j == it.nf - 1 && p.z != nullptr) head_item(p, smem, it);
-    __syncthreads();  // its buffer is free before the next fetch fills it
-    cur ^= 1;
+    for (int l = 0; l < p.n_layers; ++l) {
+      encode_layer(p, smem, in, it, j, nf, l);
+      if (l == 0 && more) {  // the first layer has read the buffer
+        fetch_input(p, it2.n0 + j2, min(p.frames, it2.nf - j2), it2.ty,
+                    it2.tx, in);
+        cp_async_commit();
+      }
+    }
+    if (ends_item && p.z != nullptr) head_item(p, smem, it);
+    __syncthreads();  // the regions are free before the next pass
     s = s2;
     j = j2;
     it = it2;
@@ -594,10 +648,10 @@ int launch(const float* x, float* feats, float* z, float* partial,
   p.in_add_h = h[9];
   p.in_mul_w = h[10];
   p.in_add_w = h[11];
-  p.in_off[0] = h[12];
-  p.in_off[1] = h[13];
-  if (h[14] * 4 != smem_bytes || p.group < 1 || p.group > kMaxGroup ||
-      (blocks == 0 && p.group != 1))
+  p.in_off = h[12];
+  p.frames = h[14];
+  if (h[13] * 4 != smem_bytes || p.group < 1 || p.group > kMaxGroup ||
+      p.frames < 1 || p.frames > p.group || (blocks == 0 && p.group != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int l = 0; l < n_layers; ++l) {
     const int* d = desc + kHeaderInts + l * kLayerInts;
@@ -680,7 +734,7 @@ int launch(const float* x, float* feats, float* z, float* partial,
 
 // desc: kHeaderInts tile ints (tile_h, tile_w, tiles_y, tiles_x, group,
 // in_ext_h, in_ext_w, in_row, in_mul_h, in_add_h, in_mul_w, in_add_w,
-// in_off0, in_off1, smem_floats), then kLayerInts per layer: the geometry
+// in_off, smem_floats, frames), then kLayerInts per layer: the geometry
 // (kernel, stride, c_in, c_out, in_h, in_w, out_h, out_w, pad_top,
 // pad_left, act) and the tile (ext_h, ext_w, row, next_stride, mul_h,
 // add_h, mul_w, add_w, pix, co_block, co_pad, w_off, b_off, out_off), all
@@ -701,10 +755,10 @@ extern "C" int miniconv_encoder_launch(
 }
 
 // K4: the arguments of miniconv_encoder_launch plus blocks >= 1, the
-// persistent blocks (at most one per item); `desc` then carries two input
-// buffers and up to kMaxGroup frames an item, and `done` holds batch + 1
-// zeroed ints, with or without z.  Launches on `stream` and
-// returns cudaGetLastError().
+// persistent blocks (at most one per item); `desc` then carries up to
+// kMaxGroup frames an item and passes of 1 .. group frames, and `done`
+// holds batch + 1 zeroed ints, with or without z.  Launches on `stream`
+// and returns cudaGetLastError().
 extern "C" int miniconv_encoder_stream_launch(
     const float* x, float* feats, float* z, float* partial, int* done,
     const int* desc, int n_layers, const void* const* weights,

@@ -14,9 +14,10 @@
   projection epilogue, in one launch of one block per halo tile
   (``csrc/miniconv_encoder.cu``), the counterpart of ``miniconv_encoder``
   / ``_encoder_kernel``: the ``fused`` and ``fused+head`` backends.
-* :func:`miniconv_encoder_stream` (K4) — K1's tile body in persistent
-  blocks that walk the batch's tiles and fetch each next tile while they
-  compute (same source), the counterpart of ``miniconv_encoder_stream`` /
+* :func:`miniconv_encoder_stream` (K4) — K1's layer body in persistent
+  blocks that walk the batch's tiles, each layer pass over one or more
+  frames of a tile, and fetch each next pass's input while they compute
+  (same source), the counterpart of ``miniconv_encoder_stream`` /
   ``_miniconv_encoder_pipelined``: ``fused+stream``, and plain ``fused``
   past ``max_safe_batch``.
 
@@ -240,14 +241,15 @@ _STREAM_ARGS = ((_P,) * 6 + (_I,) + (_P,) * 4 + (_I,) * 3
 
 
 def encoder_desc(plan, tp) -> list[int]:
-    """The ints ``miniconv_encoder.cu`` reads: the tile header, then per
-    layer its geometry (kernel, stride, c_in, c_out, in_h, in_w, out_h,
-    out_w, pad_top, pad_left, activation code) and its share of the tile
+    """The ints ``miniconv_encoder.cu`` reads: the tile header (ending in
+    the frames of a layer pass), then per layer its
+    geometry (kernel, stride, c_in, c_out, in_h, in_w, out_h, out_w,
+    pad_top, pad_left, activation code) and its share of the tile
     (region, row, reader's stride, origin, register tile, shared-memory
     offsets)."""
     out = [tp.tile_h, tp.tile_w, tp.tiles_y, tp.tiles_x, tp.group,
            tp.in_ext_h, tp.in_ext_w, tp.in_row, *tp.in_org_h, *tp.in_org_w,
-           tp.in_offs[0], tp.in_offs[-1], tp.smem_floats]
+           tp.in_off, tp.smem_floats, tp.frames]
     for l, lt in zip(plan.layers, tp.layers):
         out += [l.kernel, l.stride, l.c_in, l.c_out, l.in_h, l.in_w,
                 l.out_h, l.out_w, l.pad_top, l.pad_left,
@@ -325,15 +327,20 @@ def _check_encoder_args(x, weights, biases, plan, head_w, head_b,
 
 
 def _launch_encoder(x, weights, biases, plan, head_w, head_b, head_act,
-                    dev, chunk_b=None):
+                    dev, chunk_b=None, tp=None):
     """Launch K1 (``chunk_b`` None: one block per tile item) or K4 (at
     most ``chunk_b`` frames' items in flight, in persistent blocks) on
-    CUDA tensors; returns what :func:`miniconv_encoder` returns."""
+    CUDA tensors, with the plan's tiles or the tile plan ``tp``; returns
+    what :func:`miniconv_encoder` returns."""
     with tracing.span("encoder.prepare"):
         B = x.shape[0]
         L = len(plan.layers)
         streamed = chunk_b is not None
-        tp, desc = _desc_array(plan, B, streamed)
+        if tp is None:
+            tp, desc = _desc_array(plan, B, streamed)
+        else:
+            desc = encoder_desc(plan, tp)
+            desc = (ctypes.c_int * len(desc))(*desc)
         x = _kernel_arg(x, "x")
         # a layer whose weights are not staged is read from device memory
         # in the staged layout: (kh, kw, c_in, co_pad), zero past c_out
@@ -381,6 +388,10 @@ def _launch_encoder(x, weights, biases, plan, head_w, head_b, head_act,
                 torch.cuda.current_stream(dev).cuda_stream)
         check_rc(rc, "miniconv_encoder_stream" if streamed
                   else "miniconv_encoder")
+    if streamed:
+        miniconv_encoder_stream.launches += 1
+    else:
+        miniconv_encoder.launches += 1
     return feats if z is None else (feats, z)
 
 
@@ -407,10 +418,8 @@ def miniconv_encoder(x, weights, biases, plan, *, tile_h: int = 8,
     if dev.type == "cpu":
         return miniconv_encoder_ref(x, weights, biases, plan, head_w=head_w,
                                     head_b=head_b, head_act=head_act)
-    out = _launch_encoder(x, weights, biases, plan, head_w, head_b,
-                          head_act, dev)
-    miniconv_encoder.launches += 1
-    return out
+    return _launch_encoder(x, weights, biases, plan, head_w, head_b,
+                           head_act, dev)
 
 
 miniconv_encoder.launches = 0
@@ -431,11 +440,12 @@ def miniconv_encoder_stream(x, weights, biases, plan, *, chunk_b: int,
     most ``ceil(chunk_b / group) * tiles`` resident blocks, so about
     ``chunk_b`` frames are in flight (``chunk_b`` should come from
     ``PassPlan.max_safe_batch``, the frames that fill one wave of resident
-    blocks); each block fetches its next item's input while it computes
-    the current one.  Each item runs K1's code at K1's tile size, so the
-    result equals :func:`miniconv_encoder` bit for bit at every batch.  A
-    batch within one chunk falls through to K1.  Arguments and return
-    value are :func:`miniconv_encoder`'s.
+    blocks).  A block runs each layer over ``frames`` of an item's frames
+    at once and fetches its next pass's input while it computes this one.
+    Each pass runs K1's layer code at K1's tile size, so the result
+    equals :func:`miniconv_encoder` bit for bit at every batch.  A batch
+    within one chunk falls through to K1.  Arguments and return value are
+    :func:`miniconv_encoder`'s.
     """
     if chunk_b < 1:
         raise ValueError(f"chunk_b must be >= 1, got {chunk_b}")
@@ -450,16 +460,31 @@ def miniconv_encoder_stream(x, weights, biases, plan, *, chunk_b: int,
         return miniconv_encoder_stream_ref(x, weights, biases, plan,
                                            head_w=head_w, head_b=head_b,
                                            head_act=head_act)
-    out = _launch_encoder(x, weights, biases, plan, head_w, head_b,
-                          head_act, dev, chunk_b=chunk_b)
-    miniconv_encoder_stream.launches += 1
-    return out
+    return _launch_encoder(x, weights, biases, plan, head_w, head_b,
+                           head_act, dev, chunk_b=chunk_b)
 
 
 miniconv_encoder_stream.launches = 0
 
 
-__all__ = ["encoder_desc", "head_parts", "launch_layer", "layer_args",
-           "miniconv_encoder", "miniconv_encoder_stream",
+def launch_encoder(x, weights, biases, plan, tp, *, chunk_b=None,
+                   head_w=None, head_b=None, head_act: str = "relu"):
+    """K1 (``chunk_b`` None) or K4 on CUDA tensors with the tile plan
+    ``tp``: a layout of ``passplan.tile_layout`` (K4: any of
+    ``tile_candidates``), with which the kernels compute the same
+    features as with the plan's own.  Checks the arguments as the
+    wrappers do and counts the launch in theirs.  Returns what
+    :func:`miniconv_encoder` returns."""
+    head_w, dev = _check_encoder_args(x, weights, biases, plan, head_w,
+                                      head_b, head_act)
+    if dev.type != "cuda" or (tp.group > 1) != (chunk_b is not None):
+        raise ValueError(f"launch_encoder takes CUDA tensors and a "
+                         f"{'K4' if chunk_b else 'K1'} layout")
+    return _launch_encoder(x, weights, biases, plan, head_w, head_b,
+                           head_act, dev, chunk_b=chunk_b, tp=tp)
+
+
+__all__ = ["encoder_desc", "head_parts", "launch_encoder", "launch_layer",
+           "layer_args", "miniconv_encoder", "miniconv_encoder_stream",
            "miniconv_layer_grouped", "miniconv_pass", "prepare_fused_head",
            "tap_stride"]

@@ -154,6 +154,10 @@ def test_build_reports_the_shared_memory_plan():
     assert any("halo tiles" in line for line in big.build_log)
     assert any("one wave of resident blocks" in line
                for line in big.build_log)
+    k4 = big.plan.tile_plan(64, streamed=True)
+    assert (f"stream plan: K4 tiles of {k4.tile_h}x{k4.tile_w}, "
+            f"{k4.frames} frame(s) a layer pass, 1 input buffer "
+            f"refilled after the first layer") in big.build_log[-1]
 
 
 def test_cli_writes_and_verifies_a_manifest(tmp_path, capsys):

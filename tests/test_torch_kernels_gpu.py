@@ -276,11 +276,24 @@ def test_grouped_tier_equals_reference_tier_bitwise(cuda):
     (standard_spec(c_in=4, k=4), 5, 128, 128, 512, 2),
     (ODD, 7, 85, 83, 200, 3),
     (standard_spec(c_in=4, k=4), 33, 400, 400, 512, 2),
-], ids=["shared", "shared+head", "global+head", "odd+head", "400x400+head"])
+    # the benchmark's batches, in the plan's chunks, and one frame more:
+    # a last item of one frame, short of a pass of several
+    (standard_spec(c_in=12, k=4), 256, 84, 84, None, None),
+    (standard_spec(c_in=12, k=4), 257, 84, 84, None, None),
+    (standard_spec(c_in=12, k=4), 257, 84, 84, 512, None),
+    (standard_spec(c_in=4, k=4), 64, 400, 400, None, None),
+    (standard_spec(c_in=4, k=4), 65, 400, 400, None, None),
+    (standard_spec(c_in=4, k=4), 65, 400, 400, 512, None),
+], ids=["shared", "shared+head", "global+head", "odd+head", "400x400+head",
+        "envs256", "envs257", "envs257+head", "cam64", "cam65",
+        "cam65+head"])
 def test_stream_kernel_equals_fused_kernel(cuda, spec, B, H, W, D, chunk):
-    """K4 runs K1's frame body, so it equals K1 bit for bit at every batch,
-    a ragged last round included, in one launch."""
+    """K4 runs K1's layer body over passes of several frames, so it equals
+    K1 bit for bit at every batch, a ragged last item and a ragged last
+    round included, in one launch (``chunk`` None: the plan's
+    ``max_safe_batch``, as the benchmark streams)."""
     plan, x, ws, bs, hw, hb = _case(spec, B, H, W, D, cuda)
+    chunk = chunk or plan.max_safe_batch()
     kmod.miniconv_encoder.launches = kmod.miniconv_encoder_stream.launches = 0
     got = kmod.miniconv_encoder_stream(x, ws, bs, plan, chunk_b=chunk,
                                        head_w=hw, head_b=hb)
@@ -303,6 +316,27 @@ def test_stream_kernel_equals_fused_kernel(cuda, spec, B, H, W, D, chunk):
     assert kmod.miniconv_encoder.launches == 1
 
 
+@pytest.mark.parametrize("c_in,side,B", [(12, 84, 9), (4, 400, 5)],
+                         ids=["84x84x12", "400x400x4"])
+def test_every_stream_layout_equals_fused_kernel(cuda, c_in, side, B):
+    """Each K4 layout the planner may choose (tile size, frames a pass),
+    launched with ``launch_encoder``, computes K1's
+    features bit for bit: a frame's sum does not depend on the tile or on
+    the frames beside it in a pass.  The batches leave a ragged last
+    item."""
+    from repro_torch.core.passplan import tile_candidates
+    plan, x, ws, bs, _, _ = _case(standard_spec(c_in=c_in, k=4), B, side,
+                                  side, None, cuda)
+    want = kmod.miniconv_encoder(x, ws, bs, plan)
+    seen = set()
+    for tp in tile_candidates(plan):
+        got = kmod.launch_encoder(x, ws, bs, plan, tp, chunk_b=B)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (tp.tile_h, tp.frames)
+        seen.add(tp.frames)
+    assert {1, 2} <= seen
+
+
 def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a CUDA tensor reached a plain version")
@@ -323,15 +357,15 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
         kmod.miniconv_encoder(x.cpu(), ws, bs, plan)
 
 
-@pytest.mark.parametrize("B,kernel", [(64, "encoder_stream_kernel"),
+@pytest.mark.parametrize("B,kernel", [(256, "encoder_stream_kernel"),
                                       (8, "encoder_kernel")],
                          ids=["K4", "K1"])
 def test_split_spans_on_card(cuda, B, kernel):
     """The split path's full span tree on the card, where the K1/K4
     wrapper adds ``encoder.prepare`` and ``encoder.launch``; under the
     profiler the encoder kernel's launch lies inside ``encoder.launch``
-    on the profiler's clock.  64 frames at 84x84 stream through K4
-    (``max_safe_batch`` 32); 8 fall through to K1."""
+    on the profiler's clock.  256 frames at 84x84 stream through K4
+    (past ``max_safe_batch``); 8 fall through to K1."""
     import json
     import tempfile
 
@@ -340,8 +374,9 @@ def test_split_spans_on_card(cuda, B, kernel):
     from repro_torch import tracing
     from repro_torch.deploy import Deployment, DeploymentConfig
     cfg = DeploymentConfig.standard(k=4, c_in=12, h=84, backend="fused",
-                                    head_dim=512, max_batch=64)
+                                    head_dim=512, max_batch=256)
     dep = Deployment.build(cfg, device=cuda)
+    assert dep.max_safe_batch < 256 and dep.stream_chunk is not None
     params = dep.init(torch.Generator().manual_seed(0))
     obs = torch.rand((B, 84, 84, 12),
                      generator=torch.Generator().manual_seed(1)).to(cuda)

@@ -122,6 +122,22 @@ def test_backend_registry_resolves_like_reference():
             t_backends.get_backend(bad)
 
 
+def _smem_floats(plan, tp):
+    """A tile layout's shared memory, from its parts: each layer's staged
+    weights and bias; one input buffer of ``frames`` frames; each
+    intermediate region of ``frames`` frames; the last layer's slot of
+    each of an item's ``group`` frames; each part 16-byte aligned."""
+    def r4(n):
+        return -(-n // 4) * 4
+    weights = sum(r4(l.kernel ** 2 * l.c_in * lt.co_pad) + r4(lt.co_pad)
+                  for l, lt in zip(plan.layers, tp.layers))
+    inputs = r4(tp.frames * tp.in_ext_h * tp.in_row * plan.layers[0].c_in)
+    mid = sum(r4(tp.frames * lt.ext_h * lt.row * l.c_out)
+              for l, lt in zip(plan.layers[:-1], tp.layers[:-1]))
+    return weights + inputs + mid + r4(tp.group * tp.tile_h * tp.tile_w
+                                       * plan.k_out)
+
+
 def test_shared_memory_residency_model():
     """The port's residency model: a launch is cut into halo tiles, every
     layer's region of a tile in its block's shared memory, and
@@ -130,12 +146,20 @@ def test_shared_memory_residency_model():
     p84 = t_miniconv.standard_spec(c_in=12, k=4).plan(84)
     k4 = p84.tile_plan(8, streamed=True)
     k1 = p84.tile_plan(8)
-    # K1 and K4 cut alike; K4 holds a second input buffer
+    # K1 and K4 cut alike; each holds one input buffer, K1's of one frame
+    # and K4's of a pass's frames, each region a pass's frames and a slot
+    # for each of its item's frames
     assert (k1.tile_h, k1.tile_w) == (k4.tile_h, k4.tile_w)
-    assert len(k1.in_offs) == 1 and len(k4.in_offs) == 2
+    assert (k1.frames, k1.group) == (1, 1)
+    assert k1.smem_floats == _smem_floats(p84, k1)
+    assert k4.smem_floats == _smem_floats(p84, k4)
+    one = t_passplan.tile_layout(p84, k4.tile_h, k4.tile_w, True)
     slot = k4.tile_h * k4.tile_w * 4
-    assert k4.smem_bytes - k1.smem_bytes == 4 * (
-        k4.in_ext_h * k4.in_row * 12 + (k4.group - 1) * slot)
+    assert one.smem_bytes - k1.smem_bytes == 4 * (k4.group - 1) * slot
+    two = t_passplan.tile_layout(p84, k4.tile_h, k4.tile_w, True, frames=2)
+    assert two.layers[0].out_off - two.in_off == 2 * two.in_ext_h * \
+        two.in_row * 12
+    assert two.smem_floats == _smem_floats(p84, two)
     assert k4.smem_bytes + t_passplan.SMEM_STATIC <= t_passplan.SMEM_LIMIT
     assert p84.max_safe_batch() >= 8          # max_batch=8 is never refused
     p400 = t_miniconv.standard_spec(c_in=4, k=4).plan(400)
@@ -151,6 +175,51 @@ def test_shared_memory_residency_model():
                                    t_miniconv.LayerSpec(3, 1, 16, 5)))
     # buffers start 16-byte aligned: offsets are multiples of 4 floats
     tp = odd.plan(33, 19).tile_plan(3, streamed=True)
-    offs = [*tp.in_offs] + [o for lt in tp.layers
-                            for o in (lt.w_off, lt.b_off, lt.out_off)]
+    offs = [tp.in_off] + [o for lt in tp.layers
+                          for o in (lt.w_off, lt.b_off, lt.out_off)]
     assert all(o % 4 == 0 for o in offs)
+
+
+@pytest.mark.parametrize("c_in,side,batch", [(12, 84, 256), (12, 84, None),
+                                             (4, 400, 64), (4, 400, None)])
+def test_streamed_plans_of_the_benchmark_shapes_fit_two_blocks(c_in, side,
+                                                               batch):
+    """K4's plan at the benchmark's shapes (and for throughput) keeps two
+    blocks on an SM, and its descriptor carries its one input buffer and
+    the frames of a pass."""
+    from repro_torch.kernels.miniconv_pass import encoder_desc
+    plan = t_miniconv.standard_spec(c_in=c_in, k=4).plan(side)
+    tp = plan.tile_plan(batch, streamed=True)
+    assert tp.blocks_per_sm == t_passplan.MAX_BLOCKS_PER_SM == 2
+    assert 1 <= tp.frames <= tp.group and tp.group % tp.frames == 0
+    assert encoder_desc(plan, tp)[12:15] == [tp.in_off, tp.smem_floats,
+                                             tp.frames]
+
+
+def test_first_layer_pass_fills_the_block_at_84x84x12():
+    """At 84x84x12 the streamed plan's first layer fills most of the
+    block's threads (the plan before passes and one-buffer layouts, 2x2
+    tiles a frame at a time, filled 122 of 256), and a frame takes fewer
+    passes than its 36 tiles of that plan."""
+    plan = t_miniconv.standard_spec(c_in=12, k=4).plan(84)
+    for batch in (256, None):
+        tp = plan.tile_plan(batch, streamed=True)
+        l0, lt = plan.layers[0], tp.layers[0]
+        tasks = (-(-tp.frames * lt.ext_h * lt.ext_w // lt.pix)
+                 * (lt.co_pad // lt.co_block))
+        threads = t_passplan.ENCODER_THREADS
+        assert tasks / (-(-tasks // threads) * threads) >= 0.85
+        assert tp.n_passes(tp.group) / tp.group < 36
+        assert l0.c_out == 16
+
+
+@pytest.mark.parametrize("c_in,side", [(12, 84), (9, 84), (4, 128),
+                                       (4, 400)])
+def test_k1_plans_take_one_frame_a_pass_and_k4s_tile(c_in, side):
+    """K1 runs one frame a pass at every batch, at the tile size K4 takes
+    at that batch."""
+    plan = t_miniconv.standard_spec(c_in=c_in, k=4).plan(side)
+    for batch in (1, 2, 3, 8, 13, 33, 64, 256):
+        k1, k4 = plan.tile_plan(batch), plan.tile_plan(batch, streamed=True)
+        assert (k1.frames, k1.group) == (1, 1)
+        assert (k1.tile_h, k1.tile_w) == (k4.tile_h, k4.tile_w)

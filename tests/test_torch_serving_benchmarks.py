@@ -169,5 +169,5 @@ def test_deploy_example_on_cpu(capsys):
     assert res["bitwise"] and res["leaked"] == []
     assert res["max_abs_err"] < 0.05
     out = capsys.readouterr().out
-    assert "one wave of K4's resident blocks on the card: B <= 32" in out
+    assert "one wave of K4's resident blocks on the card: B <= 68" in out
     assert "real fleet: 1 worker process(es) on cpu served 3 requests" in out

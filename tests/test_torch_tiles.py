@@ -197,11 +197,13 @@ def test_halo_extents_of_the_standard_spec(c_in, h, t, want):
 def test_region_bytes_of_a_400x400_tile():
     """T=6 at 400x400x4: input 56x56x4, layer 0 27x27x16, layer 1 13x13x16
     (107,648 B), each row padded to an even width for the stride-2 layer
-    that reads it (110,208 B); K4 adds a second input buffer and three
-    more frames' tile slots."""
+    that reads it (110,208 B); K4 adds three more frames' tile slots, and
+    passes of two frames one more input region and one more of each
+    layer's."""
     plan = standard_spec(c_in=4, k=4).plan(400)
     k1 = t_passplan.tile_layout(plan, 6, 6)
     k4 = t_passplan.tile_layout(plan, 6, 6, streamed=True)
+    k4x2 = t_passplan.tile_layout(plan, 6, 6, streamed=True, frames=2)
     assert 4 * (56 * 56 * 4 + 27 * 27 * 16 + 13 * 13 * 16) == 107_648
     assert (k1.in_row, k1.layers[0].row, k1.layers[1].row) == (56, 28, 14)
     regions = 4 * (56 * 56 * 4 + 27 * 28 * 16 + 13 * 14 * 16)
@@ -211,7 +213,12 @@ def test_region_bytes_of_a_400x400_tile():
     slot = 4 * 6 * 6 * 4
     assert k1.smem_bytes == regions + weights + slot
     assert k4.group == t_passplan.FRAMES_PER_ITEM == 4 and k1.group == 1
-    assert k4.smem_bytes - k1.smem_bytes == 56 * 56 * 4 * 4 + 3 * slot
+    assert k4.frames == 1
+    assert k4.smem_bytes - k1.smem_bytes == 3 * slot
+    assert k4x2.frames == 2
+    assert [lt.co_pad for lt in k4x2.layers] == \
+        [lt.co_pad for lt in k1.layers]
+    assert k4x2.smem_bytes - k1.smem_bytes == regions + 3 * slot
     assert k1.n_tiles == 81
 
 
@@ -320,13 +327,41 @@ def test_tile_plan_spreads_a_launch_over_the_card(c_in, h, B, min_tiles):
     assert plan.tile_plan(B).tile_h == tp.tile_h    # K1 cuts as K4 does
 
 
+@pytest.mark.parametrize("n_pix,frames", [(121, 1), (121, 2), (225, 1),
+                                          (9, 4), (25, 3), (529, 2)])
+def test_pass_tasks_cover_each_frames_outputs_once(n_pix, frames):
+    """The kernels' task numbering of a layer pass (``conv_region``): the
+    pass's frames' pixels one frame after the other, cut into groups of
+    ``pix`` pixels ``groups`` apart, times the channel blocks, reaches
+    every (frame, pixel, channel) once, whatever register tile the plan
+    chooses for it."""
+    l0 = standard_spec().plan(84).layers[0]
+    for pix, cb in t_passplan.TASK_SHAPES:
+        co_pad = -(-l0.c_out // cb) * cb
+        total = frames * n_pix
+        groups = -(-total // pix)
+        seen = []
+        for task in range(groups * (co_pad // cb)):
+            blk, g = divmod(task, groups)
+            for k in range(pix):
+                px = g + k * groups
+                if px < total:
+                    f, lp = divmod(px, n_pix)
+                    seen += [(f, lp, blk * cb + q) for q in range(cb)
+                             if blk * cb + q < l0.c_out]
+        assert sorted(seen) == [(f, p, c) for f in range(frames)
+                                for p in range(n_pix)
+                                for c in range(l0.c_out)]
+    assert t_passplan.task_shape(frames * n_pix, l0) in t_passplan.TASK_SHAPES
+
+
 def test_encoder_desc_is_what_the_kernel_reads():
     plan = ODD.plan(85, 83)
-    tp = plan.tile_plan(3, streamed=True)
+    tp = t_passplan.tile_layout(plan, 2, 2, True, frames=2)
     desc = encoder_desc(plan, tp)
     assert len(desc) == 15 + 25 * len(plan.layers)
     assert desc[:5] == [tp.tile_h, tp.tile_w, tp.tiles_y, tp.tiles_x, 4]
-    assert desc[12:15] == [tp.in_offs[0], tp.in_offs[1], tp.smem_floats]
+    assert desc[12:15] == [tp.in_off, tp.smem_floats, 2]
     mid = desc[15 + 25:15 + 50]
     assert mid[11:15] == [tp.layers[1].ext_h, tp.layers[1].ext_w,
                           tp.layers[1].row, 2]
@@ -336,8 +371,12 @@ def test_encoder_desc_is_what_the_kernel_reads():
     assert last[11:] == [tp.tile_h, tp.tile_w, tp.tile_w, 0, tp.tile_h, 0,
                          tp.tile_w, 0, lt.pix, lt.co_block, lt.co_pad,
                          lt.w_off, lt.b_off, lt.out_off]
-    one = encoder_desc(plan, plan.tile_plan(3))       # K1: one buffer
-    assert one[4] == 1 and one[12] == one[13]
+    k1 = plan.tile_plan(3)                            # K1: one frame
+    assert encoder_desc(plan, k1)[4] == 1
+    assert encoder_desc(plan, k1)[12:15] == [k1.in_off, k1.smem_floats, 1]
+    k4 = plan.tile_plan(3, streamed=True)             # the planner's K4
+    assert encoder_desc(plan, k4)[12:15] == [k4.in_off, k4.smem_floats,
+                                             k4.frames]
 
 
 def test_weights_past_shared_memory_are_read_in_place():

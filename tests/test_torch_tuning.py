@@ -64,21 +64,21 @@ def test_default_candidates_equal_the_reference_grid(h, max_batch, c_in):
 
 
 def test_default_candidates_differ_only_by_each_packages_safe_batch():
-    """At 84x84 and max_batch 64 the reference adds its VMEM-safe 42
+    """At 84x84 and max_batch 128 the reference adds its VMEM-safe 42
     frames and the port the frames that fill one wave of K4's blocks;
     every other micro-batch's candidates are the same."""
-    jcfg, tcfg = _pair(84, 64)
+    jcfg, tcfg = _pair(84, 128)
     t_safe = tcfg.spec.plan(84).max_safe_batch()
-    assert 1 <= t_safe <= 64 and t_safe != 42
+    assert 1 <= t_safe <= 128 and t_safe != 42
     ref = _as_tuples(j_tuning.default_candidates(jcfg))
     port = _as_tuples(t_tuning.default_candidates(tcfg))
     assert ({c[2] for c in port} ==
             {c[2] for c in ref if c[2] != 42} | {t_safe})
     assert [c for c in port if c[2] != t_safe] == \
         [c for c in ref if c[2] not in (42, t_safe)]
-    jcfg, tcfg = _pair(400, 64, c_in=4)        # port: 8 frames fill a wave
+    jcfg, tcfg = _pair(400, 64, c_in=4)        # port: 12 frames fill a wave
     micro = {c.micro_batch for c in t_tuning.default_candidates(tcfg)}
-    assert micro == {1, 2, 4, 8, 16, 32, 64}
+    assert micro == {1, 2, 4, 8, 12, 16, 32, 64}
 
 
 @pytest.mark.parametrize("max_batch,micro", [(8, 1), (8, 3), (8, 8),
