@@ -91,7 +91,17 @@ and a 128-token prompt decoded against the forward, and Qwen3-0.6B's
 long_500k decode: an 8,192-token prefill windowed at 4,096 (28 K5
 launches), its K/V rows in a 524,288-deep bf16 cache, 32 greedy tokens
 with the window scored over the whole cache and the same tokens with it
-gathered, and one step at index 524,287 on each route.
+gathered, and one step at index 524,287 on each route.  Last it holds K7,
+the grouped expert GEMM of granite-4.0-h's dropless MoE, against its
+plain version and ``torch._grouped_mm`` at 72 experts and 81,920 routed
+rows, and K5 at granite-4.0-h's (4, 32/8, 2,048, 128) attention with its
+1/128 scale, then drives one decision of the benchmark cell
+``granite4h.pf4x2048`` through the program's split path (granite-4.0-h
+at full width, its first 20 layers: 4 prompts x 2,048 tokens, the edge's
+10 layers, the uint8 codec, the server's 10 layers and the head at the
+last position), whose K7 and K5 launches are K7's row in the
+``kernels`` line (``python3 chip_smoke.py --granite`` runs this phase
+alone).
 Each path runs with every launch count set to 0 just before it and read
 just after; the actions are checked against the eager ``xla`` build of
 the same manifest, and the LM's logits against its monolith and against
@@ -102,7 +112,8 @@ Phase 14 prints its numbers as a ``{"training": ...}`` line, phase 15 as
 a ``{"population": ...}`` line, phase 16 as a ``{"lm": ...}`` line,
 phase 17 as a ``{"families": ...}`` line, phase 18 as a ``{"whisper":
 ...}`` line, phase 19 as a ``{"sharded": ...}`` line, phase 20 as an
-``{"analysis": ...}`` line, phase 21 as a ``{"dense": ...}`` line.
+``{"analysis": ...}`` line, phase 21 as a ``{"dense": ...}`` line, phase
+22 as a ``{"granite": ...}`` line.
 On success the line before the last is ``{"kernels": [...]}`` (one entry
 per kernel: launches on the served path, error, times and bound), and the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -3659,6 +3670,319 @@ def dense_phase(dev, gen, reset_counts, counts, card):
     say(f"phase {out['seconds']:.2f} s (target 90 s)")
     return out
 
+# K7 against its plain version (per-expert torch.matmul in f32, the hidden
+# rounded to bf16 at the same place): both sum 4,096- and 768-term products
+# in f32 in another order, so now and then a hidden value near a bf16
+# rounding boundary rounds the other way, by one bf16 spacing of itself.
+# On a large hidden value that moves its output row's elements by up to a
+# few thousandths (0.0052 of an output RMS of 0.345 at the served shape,
+# the first card runs), and ||K7 - plain|| / ||plain|| reads 2.2e-4 to
+# 2.3e-4 (torch._grouped_mm, which rounds gate and up to bf16 before the
+# SiLU, reads 3.9e-3).  So the whole output is held to K7_REL, 4x over
+# those readings, and each element to K7_MAX times the output's RMS.  A
+# row computed by the wrong expert moves the output by its own size (1.41
+# read), a dropped 64-deep stage of the gate|up GEMM by about an eighth
+K7_REL = 2.0 ** -10
+K7_MAX = 2.0 ** -3
+# K5 in bf16 with granite-4.0-h's 1/128 scale against the plain f32
+# version at the same scale, as a block: ||K5 - plain|| <= K5_WINDOW_RTOL
+# * ||plain||.  At 1/128 the softmax is flat: early rows average a few
+# values of size up to 4, late rows thousands, so neither ATTN_TOL's
+# absolute 0.01 (read 0.0091) nor the K5_ROWS element rule (read 1.56 of
+# it, on late rows near 0) is a rounding bound there; rounding P and the
+# output to bf16 moves the block by about 2^-9.  The default head_dim **
+# -0.5 scale on the same inputs gives softmax weights 11x sharper and
+# reads far outside it (the phase checks that too)
+
+
+GRANITE = "granite-4.0-h-small"
+GRANITE_LAYERS = 20       # of its 40: the benchmark cell's first two periods
+GRANITE_TICK = (4, 2048)  # the cell's prompts x tokens a decision
+
+
+def granite_served(dev):
+    """One decision of ``granite4h.pf4x2048`` through the program's own
+    path, as ``bench/systems/hybrid_lm.py`` serves it: granite-4.0-h at
+    full width cut to ``GRANITE_LAYERS`` layers, drawn on the card from
+    seed 0, split after the first period (``split_params``), the edge's
+    ``edge_forward`` -> the uint8 codec -> ``server_forward(...,
+    last_only=True)``.  One decision warms it; K7's, K5's and the
+    dropless route's counts are set to 0 just before the second.  Every
+    tensor it makes is freed when it returns.  Returns the counts."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.split import make_split_policy
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_grouped import moe_grouped
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.transformer import DecoderModel
+    from repro_torch.nn import moe
+
+    full = get_config(GRANITE)
+    check(full.n_layers == 40 and full.d_model == 4096
+          and full.moe.n_experts == 72 and full.moe.top_k == 10
+          and full.moe.dropless and full.ssm_ffn,
+          f"{GRANITE}: not its published config")
+    period = len(full.pattern)
+    cfg = dataclasses.replace(full, n_layers=GRANITE_LAYERS,
+                              n_pattern=GRANITE_LAYERS // period,
+                              remainder=())
+    model = DecoderModel(cfg)
+    params = serve_cli.init_params(model, dev)
+    edge_p, server_p = model.split_params(params, 1)
+    del params
+    split = make_split_policy(
+        model.edge_forward,
+        lambda prm, h: model.server_forward(prm, h, last_only=True),
+        codec="uint8")
+    B, S = GRANITE_TICK
+    tokens = torch.randint(0, cfg.vocab, (B, S), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(31))
+
+    def decide():
+        with torch.inference_mode(), moe.recorded_routes(routes):
+            payload = split.edge_step_batch(edge_p, tokens)
+            return payload, split.server_step_batch(server_p, payload)
+
+    routes: list = []
+    decide()
+    torch.cuda.synchronize()
+    routes.clear()
+    moe_grouped.launches = flash_attention.launches = 0
+    moe.reset_counters()
+    t0 = time.perf_counter()
+    payload, logits = decide()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    k7, k5 = moe_grouped.launches, flash_attention.launches
+    rows = moe.dropless_counters()
+    n_attn = sum(k == "attn" for k in cfg.blocks())
+    print(f"{GRANITE} ({GRANITE_LAYERS} of {full.n_layers} layers, "
+          f"{cfg.param_count():,} parameters), one decision of {B} x {S} "
+          f"tokens split after layer {period - 1}: {ms:.1f} ms; K7 "
+          f"{k7} launches, K5 {k5}, {rows['routed_rows']} routed rows (the "
+          f"most on one expert {rows['max_expert_rows']}), payload "
+          f"{tuple(payload['data'].shape)} {payload['data'].dtype}, logits "
+          f"{tuple(logits.shape)}")
+    check(k7 == cfg.n_layers and k5 == n_attn == 2
+          and len(routes) == cfg.n_layers
+          and rows["routed_rows"] == cfg.n_layers * B * S * cfg.moe.top_k,
+          f"{GRANITE}: a decision launched K7 {k7} and K5 {k5} times over "
+          f"{len(routes)} routed layers, {rows['routed_rows']} rows")
+    check(payload["data"].dtype == torch.uint8
+          and tuple(payload["data"].shape) == (B, S, cfg.d_model)
+          and tuple(logits.shape) == (B, 1, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{GRANITE}: payload {payload['data'].shape} "
+          f"{payload['data'].dtype}, logits {logits.shape}")
+    out = dict(layers=cfg.n_layers, published_layers=full.n_layers,
+               params=cfg.param_count(), tokens=[B, S], ms=ms,
+               k7_launches=k7, k5_launches=k5, **rows)
+    del edge_p, server_p, payload, logits, routes, split, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def granite_phase(dev, card):
+    """Phase 22: K7 (``kernels.moe_grouped``) at granite-4.0-h's expert
+    shape, 72 experts, 8,192 tokens routed top-10 (about 1,138 rows an
+    expert), D 4,096, F 768, against its plain version and
+    ``torch._grouped_mm`` (the library row, a yardstick the port never
+    calls), bit for bit between two runs, and over uneven, empty and
+    one-expert routings; K5 at (4, 32/8, 2,048, 128) bf16 with the scale
+    1/128 against its plain version; and one decision of the benchmark
+    cell through the program (:func:`granite_served`), whose K7 launches
+    are K7's ``launches``.  Standalone: ``python3 chip_smoke.py
+    --granite``."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_grouped import (flops, min_bytes,
+                                                 moe_grouped)
+    from repro_torch.kernels.ref import attention_ref, moe_grouped_ref
+    built = _build.build(["moe_grouped", "flash_attention"])
+    for name, info in built.items():
+        for line in info["log"].splitlines():
+            if any(w in line.lower() for w in ("registers", "smem", "spill",
+                                                "warning", "error")):
+                print(f"  ptxas {name}: {line.strip()}")
+    out = {"card": card}
+    g = torch.Generator(device=dev).manual_seed(22)
+    E, K, T, D, Fd = 72, 10, 8192, 4096, 768
+
+    def weights():
+        w = [torch.empty(shape, dtype=torch.bfloat16, device=dev).normal_(
+            0.0, shape[1] ** -0.5, generator=g)
+            for shape in ((E, D, Fd), (E, D, Fd), (E, Fd, D))]
+        return w
+
+    def routed(counts):
+        """Rows sorted by expert for the given per-expert counts."""
+        M = int(sum(counts))
+        x = torch.randn((M, D), generator=g, device=dev).to(torch.bfloat16)
+        off = torch.zeros(E + 1, dtype=torch.int32, device=dev)
+        off[1:] = torch.tensor(counts, device=dev).cumsum(0)
+        scale = torch.rand(M, generator=g, device=dev)
+        return x, off, scale
+
+    wg, wu, wd = weights()
+    logits = torch.randn((T, E), generator=g, device=dev)
+    idx = torch.topk(logits, K, dim=-1).indices.reshape(-1)
+    counts = torch.bincount(idx, minlength=E).tolist()
+    x, off, scale = routed(counts)
+    M = x.shape[0]
+
+    def k7():
+        return moe_grouped(x, off, wg, wu, wd, row_scale=scale)
+
+    def plain():
+        return moe_grouped_ref(x, off, wg, wu, wd, scale)
+
+    moe_grouped.launches = 0
+    got = k7()
+    torch.cuda.synchronize()
+    check(moe_grouped.launches == 1, "K7 did not launch")
+    want = plain()
+    def gap(got, want):
+        """(||got - want|| / ||want||, max |got - want|, RMS of want)."""
+        d = got - want
+        return ((d.norm() / want.norm()).item(), d.abs().max().item(),
+                want.square().mean().sqrt().item())
+
+    rel, err, rms = gap(got, want)
+    q = torch.quantile((got - want).abs().flatten()[::97].float(),
+                       torch.tensor([0.5, 0.999], device=dev)).tolist()
+    print(f"K7 at {M} rows over {E} experts (rows an expert "
+          f"{min(counts)}-{max(counts)}), D {D}, F {Fd}: ||K7 - plain|| / "
+          f"||plain|| {rel:.4g} (limit {K7_REL:.4g}), max |K7 - plain| "
+          f"{err:.4g}, output RMS {rms:.4g} (limit {K7_MAX * rms:.4g}); "
+          f"|K7 - plain| median {q[0]:.3g}, 99.9th percentile {q[1]:.3g}")
+    check(rel <= K7_REL and err <= K7_MAX * rms,
+          f"K7 off its plain version: {rel}, {err} over {K7_MAX} x {rms}")
+    check(torch.equal(got, k7()), "K7 is not bit for bit between two runs")
+    rolled = moe_grouped(x, off, wg.roll(1, 0), wu.roll(1, 0),
+                         wd.roll(1, 0), row_scale=scale)
+    wrong = gap(rolled, want)[0]
+    check(wrong > 100 * K7_REL, f"K7 with each expert's weights moved to "
+          f"the next expert reads {wrong}, within the limit")
+    lib = None
+    try:
+        offs = off[1:].contiguous()
+
+        def library():
+            gm = torch._grouped_mm
+            h = (torch.nn.functional.silu(gm(x, wg, offs=offs).float())
+                 * gm(x, wu, offs=offs).float()).to(torch.bfloat16)
+            return gm(h, wd, offs=offs).float() * scale[:, None]
+        lib_rel, lib_err, _ = gap(library(), want)
+        lib = cuda_ms(library, iters=10, warmup=2)
+        print(f"torch._grouped_mm: {lib:.4f} ms, ||lib - plain|| / ||plain|| "
+              f"{lib_rel:.4g}, max |lib - plain| {lib_err:.4g}")
+    except (AttributeError, RuntimeError, TypeError) as e:
+        print(f"torch._grouped_mm: not available here ({type(e).__name__}: "
+              f"{str(e).splitlines()[0][:160]})")
+    ms = cuda_ms(k7, iters=20, warmup=3)
+    plain_ms = cuda_ms(plain, iters=3, warmup=1)
+    dev_us = kernel_device_us(k7, "moe_grouped_kernel", calls=10)
+    b_ms, b_by = bound(min_bytes(M, D, Fd, E), flops(M, D, Fd),
+                       PEAK_BF16_FLOP_S)
+    k7_dev_ms = None if dev_us is None else dev_us[0] * dev_us[1] / 1e3
+    print(f"K7: {ms:.4f} ms a call (events, 20 calls; device "
+          f"{k7_dev_ms if k7_dev_ms is None else round(k7_dev_ms, 4)} ms "
+          f"in {None if dev_us is None else dev_us[1]} kernels), bound "
+          f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it; plain "
+          f"{plain_ms:.4f} ms; {flops(M, D, Fd) / ms / 1e9:.1f} TFLOP/s")
+    out["k7"] = dict(rows=M, experts=E, d_model=D, d_ff=Fd,
+                     rows_per_expert=[min(counts), max(counts)],
+                     rel_err=rel, max_abs_err=err, out_rms=rms,
+                     wrong_expert_rel_err=wrong,
+                     ms=ms, device_ms=k7_dev_ms, plain_ms=plain_ms,
+                     library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                     phase_launches=moe_grouped.launches)
+    # uneven routings: empty experts, partial tiles, one expert taking all
+    for label, cnt in (("uneven", [0, 1, 127, 128, 129, 300, 0, 5]
+                        + [17] * (E - 8)),
+                       ("one expert", [0] * 5 + [3000] + [0] * (E - 6))):
+        x, off, scale = routed(cnt)
+        got = moe_grouped(x, off, wg, wu, wd, row_scale=scale)
+        want = moe_grouped_ref(x, off, wg, wu, wd, scale)
+        rel_, e_, r_ = gap(got, want)
+        print(f"K7 {label} ({x.shape[0]} rows): ||K7 - plain|| / ||plain|| "
+              f"{rel_:.4g}, max |K7 - plain| {e_:.4g}, RMS {r_:.4g}")
+        check(rel_ <= K7_REL and e_ <= K7_MAX * r_,
+              f"K7 {label}: {rel_}, {e_} over {K7_MAX} x {r_}")
+        out[f"k7_{label.replace(' ', '_')}_rel_err"] = rel_
+    del x, wg, wu, wd, got, want, rolled
+
+    # K5 at granite-4.0-h's attention shape and scale
+    B, H, Hkv, S, hd = 4, 32, 8, 2048, 128
+    q = torch.randn((B, S, H, hd), generator=g, device=dev).to(
+        torch.bfloat16).transpose(1, 2)
+    k = torch.randn((B, S, Hkv, hd), generator=g, device=dev).to(
+        torch.bfloat16).transpose(1, 2)
+    v = torch.randn((B, S, Hkv, hd), generator=g, device=dev).to(
+        torch.bfloat16).transpose(1, 2)
+    sc = 1 / 128
+    flash_attention.launches = 0
+    got = flash_attention(q, k, v, causal=True, scale=sc)
+    rep = H // Hkv
+    kr, vr = k.repeat_interleave(rep, 1).float(), v.repeat_interleave(
+        rep, 1).float()
+    want = attention_ref(q.float(), kr, vr, causal=True, scale=sc)
+    default = attention_ref(q.float(), kr, vr, causal=True)
+    def rel(got, want):
+        return ((got.float() - want).norm() / want.norm()).item()
+
+    k5_err = (got.float() - want).abs().max().item()
+    k5_rel, off_rel = rel(got, want), rel(got, default)
+    print(f"K5 at ({B}, {H}/{Hkv}, {S}, {hd}) bf16, scale 1/128: ||K5 - "
+          f"plain|| / ||plain|| {k5_rel:.4g} (limit {K5_WINDOW_RTOL:.4g}), "
+          f"max |K5 - plain| {k5_err:.4g}; against plain at head_dim ** "
+          f"-0.5 {off_rel:.4g}")
+    check(flash_attention.launches == 1, "K5 did not launch")
+    check(k5_rel <= K5_WINDOW_RTOL, f"K5 at scale 1/128: {k5_rel}")
+    check(off_rel > 10 * K5_WINDOW_RTOL, "K5's scale does not act")
+    k5_ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True, scale=sc),
+                    iters=20)
+    plain_k5 = cuda_ms(lambda: attention_ref(q.float(), kr, vr, causal=True,
+                                             scale=sc), iters=3, warmup=1)
+    lib_k5 = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=sc, enable_gqa=True), iters=20)
+    k5_flops = 4 * B * H * hd * attention_pairs(S, None)
+    k5_b, k5_by = bound(nbytes(q, k, v) + nbytes(q), k5_flops,
+                        PEAK_BF16_FLOP_S)
+    print(f"K5 granite shape: {k5_ms:.4f} ms, bound {k5_b:.4f} ms "
+          f"({k5_by}), {100 * k5_b / k5_ms:.1f}% of it; plain "
+          f"{plain_k5:.4f} ms; scaled_dot_product_attention {lib_k5:.4f} ms")
+    out["k5"] = dict(shape=[B, H, Hkv, S, hd], scale=sc, max_abs_err=k5_err,
+                     rel_err=k5_rel, default_scale_rel_err=off_rel,
+                     ms=k5_ms, plain_ms=plain_k5,
+                     library_ms=lib_k5, bound_ms=k5_b, bound_by=k5_by)
+    del q, k, v, kr, vr, got, want, default
+    served = granite_served(dev)
+    out["served"] = served
+    out["k7"]["launches"] = served["k7_launches"]
+    out["k5"]["served_launches"] = served["k5_launches"]
+    return out
+
+
+def granite_main() -> int:
+    """``python3 chip_smoke.py --granite``: phase 22 alone."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_name()
+    print(card)
+    out = granite_phase(torch.device("cuda"), card)
+    print(json.dumps({"granite": out}, default=float))
+    return 0
+
 
 def main() -> int:
     import torch
@@ -4827,7 +5151,11 @@ def main() -> int:
     dense = dense_phase(dev, gen, reset_counts, counts, card)
     print(json.dumps({"dense": dense}, default=float))
 
-    # ---- 22. results -------------------------------------------------------
+    # ---- 22. K7 and K5's scale at granite-4.0-h's shapes --------------------
+    granite = granite_phase(dev, card)
+    print(json.dumps({"granite": granite}, default=float))
+
+    # ---- 23. results -------------------------------------------------------
     k1 = k1_rows["served edge"]
     def layer_row(rows, dev_us):
         """The served frame's row, with the 400x400 and batch-8 times."""
@@ -4877,6 +5205,9 @@ def main() -> int:
                                    ("prefill_mha", "prefill"))
                 for key in ("ms", "ms_reps", "device_us", "library_ms",
                             "bound_ms", "tflops")}),
+        dict(name="moe_grouped", route="cuda",
+             source="src/repro_torch/kernels/csrc/moe_grouped.cu",
+             replaces=None, **granite["k7"]),
     ]
     kernels[4]["lm_decode_oracle_launches"] = lm["decode"][
         "oracle_k5_launches"]
@@ -4901,6 +5232,7 @@ def main() -> int:
             "launches"][4]
     kernels[4]["long_500k_prefill_launches"] = \
         dense["long_500k"]["prefill_launches"][4]
+    kernels[4]["granite_decision_launches"] = granite["k5"]["served_launches"]
     for pre, label in (("gqa5", "GQA 5"), ("long_window", "long window")):
         for key in ("ms", "ms_reps", "device_us", "plain_ms", "library_ms",
                     "bound_ms", "bound_by", "max_abs_err", "shape",
@@ -4941,6 +5273,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--population-gates"]:
         sys.exit(population_gates())
+    if sys.argv[1:] == ["--granite"]:
+        sys.exit(granite_main())
     if sys.argv[1:2] == ["--sharded-dryrun"] and len(sys.argv) == 3:
         sys.exit(sharded_dryrun(sys.argv[2]))
     sys.exit(main())

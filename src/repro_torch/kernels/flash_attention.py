@@ -62,8 +62,12 @@ def _addressable(t: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     sliding_window: Optional[int] = None,
-                    block_q: int = 128, block_k: int = 128):
+                    block_q: int = 128, block_k: int = 128,
+                    scale: Optional[float] = None):
     """q (B, H, S, D), k and v (B, H_kv, S, D) -> (B, H, S, D) in q's dtype.
+
+    The scores q.k are scaled by ``scale`` (``D ** -0.5`` when None)
+    before the softmax; the kernel takes the scale as an argument.
 
     Query head h attends with KV head h // (H // H_kv) (grouped-query
     attention; H_kv = H is plain multi-head).  Any (B, H, S, D) view
@@ -105,6 +109,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"head dim {D} must be a multiple of 8 up to 256")
     if sliding_window is not None and sliding_window < 1:
         raise ValueError(f"sliding_window must be >= 1, got {sliding_window}")
+    scale = D ** -0.5 if scale is None else float(scale)
     dt = q.dtype
     code = _DTYPE_CODES.get(dt)
     if code is None or k.dtype != dt or v.dtype != dt:
@@ -117,7 +122,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
         n_rep = H // H_kv
         return attention_ref(q, k.repeat_interleave(n_rep, dim=1),
                              v.repeat_interleave(n_rep, dim=1),
-                             causal=causal, sliding_window=sliding_window)
+                             causal=causal, sliding_window=sliding_window,
+                             scale=scale)
     if dev.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -144,7 +150,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         S * H * D, D, H * D, causal,
         -1 if sliding_window is None else sliding_window, code,
         dev.index or 0, torch.cuda.current_stream(dev).cuda_stream))
-    rc = fn(args.buffer_info()[0], D ** -0.5)
+    rc = fn(args.buffer_info()[0], scale)
     check_rc(rc, "flash_attention")
     flash_attention.launches += 1
     flash_attention.tc_launches += tensor_core_route(dt, D)

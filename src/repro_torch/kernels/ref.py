@@ -79,6 +79,29 @@ def attention_ref(q, k, v, *, causal: bool = True,
     return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), v)
 
 
-__all__ = ["attention_ref", "miniconv_encoder_ref",
+def moe_grouped_ref(x, offsets, w_gate, w_up, w_down, row_scale=None):
+    """K7's plain version: expert e's rows ``x[offsets[e]:offsets[e+1]]``
+    through its SwiGLU by per-expert ``torch.matmul``, in float32, the
+    hidden ``silu(x Wg) * (x Wu)`` rounded once to x's dtype as the kernel
+    stores it; row r's output times ``row_scale[r]``.  Returns (M, D)
+    float32."""
+    out = torch.zeros((x.shape[0], w_down.shape[2]), dtype=torch.float32,
+                      device=x.device)
+    bounds = offsets.tolist()
+    for e in range(len(bounds) - 1):
+        lo, hi = bounds[e], bounds[e + 1]
+        if hi <= lo:
+            continue
+        xe = x[lo:hi].float()
+        g = torch.matmul(xe, w_gate[e].float())
+        u = torch.matmul(xe, w_up[e].float())
+        h = (torch.nn.functional.silu(g) * u).to(x.dtype).float()
+        out[lo:hi] = torch.matmul(h, w_down[e].float())
+    if row_scale is not None:
+        out *= row_scale.float()[:, None]
+    return out
+
+
+__all__ = ["attention_ref", "moe_grouped_ref", "miniconv_encoder_ref",
            "miniconv_encoder_stream_ref", "miniconv_layer_grouped_ref",
            "miniconv_pass_ref"]

@@ -4,6 +4,12 @@ according to ``ArchConfig.pattern``, as in ``repro.models.blocks``: the
 ``rec`` block and the Mamba-2 ``ssm`` block, each with its full-sequence
 forward, its cache and its one-token decode.
 
+With ``cfg.ssm_ffn`` an ``ssm`` block carries the MLP (or MoE) after its
+mixer, as granite-4.0-h's layers do, and every block scales each residual
+branch by ``cfg.residual_multiplier``.  The mixers and the MoE mark their
+spans (``repro_torch.tracing``): ``attn``, ``ssm`` (with ``ssm.proj``,
+``ssm.scan``, ``ssm.out``) and ``moe`` (``nn.moe``).
+
 Decode writes each cache in place, the KV row
 (``nn.attention.decode_attention``) and the ``rec``/``ssm`` states
 alike, where the reference returns new caches:
@@ -13,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.device import DeviceLike
 from repro_torch.models.config import ArchConfig, SSMArch
 from repro_torch.nn.attention import (AttentionConfig, attention,
@@ -41,7 +48,8 @@ def attn_config(cfg: ArchConfig, kind: str, *,
         d_model=cfg.d_model, n_heads=cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
         qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
-        rope_theta=cfg.rope_theta, sliding_window=window,
+        rope_theta=cfg.rope_theta, use_rope=cfg.use_rope,
+        sliding_window=window, scale=cfg.attention_multiplier,
         attn_logit_softcap=cfg.logit_softcap,
         block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
         skip_masked_blocks=cfg.attn_skip_masked_blocks,
@@ -62,15 +70,17 @@ def moe_config(cfg: ArchConfig) -> MoEConfig:
                      group_size=cfg.moe_group_size,
                      pad_experts_to=pad,
                      expert_parallel=cfg.moe_expert_parallel,
-                     dispatch_bf16=cfg.moe_dispatch_bf16)
+                     dispatch_bf16=cfg.moe_dispatch_bf16,
+                     d_ff_shared=e.d_ff_shared, dropless=e.dropless)
 
 
 def ssm_config(cfg: ArchConfig) -> SSMConfig:
     s = cfg.ssm or SSMArch()
+    eps = {} if cfg.norm_eps is None else {"norm_eps": cfg.norm_eps}
     return SSMConfig(d_model=cfg.d_model, d_state=s.d_state,
                      head_dim=s.head_dim, expand=s.expand,
                      n_groups=s.n_groups, conv_width=s.conv_width,
-                     chunk=s.chunk)
+                     chunk=s.chunk, **eps)
 
 
 def rglru_config(cfg: ArchConfig) -> RGLRUConfig:
@@ -87,7 +97,37 @@ def norm_init(cfg: ArchConfig, dtype, device: DeviceLike = None):
 
 
 def norm_apply(cfg: ArchConfig, p, x):
-    return rmsnorm(p, x) if cfg.norm == "rmsnorm" else layernorm(p, x)
+    eps = {} if cfg.norm_eps is None else {"eps": cfg.norm_eps}
+    return (rmsnorm(p, x, **eps) if cfg.norm == "rmsnorm"
+            else layernorm(p, x, **eps))
+
+
+def _branch(cfg: ArchConfig, h):
+    """A residual branch's output, times ``cfg.residual_multiplier``."""
+    r = cfg.residual_multiplier
+    return h if r == 1.0 else h * r
+
+
+def ffn_init(gen: torch.Generator, cfg: ArchConfig, dtype,
+             device: DeviceLike = None):
+    """The norm before a block's MLP (or MoE) and its weights."""
+    p = {"norm2": norm_init(cfg, dtype, device)}
+    if cfg.moe is not None:
+        p["moe"] = moe_init(gen, moe_config(cfg), dtype=dtype, device=device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg, dtype, device)
+    return p
+
+
+def ffn_apply(params, cfg: ArchConfig, x):
+    """x plus the block's MLP (or MoE) branch on ``norm2(x)``.  Returns
+    (x, aux), aux the MoE's (empty for an MLP)."""
+    h = norm_apply(cfg, params["norm2"], x)
+    if cfg.moe is not None:
+        y, aux = moe_apply(params["moe"], moe_config(cfg), h)
+    else:
+        y, aux = mlp_apply(cfg, params["mlp"], h), {}
+    return x + _branch(cfg, y), aux
 
 
 def mlp_init(gen: torch.Generator, cfg: ArchConfig, dtype,
@@ -119,18 +159,12 @@ def mlp_apply(cfg: ArchConfig, p, x):
 def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str, dtype,
                device: DeviceLike = None):
     if kind in ("attn", "swa"):
-        p = {
+        return {
             "norm1": norm_init(cfg, dtype, device),
             "attn": attention_init(gen, attn_config(cfg, kind), dtype=dtype,
                                    device=device),
-            "norm2": norm_init(cfg, dtype, device),
+            **ffn_init(gen, cfg, dtype, device),
         }
-        if cfg.moe is not None:
-            p["moe"] = moe_init(gen, moe_config(cfg), dtype=dtype,
-                                device=device)
-        else:
-            p["mlp"] = mlp_init(gen, cfg, dtype, device)
-        return p
     if kind == "rec":
         return {
             "norm1": norm_init(cfg, dtype, device),
@@ -140,10 +174,13 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str, dtype,
             "mlp": mlp_init(gen, cfg, dtype, device),
         }
     if kind == "ssm":
-        return {
+        p = {
             "norm": norm_init(cfg, dtype, device),
             "ssm": ssm_init(gen, ssm_config(cfg), dtype=dtype, device=device),
         }
+        if cfg.ssm_ffn:
+            p.update(ffn_init(gen, cfg, dtype, device))
+        return p
     raise ValueError(kind)
 
 
@@ -154,22 +191,21 @@ def block_apply(params, cfg: ArchConfig, kind: str, x, *,
     aux = {}
     if kind in ("attn", "swa"):
         acfg = attn_config(cfg, kind, long_ctx=long_ctx)
-        x = x + attention(params["attn"], acfg,
+        with tracing.span("attn"):
+            h = attention(params["attn"], acfg,
                           norm_apply(cfg, params["norm1"], x))
-        h = norm_apply(cfg, params["norm2"], x)
-        if cfg.moe is not None:
-            y, aux = moe_apply(params["moe"], moe_config(cfg), h)
-        else:
-            y = mlp_apply(cfg, params["mlp"], h)
-        return x + y, aux
+        return ffn_apply(params, cfg, x + _branch(cfg, h))
     if kind == "rec":
         x = x + rglru_forward(params["rglru"], rglru_config(cfg),
                               norm_apply(cfg, params["norm1"], x))
         y = mlp_apply(cfg, params["mlp"], norm_apply(cfg, params["norm2"], x))
         return x + y, aux
     if kind == "ssm":
-        return x + ssm_forward(params["ssm"], ssm_config(cfg),
-                               norm_apply(cfg, params["norm"], x)), aux
+        with tracing.span("ssm"):
+            h = ssm_forward(params["ssm"], ssm_config(cfg),
+                            norm_apply(cfg, params["norm"], x))
+        x = x + _branch(cfg, h)
+        return ffn_apply(params, cfg, x) if cfg.ssm_ffn else (x, aux)
     raise ValueError(kind)
 
 
@@ -205,13 +241,7 @@ def block_decode(params, cfg: ArchConfig, kind: str, x, cache, index, *,
         h, cache = decode_attention(params["attn"], acfg,
                                     norm_apply(cfg, params["norm1"], x),
                                     cache, index)
-        x = x + h
-        hh = norm_apply(cfg, params["norm2"], x)
-        if cfg.moe is not None:
-            y, _ = moe_apply(params["moe"], moe_config(cfg), hh)
-        else:
-            y = mlp_apply(cfg, params["mlp"], hh)
-        return x + y, cache
+        return ffn_apply(params, cfg, x + _branch(cfg, h))[0], cache
     if kind == "rec":
         h, new = rglru_decode_step(params["rglru"], rglru_config(cfg),
                                    norm_apply(cfg, params["norm1"], x), cache)
@@ -221,10 +251,14 @@ def block_decode(params, cfg: ArchConfig, kind: str, x, cache, index, *,
     if kind == "ssm":
         h, new = ssm_decode_step(params["ssm"], ssm_config(cfg),
                                  norm_apply(cfg, params["norm"], x), cache)
-        return x + h, _write_state(cache, new)
+        x = x + _branch(cfg, h)
+        if cfg.ssm_ffn:
+            x = ffn_apply(params, cfg, x)[0]
+        return x, _write_state(cache, new)
     raise ValueError(kind)
 
 
 __all__ = ["attn_config", "block_apply", "block_decode", "block_init",
-           "block_init_cache", "mlp_apply", "mlp_init", "moe_config",
+           "block_init_cache", "ffn_apply", "ffn_init", "mlp_apply",
+           "mlp_init", "moe_config",
            "norm_apply", "norm_init", "rglru_config", "ssm_config"]

@@ -9,7 +9,7 @@ pure data — models are built from it by ``repro_torch.models.registry``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import ClassVar, Optional
 
 import torch
 
@@ -44,6 +44,21 @@ class MoEArch:
     n_shared_experts: int = 0
     shared_expert_gate: bool = False
     capacity_factor: float = 1.25
+    # the shared experts' width where it is not n_shared_experts x d_ff
+    # (granite-4.0-h: one shared expert of 1,536 beside experts of 768)
+    d_ff_shared: int = 0
+    # every (token, k) pair computed, none dropped: the router's top-k
+    # logits through a softmax, the pairs sorted by expert (nn.moe)
+    dropless: bool = False
+
+    # fields the JAX package's dataclass lacks (``port_only_dict``)
+    PORT_ONLY: ClassVar[tuple] = ("d_ff_shared", "dropless")
+
+    def shared_width(self, d_ff: int) -> int:
+        """Width of the one fused shared-expert SwiGLU (0: none)."""
+        if not self.n_shared_experts:
+            return 0
+        return self.d_ff_shared or self.n_shared_experts * d_ff
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +96,9 @@ class ArchConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     rope_theta: float = 10000.0
+    use_rope: bool = True        # False: no positional encoding (NoPE)
+    # softmax scale of the scores; None is head_dim ** -0.5
+    attention_multiplier: Optional[float] = None
     sliding_window: Optional[int] = None    # window for "swa" blocks
     # long-context decode variant: dense archs run long_500k with this
     # window applied to ALL attn blocks (DESIGN.md §5)
@@ -91,9 +109,18 @@ class ArchConfig:
     norm: str = "rmsnorm"        # rmsnorm | layernorm
     tie_embeddings: bool = True
     logit_softcap: Optional[float] = None
+    norm_eps: Optional[float] = None   # None: each norm's own default
+    # muP multipliers (granite-4.0-h): the embedding's output times
+    # ``embedding_multiplier``, each residual branch times
+    # ``residual_multiplier``, the logits over ``logits_scaling``
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
 
     moe: Optional[MoEArch] = None
     ssm: Optional[SSMArch] = None
+    # ssm blocks carry the MLP (or MoE) after the mixer, as attn blocks do
+    ssm_ffn: bool = False
     rnn_width: int = 0           # RG-LRU width (hybrid)
 
     # modality frontend stubs
@@ -121,6 +148,12 @@ class ArchConfig:
     # reference's default for a sequence-sharded KV cache)
     masked_cache_update: bool = True
 
+    # fields the JAX package's dataclass lacks (``port_only_dict``)
+    PORT_ONLY: ClassVar[tuple] = (
+        "use_rope", "attention_multiplier", "norm_eps",
+        "embedding_multiplier", "residual_multiplier", "logits_scaling",
+        "ssm_ffn")
+
     # ---------------- derived -------------------------------------------
     def blocks(self) -> list[str]:
         seq = list(self.pattern) * self.n_pattern + list(self.remainder)
@@ -139,6 +172,11 @@ class ArchConfig:
         bounded window (SSM/rec states are O(1); swa windows are bounded)."""
         return all(b in ("ssm", "rec", "swa") for b in self.blocks())
 
+    def has_ffn(self, kind: str) -> bool:
+        """Whether a block of ``kind`` carries the MLP (or MoE)."""
+        return kind in ("attn", "swa", "rec") or (kind == "ssm"
+                                                  and self.ssm_ffn)
+
     def param_count(self) -> int:
         """Analytic parameter count (total, incl. all experts)."""
         D, F, V = self.d_model, self.d_ff, self.vocab
@@ -147,27 +185,27 @@ class ArchConfig:
         attn = D * qk + 2 * D * kv + qk * D
         mlp_mult = 3 if self.mlp in ("swiglu", "geglu") else 2
         mlp = mlp_mult * D * F
+        ffn = mlp
+        if self.moe is not None:
+            e = self.moe
+            ffn = (e.n_experts * mlp_mult * D * F + D * e.n_experts
+                   + mlp_mult * D * e.shared_width(F))
         total = V * D  # embedding (tied)
         if not self.tie_embeddings:
             total += V * D
         for b in self.blocks():
             if b in ("attn", "swa"):
                 total += attn
-                if self.moe is not None:
-                    e = self.moe
-                    total += e.n_experts * mlp_mult * D * F + D * e.n_experts
-                    if e.n_shared_experts:
-                        total += mlp_mult * D * F * e.n_shared_experts
-                else:
-                    total += mlp
             elif b == "rec":
                 W = self.rnn_width or D
-                total += 2 * D * W + 2 * W * W + W * D + mlp
+                total += 2 * D * W + 2 * W * W + W * D
             elif b == "ssm":
                 s = self.ssm or SSMArch()
                 d_in = s.expand * D
                 total += D * (2 * d_in + 2 * s.n_groups * s.d_state
                               + d_in // s.head_dim) + d_in * D
+            if self.has_ffn(b):
+                total += mlp if b == "rec" else ffn
         if self.n_encoder_layers:  # whisper encoder (attn + mlp, layernorm)
             total += self.n_encoder_layers * (attn + mlp)
         return total
@@ -180,7 +218,8 @@ class ArchConfig:
         D, F = self.d_model, self.d_ff
         mlp_mult = 3 if self.mlp in ("swiglu", "geglu") else 2
         inactive = (e.n_experts - e.top_k) * mlp_mult * D * F
-        n_moe_layers = sum(1 for b in self.blocks() if b in ("attn", "swa"))
+        n_moe_layers = sum(1 for b in self.blocks()
+                           if self.has_ffn(b) and b != "rec")
         return self.param_count() - n_moe_layers * inactive
 
     def reduced(self) -> "ArchConfig":
@@ -201,7 +240,9 @@ class ArchConfig:
             moe = dataclasses.replace(self.moe, n_experts=4,
                                       top_k=min(self.moe.top_k, 2),
                                       n_shared_experts=min(
-                                          self.moe.n_shared_experts, 1))
+                                          self.moe.n_shared_experts, 1),
+                                      d_ff_shared=min(self.moe.d_ff_shared,
+                                                      512))
         ssm = dataclasses.replace(self.ssm, d_state=32, head_dim=16,
                                   chunk=8) if self.ssm else None
         return dataclasses.replace(
@@ -219,3 +260,36 @@ class ArchConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return {"bfloat16": torch.bfloat16, "float32": torch.float32}[self.dtype]
+
+
+def as_port_config(cfg) -> ArchConfig:
+    """``cfg`` as the port's :class:`ArchConfig`: itself, or a config with
+    the same fields (the JAX package's, from which the parity tests build
+    the port's models), the port's additions at their defaults."""
+    if isinstance(cfg, ArchConfig):
+        return cfg
+    d = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    for key, cls in (("moe", MoEArch), ("ssm", SSMArch)):
+        if d.get(key) is not None:
+            d[key] = cls(**dataclasses.asdict(d[key]))
+    return ArchConfig(**d)
+
+
+def port_only_dict(obj):
+    """``dataclasses.asdict(obj)`` as the JAX package's dataclass of the
+    same name holds it: each field a class names in its ``PORT_ONLY``
+    (the port's additions, such as the muP multipliers) is left out where
+    it holds its default, so a config that uses none of them compares
+    equal to the reference's, and one that does compares unequal."""
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(port_only_dict(v) for v in obj)
+    if not dataclasses.is_dataclass(obj):
+        return obj
+    out = {}
+    skip = getattr(type(obj), "PORT_ONLY", ())
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if f.name in skip and v == f.default:
+            continue
+        out[f.name] = port_only_dict(v)
+    return out

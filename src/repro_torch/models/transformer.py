@@ -11,6 +11,11 @@ once into its super-blocks (``torch.unbind``), so a backward pass stacks
 each leaf's gradient once instead of summing one zero-padded full-size
 tensor a super-block.  Caches stack the same way under ``"scan"``.  The
 remainder blocks are unrolled.
+
+A config's muP multipliers act here: the token embeddings times
+``embedding_multiplier`` and the logits over ``logits_scaling``.  The split
+halves mark the spans ``lm.edge`` and ``lm.server``
+(``repro_torch.tracing``).
 """
 from __future__ import annotations
 
@@ -19,11 +24,12 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tracing
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.blocks import (block_apply, block_decode, block_init,
                                        block_init_cache, norm_apply,
                                        norm_init)
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, as_port_config
 from repro_torch.nn.constrain import (checkpoint_context_fn, constrain,
                                       constrain_act)
 from repro_torch.nn.losses import softmax_cross_entropy
@@ -71,7 +77,7 @@ def _draw_stacked(draw, n: int):
 
 class DecoderModel:
     def __init__(self, cfg: ArchConfig):
-        self.cfg = cfg
+        self.cfg = cfg = as_port_config(cfg)
         self.pattern = tuple(cfg.pattern)
         self.n_pattern = cfg.n_pattern
         self.remainder = tuple(cfg.remainder)
@@ -110,12 +116,17 @@ class DecoderModel:
         return params
 
     # --------------------------------------------------------------- forward
+    def _embed_tokens(self, params, tokens):
+        x = embed(params["embed"], tokens)
+        m = self.cfg.embedding_multiplier
+        return x if m == 1.0 else x * m
+
     def _embed_inputs(self, params, tokens, frontend_embeds):
         parts = []
         if frontend_embeds is not None:
             parts.append(frontend_embeds.to(self.cfg.torch_dtype))
         if tokens is not None:
-            parts.append(embed(params["embed"], tokens))
+            parts.append(self._embed_tokens(params, tokens))
         return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
     def _super_apply(self, seg, x, long_ctx: bool):
@@ -149,8 +160,11 @@ class DecoderModel:
     def _head(self, params, x):
         x = norm_apply(self.cfg, params["final_norm"], x)
         if self.cfg.tie_embeddings:
-            return unembed(params["embed"], x)
-        return dense(params["lm_head"], x)
+            logits = unembed(params["embed"], x)
+        else:
+            logits = dense(params["lm_head"], x)
+        s = self.cfg.logits_scaling
+        return logits if s == 1.0 else logits / s
 
     def _softcap(self, logits):
         if self.cfg.logit_softcap:
@@ -221,18 +235,25 @@ class DecoderModel:
     def edge_forward(self, params, tokens=None, *, frontend_embeds=None,
                      long_ctx: bool = False):
         """Embed + the first n_edge super-blocks -> boundary hidden."""
-        x = self._embed_inputs(params, tokens, frontend_embeds)
-        return self._segments(x, params["scan"], long_ctx)[0]
+        with tracing.span("lm.edge"):
+            x = self._embed_inputs(params, tokens, frontend_embeds)
+            return self._segments(x, params["scan"], long_ctx)[0]
 
-    def server_forward(self, params, hidden, *, long_ctx: bool = False):
+    def server_forward(self, params, hidden, *, long_ctx: bool = False,
+                       last_only: bool = False):
         """Remaining super-blocks + remainder + head <- boundary hidden.
-        As in the reference, no logit softcap is applied here."""
-        x = hidden.to(self.cfg.torch_dtype)
-        x = self._segments(x, params["scan"], long_ctx)[0]
-        for i, kind in enumerate(self.remainder):
-            x, _ = block_apply(params[f"rem{i}_{kind}"], self.cfg, kind, x,
-                               long_ctx=long_ctx)
-        return self._head(params, x)
+        As in the reference, no logit softcap is applied here.  With
+        ``last_only`` the head runs on the last position alone: (B, 1, V),
+        a prefill decision's next-token logits."""
+        with tracing.span("lm.server"):
+            x = hidden.to(self.cfg.torch_dtype)
+            x = self._segments(x, params["scan"], long_ctx)[0]
+            for i, kind in enumerate(self.remainder):
+                x, _ = block_apply(params[f"rem{i}_{kind}"], self.cfg, kind,
+                                   x, long_ctx=long_ctx)
+            if last_only:
+                x = x[:, -1:]
+            return self._head(params, x)
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -265,7 +286,7 @@ class DecoderModel:
         (``nn.attention.decode_attention``) or its recurrent state and conv
         buffer (``models.blocks.block_decode``)."""
         cfg = self.cfg
-        x = constrain_act(embed(params["embed"], token))
+        x = constrain_act(self._embed_tokens(params, token))
         index = torch.as_tensor(index, device=x.device)
         if self.n_pattern > 0:
             for seg, seg_cache in zip(_unstack(params["scan"]),

@@ -24,7 +24,7 @@ constrains them to that layout.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import ClassVar, Optional
 
 import torch
 
@@ -53,6 +53,9 @@ class AttentionConfig:
     sliding_window: Optional[int] = None  # None => full causal
     causal: bool = True             # False for encoder self-attention
     attn_logit_softcap: Optional[float] = None
+    # the scores' softmax scale; None is head_dim ** -0.5 (granite-4.0-h's
+    # attention_multiplier is 1/128)
+    scale: Optional[float] = None
     # implementation knobs (not architecture):
     chunked_threshold: int = 2048   # S above which the online-softmax
                                     # chunked path replaces naive S^2 scores
@@ -67,6 +70,14 @@ class AttentionConfig:
     # the reference's masked where() cache update (its form for a sharded
     # cache): no write at an out-of-range index, where the default clamps
     masked_cache_update: bool = False
+
+    # fields the JAX package's dataclass lacks
+    # (``models.config.port_only_dict``)
+    PORT_ONLY: ClassVar[tuple] = ("scale",)
+
+    @property
+    def softmax_scale(self) -> float:
+        return self.head_dim ** -0.5 if self.scale is None else self.scale
 
 
 def attention_init(gen: torch.Generator, cfg: AttentionConfig, *,
@@ -120,7 +131,7 @@ def _scores_to_out(cfg, q, k, v, mask, *, seq_sharded: bool = False):
     (decode over a sequence-sharded cache), as the reference does."""
     B, Sq, H, D = q.shape
     G, Skv = k.shape[2], k.shape[1]
-    scale = cfg.head_dim ** -0.5
+    scale = cfg.softmax_scale
     qg = q.reshape(B, Sq, G, H // G, D)
     logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k).float() * scale
     logits = logits.reshape(B, H, Sq, Skv)
@@ -223,7 +234,8 @@ def attention(params, cfg: AttentionConfig, x, *, positions=None,
         def core(q, k, v):
             return flash_attention(q, k, v, causal=cfg.causal,
                                    sliding_window=cfg.sliding_window,
-                                   block_q=blk, block_k=blk)
+                                   block_q=blk, block_k=blk,
+                                   scale=cfg.scale)
         q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         out = (_on_local_heads(core, q, k, v, 1) if is_dtensor(q)
                else core(q, k, v)).transpose(1, 2)
@@ -269,7 +281,7 @@ def _chunk_q_block(cfg: AttentionConfig, q_blk, k, v, q_lo: int,
     Skv = k.shape[1]
     bk = min(cfg.block_k, Skv)
     n_k = Skv // bk
-    scale = cfg.head_dim ** -0.5
+    scale = cfg.softmax_scale
     qf = q_blk.float() * scale
     q_pos = q_lo + torch.arange(bq, device=q_blk.device)
     m = constrain(torch.full((B, H, bq), _NEG, dtype=torch.float32,

@@ -16,17 +16,30 @@ Supports the two assigned MoE archs:
   * llama4-scout : 16 routed experts, top-1, + 1 shared expert (every layer)
   * qwen2-moe    : 60 routed experts, top-4, + 4 shared experts (fused as one
                    dense SwiGLU with 4x expert width) and a shared-expert gate
+
+and, with ``dropless``, granite-4.0-h's layer (:func:`_moe_dropless`): 72
+experts, top-10 by a softmax over the top-10 router logits, every (token,
+k) pair computed.  The pairs are sorted by expert and K7
+(``kernels.moe_grouped``) runs each expert's SwiGLU over its contiguous
+rows; a weighted ``index_add`` combines them.  Nothing drops and no
+expert computes a row it was not given.  Its spans (``repro_torch.
+tracing``): ``moe.route``, ``moe.permute``, ``moe.experts`` (K7),
+``moe.combine`` and ``moe.shared``; its counters: ``routed_rows`` and
+``max_expert_rows`` (:func:`dropless_counters`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Optional
+from typing import ClassVar, Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.moe_grouped import moe_grouped
 from repro_torch.nn.constrain import (axis_sizes, constrain, data_axes,
                                       gathered, is_dtensor, on_local_tensors,
                                       on_mesh, reduced)
@@ -57,6 +70,15 @@ class MoEConfig:
     expert_parallel: bool = False
     # run dispatch/combine in the activation dtype instead of f32
     dispatch_bf16: bool = False
+    # the shared experts' width where it is not n_shared * d_ff_expert
+    d_ff_shared: int = 0
+    # route every (token, k) pair (no capacity, no groups):
+    # :func:`_moe_dropless`
+    dropless: bool = False
+
+    # fields the JAX package's dataclass lacks
+    # (``models.config.port_only_dict``)
+    PORT_ONLY: ClassVar[tuple] = ("d_ff_shared", "dropless")
 
     @property
     def n_experts_padded(self) -> int:
@@ -81,7 +103,8 @@ def moe_init(gen: torch.Generator, cfg: MoEConfig, *, dtype=torch.float32,
                     "down": expert_stack(Fd, D)},
     }
     if cfg.n_shared_experts > 0:
-        p["shared"] = swiglu_init(gen, D, Fd * cfg.n_shared_experts,
+        p["shared"] = swiglu_init(gen, D,
+                                  cfg.d_ff_shared or Fd * cfg.n_shared_experts,
                                   dtype=dtype, device=dev)
         if cfg.shared_expert_gate:
             p["shared_gate"] = dense_init(gen, D, 1, dtype=dtype, device=dev)
@@ -121,8 +144,17 @@ def moe_apply(params, cfg: MoEConfig, x, *, deterministic: bool = True,
     jitter when ``deterministic`` is False.  The routing comes back in aux,
     detached: ``expert_idx`` (n, G, K), ``keep`` (n, G, K), whether each
     pair found a slot, and ``probs`` (n, G, E).  On DTensors each chip
-    routes its own groups (:func:`_moe_sharded`).
+    routes its own groups (:func:`_moe_sharded`).  With ``cfg.dropless``
+    the layer routes by :func:`_moe_dropless` instead (one group, nothing
+    dropped, ``keep`` all true), inside the span ``moe``; with gradients
+    off (serving) its aux holds the routing alone.
     """
+    if cfg.dropless:
+        with tracing.span("moe"):
+            y, stats, routing = _moe_dropless(params, cfg, x)
+        if stats is None:
+            return y, {"expert_idx": routing[0], "keep": routing[1]}
+        return y, _aux(cfg, *stats, routing)
     if is_dtensor(x):
         return _moe_sharded(params, cfg, x, deterministic, gen)
     y, stats, routing = _moe(params, cfg, x, deterministic, gen)
@@ -223,6 +255,101 @@ def _moe(params, cfg: MoEConfig, x, deterministic, gen, e_lo: int = 0,
     entropy = -torch.mean(torch.sum(probs * torch.log(probs + 1e-9), -1))
     return (y.reshape(B, S, D), (frac_tokens, frac_probs, entropy),
             (expert_idx.detach(), keep.any(-1), probs.detach()))
+
+
+# the list the dropless route appends each call's expert ids to, inside
+# :func:`recorded_routes`
+_routes: Optional[list] = None
+
+
+@contextlib.contextmanager
+def recorded_routes(into: list):
+    """Within the block, each dropless MoE call appends its (T, K) expert
+    ids (int64, on its device, the top-k in descending order of logit) to
+    ``into``, in call order."""
+    global _routes
+    prev, _routes = _routes, into
+    try:
+        yield into
+    finally:
+        _routes = prev
+
+
+class _Counts:
+    routed_rows = 0         # (token, k) pairs computed
+    max_rows = None         # 0-d tensor: the most rows one expert took
+
+
+def dropless_counters() -> dict:
+    """What the dropless route counted since :func:`reset_counters`:
+    ``routed_rows``, every (token, k) pair it computed, and
+    ``max_expert_rows``, the most rows one expert took in one call (read
+    from the device here, once)."""
+    m = _Counts.max_rows
+    return {"routed_rows": _Counts.routed_rows,
+            "max_expert_rows": 0 if m is None else int(m)}
+
+
+def reset_counters() -> None:
+    _Counts.routed_rows, _Counts.max_rows = 0, None
+
+
+def _moe_dropless(params, cfg: MoEConfig, x):
+    """The dropless layer on plain tensors: x (B, S, D) -> (y, stats,
+    routing) as :func:`_moe` returns them (one group of B S tokens).
+
+    An f32 router; each token's top-k logits through a softmax give its
+    gates.  The (token, k) pairs are sorted by expert (a stable sort, so
+    an expert's rows keep token order) and each expert's contiguous rows
+    go through K7, which scales row r's output by its gate; an
+    ``index_add`` in f32 sums each token's k outputs.  No pair is
+    dropped.  The routing's sort and offsets stay on the device: nothing
+    here waits for the card.  With gradients off ``stats`` is None and
+    ``routing`` (expert_idx, keep): the load-balance statistics feed a
+    training loss alone."""
+    B, S, D = x.shape
+    T, E, K = B * S, cfg.n_experts, cfg.top_k
+    xt = x.reshape(T, D)
+    with tracing.span("moe.route"):
+        logits = dense(params["router"], xt.float())              # (T, E)
+        top, expert_idx = torch.topk(logits, K, dim=-1)           # (T, K)
+        gates = torch.softmax(top, dim=-1)
+    if _routes is not None:
+        _routes.append(expert_idx)
+    with tracing.span("moe.permute"):
+        sorted_e, order = torch.sort(expert_idx.reshape(-1), stable=True)
+        token = order // K
+        offsets = torch.searchsorted(
+            sorted_e, torch.arange(E + 1, device=x.device)).to(torch.int32)
+        rows = xt.index_select(0, token)
+        weight = gates.reshape(-1).index_select(0, order)
+    with tracing.span("moe.experts"):
+        ex = params["experts"]
+        out = moe_grouped(rows, offsets, ex["gate"]["kernel"],
+                          ex["up"]["kernel"], ex["down"]["kernel"],
+                          row_scale=weight)                       # f32
+    with tracing.span("moe.combine"):
+        y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+        y.index_add_(0, token, out)
+    if "shared" in params:
+        with tracing.span("moe.shared"):
+            y += swiglu(params["shared"], xt).float()
+    counts = offsets[1:] - offsets[:-1]
+    m = counts.max()
+    _Counts.routed_rows += T * K
+    _Counts.max_rows = m if _Counts.max_rows is None else torch.maximum(
+        _Counts.max_rows, m)
+    keep = torch.ones((1, T, K), dtype=torch.bool, device=x.device)
+    if not torch.is_grad_enabled():     # serving: no loss reads them
+        return y.to(x.dtype).reshape(B, S, D), None, (expert_idx[None], keep)
+    # the Switch-style statistics of ``_moe``, over the one group
+    probs = torch.softmax(logits, dim=-1)
+    frac_tokens = counts.float() / T
+    frac_probs = probs.mean(0)
+    entropy = -torch.mean(torch.sum(probs * torch.log(probs + 1e-9), -1))
+    return (y.to(x.dtype).reshape(B, S, D),
+            (frac_tokens, frac_probs, entropy),
+            (expert_idx[None], keep, probs[None]))
 
 
 def _moe_sharded(params, cfg: MoEConfig, x, deterministic, gen):
@@ -334,4 +461,5 @@ def _moe_sharded(params, cfg: MoEConfig, x, deterministic, gen):
     return y, _aux(cfg, *map(reduced, stats), (expert_idx, keep, probs))
 
 
-__all__ = ["MoEConfig", "moe_apply", "moe_init"]
+__all__ = ["MoEConfig", "dropless_counters", "moe_apply", "moe_init",
+           "recorded_routes", "reset_counters"]

@@ -6,14 +6,21 @@ within each chunk, then a linear recurrence over the chunk states (a
 loop over chunks: one chunk at S <= 256).  Decode is the O(1) recurrent
 update.  The scan computes in f32 whatever the model's dtype; ``A_log``,
 ``D`` and ``dt_bias`` stay f32, as in the reference.
+
+The full-sequence forward marks three spans (``repro_torch.tracing``):
+``ssm.proj`` (the input projection and the causal conv), ``ssm.scan``
+(the chunked SSD) and ``ssm.out`` (the gated RMSNorm and the output
+projection).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import ClassVar
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.nn.layers import dense, dense_init, rmsnorm, rmsnorm_init
 
@@ -27,6 +34,11 @@ class SSMConfig:
     n_groups: int = 1
     conv_width: int = 4
     chunk: int = 256
+    norm_eps: float = 1e-6      # the gated RMSNorm's (granite-4.0-h: 1e-5)
+
+    # fields the JAX package's dataclass lacks
+    # (``models.config.port_only_dict``)
+    PORT_ONLY: ClassVar[tuple] = ("norm_eps",)
 
     @property
     def d_inner(self) -> int:
@@ -152,19 +164,23 @@ def ssm_forward(params, cfg: SSMConfig, u, *, h0=None,
     """Full-sequence forward.  u: (B, S, d_model)."""
     B_, S, _ = u.shape
     G, N, H, P = cfg.n_groups, cfg.d_state, cfg.n_heads, cfg.head_dim
-    zxbcdt = dense(params["in_proj"], u)
-    z, xBC, dt = _split_proj(cfg, zxbcdt)
-    xBC = _causal_conv(xBC, params["conv"]["kernel"], params["conv"]["bias"])
-    x = xBC[..., :cfg.d_inner].reshape(B_, S, H, P)
-    Bm = xBC[..., cfg.d_inner:cfg.d_inner + G * N].reshape(B_, S, G, N)
-    Cm = xBC[..., cfg.d_inner + G * N:].reshape(B_, S, G, N)
-    dt = F.softplus(dt.float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])
-    y, h = ssd_chunked(cfg, x.float(), dt, A, Bm.float(), Cm.float(),
-                       params["D"], h0=h0)
-    y = y.reshape(B_, S, cfg.d_inner).to(u.dtype)
-    y = rmsnorm(params["norm"], y * F.silu(z))
-    out = dense(params["out_proj"], y)
+    with tracing.span("ssm.proj"):
+        zxbcdt = dense(params["in_proj"], u)
+        z, xBC, dt = _split_proj(cfg, zxbcdt)
+        xBC = _causal_conv(xBC, params["conv"]["kernel"],
+                           params["conv"]["bias"])
+    with tracing.span("ssm.scan"):
+        x = xBC[..., :cfg.d_inner].reshape(B_, S, H, P)
+        Bm = xBC[..., cfg.d_inner:cfg.d_inner + G * N].reshape(B_, S, G, N)
+        Cm = xBC[..., cfg.d_inner + G * N:].reshape(B_, S, G, N)
+        dt = F.softplus(dt.float() + params["dt_bias"])
+        A = -torch.exp(params["A_log"])
+        y, h = ssd_chunked(cfg, x.float(), dt, A, Bm.float(), Cm.float(),
+                           params["D"], h0=h0)
+    with tracing.span("ssm.out"):
+        y = y.reshape(B_, S, cfg.d_inner).to(u.dtype)
+        y = rmsnorm(params["norm"], y * F.silu(z), eps=cfg.norm_eps)
+        out = dense(params["out_proj"], y)
     if return_state:
         return out, h
     return out
@@ -215,7 +231,7 @@ def ssm_decode_step(params, cfg: SSMConfig, u, state):
     y = torch.einsum("bhpn,bhn->bhp", h, Ch)
     y = y + xf * params["D"][None, :, None]
     y = y.reshape(B_, cfg.d_inner).to(u.dtype)
-    y = rmsnorm(params["norm"], y * F.silu(z))
+    y = rmsnorm(params["norm"], y * F.silu(z), eps=cfg.norm_eps)
     out = dense(params["out_proj"], y)[:, None, :]
     return out, {"h": h.to(state["h"].dtype),
                  "conv": conv_buf[:, 1:].to(state["conv"].dtype)}

@@ -26,6 +26,14 @@ The spans of the MiniConv split path, outermost first:
 ``encoder.prepare`` and ``encoder.launch`` (the K1/K4 wrapper), then
 ``codec.encode``; ``split.server`` (``SplitModel.server_step_batch``)
 holds ``codec.decode`` and ``server.apply``.
+
+The LM split path's (``models.transformer``): ``lm.edge``
+(``DecoderModel.edge_forward``) and ``lm.server`` (``server_forward``)
+hold, a layer each, ``attn`` (an attention mixer) or ``ssm`` (a Mamba-2
+mixer, ``nn.ssm``: ``ssm.proj``, ``ssm.scan``, ``ssm.out``), and ``moe``
+(a dropless MoE, ``nn.moe``: ``moe.route``, ``moe.permute``,
+``moe.experts`` (K7), ``moe.combine``, ``moe.shared``).  Under
+``SplitModel`` they sit inside ``split.edge`` and ``split.server``.
 """
 from __future__ import annotations
 

@@ -170,7 +170,7 @@ def test_counter_matches_the_reference_hlo_walk_on_a_prefill(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_roofline_formulas_equal_the_reference(monkeypatch):
-    for arch in sorted(ARCHS):
+    for arch in sorted(j_configs.ARCHS):  # the port's own have no reference
         for sid, shape in SHAPES.items():
             jcfg, jshape = j_configs.get_config(arch), j_configs.SHAPES[sid]
             cfg = get_config(arch)

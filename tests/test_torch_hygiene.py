@@ -75,9 +75,10 @@ def test_port_files_exist():
                 "analysis/rules_schema.py", "analysis/rules_kernel.py",
                 "tracing.py"):
         assert mod in names, mod
-    assert len([n for n in names if n.startswith("configs/")]) == 11
+    assert len([n for n in names if n.startswith("configs/")]) == 12
     assert {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")} == \
-        {"miniconv_encoder.cu", "miniconv_layer.cu", "flash_attention.cu"}
+        {"miniconv_encoder.cu", "miniconv_layer.cu", "flash_attention.cu",
+         "moe_grouped.cu"}
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)

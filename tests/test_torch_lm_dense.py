@@ -39,6 +39,7 @@ from repro.launch.serve import build_split as j_build_split  # noqa: E402
 from repro.models.transformer import DecoderModel as JDecoder  # noqa: E402
 from repro.nn import attention as j_attn  # noqa: E402
 
+from repro_torch.models.config import port_only_dict
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.wire import get_codec  # noqa: E402
@@ -90,7 +91,7 @@ def dense(request):
     """(case, port cfg, port model, port params, ref model, ref params)."""
     jcfg = _config(request.param, J_ARCHS)
     cfg = _config(request.param, ARCHS)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert port_only_dict(cfg) == dataclasses.asdict(jcfg)
     jmodel = JDecoder(jcfg)
     jp = _perturbed(jmodel.init(jax.random.PRNGKey(0)),
                     np.random.default_rng(7))

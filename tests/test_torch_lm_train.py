@@ -29,6 +29,7 @@ from repro.train import checkpoint as j_ckpt
 from repro.train.trainer import TrainConfig as JTrainConfig
 from repro.train.trainer import Trainer as JTrainer
 
+from repro_torch.models.config import port_only_dict
 from repro_torch.convert import params_from_jax
 from repro_torch.data import frontend_batches, lm_batches
 from repro_torch.models.registry import get_model
@@ -362,7 +363,7 @@ def test_hundred_m_config_equals_the_reference():
                                      "examples", "train_lm.py"))
     ref = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ref)
-    assert dataclasses.asdict(train_lm.hundred_m_config()) == \
+    assert port_only_dict(train_lm.hundred_m_config()) == \
         dataclasses.asdict(ref.hundred_m_config())
 
 

@@ -51,6 +51,9 @@ from repro_torch.train.optimizer import adamw
 torch.set_num_threads(1)
 
 ARCH_IDS = sorted(ARCHS)
+# the archs the reference has: the port's own (granite-4.0-h-small) have no
+# reference tree or input specs to compare with
+REF_ARCH_IDS = sorted(j_registry.ARCH_IDS)
 LR = 3e-4
 
 
@@ -98,12 +101,12 @@ def _same_leaves(port: dict, ref: dict):
 # abstract inputs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", REF_ARCH_IDS)
 def test_abstract_params_equal_the_reference(arch):
     _same_leaves(_port_params(arch), _ref_params(arch))
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", REF_ARCH_IDS)
 def test_input_specs_equal_the_reference(arch):
     for shape_id in registry.SHAPE_IDS:
         port = dict(tree_paths(registry.input_specs(arch, shape_id)))
