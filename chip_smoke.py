@@ -100,8 +100,10 @@ rows, and K5 at granite-4.0-h's (4, 32/8, 2,048, 128) attention with its
 at full width, its first 20 layers: 4 prompts x 2,048 tokens, the edge's
 10 layers, the uint8 codec, the server's 10 layers and the head at the
 last position), whose K7 and K5 launches are K7's row in the
-``kernels`` line (``python3 chip_smoke.py --granite`` runs this phase
-alone).
+``kernels`` line, and holds K8, the chunked SSD scan of its Mamba-2
+mixers, against its plain version at the cell's (4, 2,048, 128 x 64, N
+128) bf16 views, its 18 launches in that decision K8's row (``python3
+chip_smoke.py --granite`` runs this phase alone).
 Each path runs with every launch count set to 0 just before it and read
 just after; the actions are checked against the eager ``xla`` build of
 the same manifest, and the LM's logits against its monolith and against
@@ -3694,6 +3696,14 @@ K7_MAX = 2.0 ** -3
 # -0.5 scale on the same inputs gives softmax weights 11x sharper and
 # reads far outside it (the phase checks that too)
 
+# K8 (bf16 views of the conv's output) against the plain f32 scan on the
+# same values, element by element: |K8 - plain| <= K8_TOL * max|plain| +
+# 2^-8 |plain|.  K8 sums in another order, and its cumulative and segment
+# sums in float64 (tests/test_torch_ssd_scan.py holds f32 inputs at
+# K8_TOL alone); y is rounded once to bf16, which moves it by up to 2^-9
+# of itself.  The final state, f32, is held at K8_TOL of its largest.
+K8_TOL = 1e-5
+
 
 GRANITE = "granite-4.0-h-small"
 GRANITE_LAYERS = 20       # of its 40: the benchmark cell's first two periods
@@ -3715,6 +3725,7 @@ def granite_served(dev):
     from repro_torch.core.split import make_split_policy
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.moe_grouped import moe_grouped
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models.transformer import DecoderModel
     from repro_torch.nn import moe
@@ -3750,26 +3761,30 @@ def granite_served(dev):
     decide()
     torch.cuda.synchronize()
     routes.clear()
-    moe_grouped.launches = flash_attention.launches = 0
+    moe_grouped.launches = flash_attention.launches = ssd_scan.launches = 0
     moe.reset_counters()
     t0 = time.perf_counter()
     payload, logits = decide()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    k7, k5 = moe_grouped.launches, flash_attention.launches
+    k7, k5, k8 = (moe_grouped.launches, flash_attention.launches,
+                  ssd_scan.launches)
     rows = moe.dropless_counters()
     n_attn = sum(k == "attn" for k in cfg.blocks())
     print(f"{GRANITE} ({GRANITE_LAYERS} of {full.n_layers} layers, "
           f"{cfg.param_count():,} parameters), one decision of {B} x {S} "
           f"tokens split after layer {period - 1}: {ms:.1f} ms; K7 "
-          f"{k7} launches, K5 {k5}, {rows['routed_rows']} routed rows (the "
+          f"{k7} launches, K5 {k5}, K8 {k8}, {rows['routed_rows']} routed "
+          f"rows (the "
           f"most on one expert {rows['max_expert_rows']}), payload "
           f"{tuple(payload['data'].shape)} {payload['data'].dtype}, logits "
           f"{tuple(logits.shape)}")
     check(k7 == cfg.n_layers and k5 == n_attn == 2
+          and k8 == cfg.n_layers - n_attn == 18
           and len(routes) == cfg.n_layers
           and rows["routed_rows"] == cfg.n_layers * B * S * cfg.moe.top_k,
-          f"{GRANITE}: a decision launched K7 {k7} and K5 {k5} times over "
+          f"{GRANITE}: a decision launched K7 {k7}, K5 {k5} and K8 {k8} "
+          f"times over "
           f"{len(routes)} routed layers, {rows['routed_rows']} rows")
     check(payload["data"].dtype == torch.uint8
           and tuple(payload["data"].shape) == (B, S, cfg.d_model)
@@ -3779,11 +3794,87 @@ def granite_served(dev):
           f"{payload['data'].dtype}, logits {logits.shape}")
     out = dict(layers=cfg.n_layers, published_layers=full.n_layers,
                params=cfg.param_count(), tokens=[B, S], ms=ms,
-               k7_launches=k7, k5_launches=k5, **rows)
+               k7_launches=k7, k5_launches=k5, k8_launches=k8, **rows)
     del edge_p, server_p, payload, logits, routes, split, model
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def granite_k8(dev, g):
+    """K8 (``kernels.ssd_scan``) at the cell's Mamba-2 shape: 4 prompts x
+    2,048 steps, 128 heads of 64, N 128, one group, chunks of 256, x, B
+    and C bf16 views of one (4, 2,048, 8,448) tensor as the conv leaves
+    them, against the plain f32 ``ssd_chunked`` on the same values (a
+    rolled dt must fail the limit), bit for bit between two runs, and
+    timed beside its float32 bound and the plain version."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ref import ssd_chunked
+    from repro_torch.kernels.ssd_scan import flops, min_bytes, ssd_scan
+    from repro_torch.nn.ssm import SSMConfig
+    b, S, H, P, G, N, Q = 4, 2048, 128, 64, 1, 128, 256
+    cfg = SSMConfig(d_model=4096, chunk=Q)
+    xbc = torch.randn((b, S, H * P + 2 * G * N), generator=g,
+                      device=dev).to(torch.bfloat16)
+    x = xbc[..., :H * P].reshape(b, S, H, P)
+    B = xbc[..., H * P:H * P + G * N].reshape(b, S, G, N)
+    C = xbc[..., H * P + G * N:].reshape(b, S, G, N)
+    dt = F.softplus(torch.randn((b, S, H), generator=g, device=dev) - 1.0)
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    D = torch.randn((H,), generator=g, device=dev)
+
+    def k8(dt=dt):
+        return ssd_scan(cfg, x, dt, A, B, C, D)
+
+    def plain():
+        return ssd_chunked(cfg, x.float(), dt, A, B.float(), C.float(), D)
+
+    def excess(got, want, rounding):
+        """The largest |got - want| over its limit, K8_TOL * max|want| +
+        rounding * |want|."""
+        want = want.float()
+        limit = K8_TOL * want.abs().max() + rounding * want.abs()
+        return ((got.float() - want).abs() / limit).max().item()
+
+    with torch.inference_mode():
+        ssd_scan.launches = 0
+        y, h = k8()
+        torch.cuda.synchronize()
+        check(ssd_scan.launches == 1, "K8 did not launch")
+        wy, wh = plain()
+        y_x, h_x = excess(y, wy, 2.0 ** -8), excess(h, wh, 0.0)
+        y2, h2 = k8()
+        same = torch.equal(y, y2) and torch.equal(h, h2)
+        wrong = excess(k8(dt.roll(1, -1))[0], wy, 2.0 ** -8)
+        y_max, h_max = wy.abs().max().item(), wh.abs().max().item()
+        del wy, wh, y2, h2
+        ms = cuda_ms(k8, iters=20, warmup=3)
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        dev_us = kernel_device_us(k8, "ssd_", calls=10)
+    fl, nb = flops(b, S, H, G, P, N, Q), min_bytes(b, S, H, G, P, N)
+    b_ms, b_by = bound(nb, fl)
+    dev_ms = None if dev_us is None else dev_us[0] * dev_us[1] / 1e3
+    print(f"K8 at ({b}, {S}, {H} x {P}, N {N}, G {G}) bf16 views, chunks of "
+          f"{Q}: y within {y_x:.3g} of its limit (K8_TOL {K8_TOL:g} of "
+          f"{y_max:.4g} + 2^-8 |y|), h_final {h_x:.3g} of its (K8_TOL of "
+          f"{h_max:.4g}); bit for bit between runs: {same}; a rolled dt "
+          f"reads {wrong:.3g} of the limit")
+    check(y_x <= 1 and h_x <= 1, f"K8 off its plain version: {y_x}, {h_x}")
+    check(same, "K8 is not bit for bit between two runs")
+    check(wrong > 100, f"K8 with a rolled dt reads {wrong}, within 100x "
+          f"its limit")
+    print(f"K8: {ms:.4f} ms a call (events, 20 calls; device "
+          f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms in "
+          f"{None if dev_us is None else dev_us[1]} kernels), bound "
+          f"{b_ms:.4f} ms ({b_by}: {fl / 1e9:.2f} GFLOP, {nb / 1e6:.1f} MB), "
+          f"{100 * b_ms / ms:.1f}% of it; plain {plain_ms:.4f} ms; "
+          f"{fl / ms / 1e9:.1f} TFLOP/s")
+    return dict(shape=[b, S, H, P, G, N, Q], y_limit_share=y_x,
+                h_limit_share=h_x, rolled_dt_limit_share=wrong,
+                bitwise=same, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by, flops=fl,
+                min_bytes=nb, phase_launches=ssd_scan.launches)
 
 
 def granite_phase(dev, card):
@@ -3793,17 +3884,18 @@ def granite_phase(dev, card):
     ``torch._grouped_mm`` (the library row, a yardstick the port never
     calls), bit for bit between two runs, and over uneven, empty and
     one-expert routings; K5 at (4, 32/8, 2,048, 128) bf16 with the scale
-    1/128 against its plain version; and one decision of the benchmark
-    cell through the program (:func:`granite_served`), whose K7 launches
-    are K7's ``launches``.  Standalone: ``python3 chip_smoke.py
-    --granite``."""
+    1/128 against its plain version; K8 (``kernels.ssd_scan``) at the
+    cell's Mamba-2 shape (:func:`granite_k8`); and one decision of the
+    benchmark cell through the program (:func:`granite_served`), whose K7
+    and K8 launches are their ``launches``.  Standalone: ``python3
+    chip_smoke.py --granite``."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.moe_grouped import (flops, min_bytes,
                                                  moe_grouped)
     from repro_torch.kernels.ref import attention_ref, moe_grouped_ref
-    built = _build.build(["moe_grouped", "flash_attention"])
+    built = _build.build(["moe_grouped", "flash_attention", "ssd_scan"])
     for name, info in built.items():
         for line in info["log"].splitlines():
             if any(w in line.lower() for w in ("registers", "smem", "spill",
@@ -3962,10 +4054,12 @@ def granite_phase(dev, card):
                      ms=k5_ms, plain_ms=plain_k5,
                      library_ms=lib_k5, bound_ms=k5_b, bound_by=k5_by)
     del q, k, v, kr, vr, got, want, default
+    out["k8"] = granite_k8(dev, g)
     served = granite_served(dev)
     out["served"] = served
     out["k7"]["launches"] = served["k7_launches"]
     out["k5"]["served_launches"] = served["k5_launches"]
+    out["k8"]["launches"] = served["k8_launches"]
     return out
 
 
@@ -5151,7 +5245,7 @@ def main() -> int:
     dense = dense_phase(dev, gen, reset_counts, counts, card)
     print(json.dumps({"dense": dense}, default=float))
 
-    # ---- 22. K7 and K5's scale at granite-4.0-h's shapes --------------------
+    # ---- 22. K7, K5's scale and K8 at granite-4.0-h's shapes ---------------
     granite = granite_phase(dev, card)
     print(json.dumps({"granite": granite}, default=float))
 
@@ -5208,6 +5302,9 @@ def main() -> int:
         dict(name="moe_grouped", route="cuda",
              source="src/repro_torch/kernels/csrc/moe_grouped.cu",
              replaces=None, **granite["k7"]),
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+             replaces=None, **granite["k8"]),
     ]
     kernels[4]["lm_decode_oracle_launches"] = lm["decode"][
         "oracle_k5_launches"]

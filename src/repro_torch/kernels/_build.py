@@ -32,6 +32,7 @@ SOURCES = {
     "miniconv_encoder": "miniconv_encoder.cu",
     "flash_attention": "flash_attention.cu",
     "moe_grouped": "moe_grouped.cu",
+    "ssd_scan": "ssd_scan.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's CUDA kernels.
 
 Each computes what its kernel computes, the MiniConv ones with ``F.pad`` +
-``F.conv2d`` and attention with two einsums and a softmax: the wrappers in
-``kernels/miniconv_pass.py`` and ``kernels/flash_attention.py`` use them
-for CPU tensors (the tests), and ``chip_smoke.py`` holds each kernel
+``F.conv2d``, attention with two einsums and a softmax and the chunked SSD
+scan with einsums and a loop over chunks: the wrappers in ``kernels/`` use
+them for CPU tensors (the tests), ``nn.ssm`` takes ``ssd_chunked`` where
+autograd needs the scan's inputs, and ``chip_smoke.py`` holds each kernel
 against them on the card.
 """
 from __future__ import annotations
@@ -102,6 +103,78 @@ def moe_grouped_ref(x, offsets, w_gate, w_up, w_down, row_scale=None):
     return out
 
 
+def _segsum(x):
+    """x: (..., L).  Returns seg[..., i, j] = sum_{k=j+1..i} x_k (lower-tri,
+    -inf above the diagonal).
+
+    Each entry is its own sum, a cumulative sum down the columns of x
+    masked to the strict lower triangle.  The reference takes differences
+    of one cumulative sum, cs_i - cs_j, which cancel: over a 256-step
+    chunk |cs| reaches 10^3, so the short sums near the diagonal, whose
+    exp matters most, carry absolute errors near 1e-4, and their exp as
+    much relative error.
+    """
+    L = x.shape[-1]
+    tril = torch.ones((L, L), dtype=torch.bool, device=x.device).tril
+    terms = x[..., :, None].expand(*x.shape, L).masked_fill(~tril(-1), 0.0)
+    return torch.cumsum(terms, dim=-2).masked_fill(~tril(0), float("-inf"))
+
+
+def ssd_chunked(cfg, x, dt, A, B, C, D, *, h0=None):
+    """Chunked SSD scan (``nn.ssm``'s, and K8's plain version); ``cfg`` is
+    an ``nn.ssm.SSMConfig``, of which it reads ``chunk``.
+
+    x: (b, S, H, P); dt: (b, S, H) (post softplus); A: (H,) negative;
+    B, C: (b, S, G, N); D: (H,).  Returns (y, h_final) with
+    h_final: (b, H, P, N).
+    """
+    b, S, H, P = x.shape
+    G, N = B.shape[-2], B.shape[-1]
+    Q = min(cfg.chunk, S)
+    assert S % Q == 0, f"seq {S} not divisible by chunk {Q}"
+    c = S // Q
+    rep = H // G
+
+    xc = x.reshape(b, c, Q, H, P)
+    dtc = dt.reshape(b, c, Q, H)
+    Bh = B.reshape(b, c, Q, G, N).repeat_interleave(rep, dim=3)  # (b,c,Q,H,N)
+    Ch = C.reshape(b, c, Q, G, N).repeat_interleave(rep, dim=3)
+
+    dA = dtc * A                                         # (b,c,Q,H)
+    dA_cs = torch.cumsum(dA, dim=2)                      # within-chunk cumsum
+
+    # 1. within-chunk (quadratic) term
+    Lmat = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))    # (b,c,H,Q,Q)
+    scores = torch.einsum("bcqhn,bckhn->bchqk", Ch, Bh)
+    M = scores * Lmat * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", M, xc)
+
+    # 2. per-chunk input states; the decay from each step to the chunk's
+    # end, exp(sum_{k>q} dA_k), is Lmat's last row
+    decay_states = Lmat[:, :, :, -1, :].permute(0, 1, 3, 2)  # (b,c,Q,H)
+    states = torch.einsum("bcqhn,bcqhp->bchpn",
+                          Bh * (decay_states * dtc)[..., None], xc)
+
+    # 3. inter-chunk recurrence over chunk states
+    chunk_decay = torch.exp(dA_cs[:, :, -1, :])          # (b,c,H)
+    h = (torch.zeros((b, H, P, N), dtype=states.dtype, device=x.device)
+         if h0 is None else h0)
+    h_in = []                                            # entering each chunk
+    for i in range(c):
+        h_in.append(h)
+        h = h * chunk_decay[:, i, :, None, None] + states[:, i]
+    h_in = torch.stack(h_in, 1)                          # (b,c,H,P,N)
+
+    # 4. chunk-output from incoming states
+    out_decay = torch.exp(dA_cs)                         # (b,c,Q,H)
+    y_off = torch.einsum("bcqhn,bchpn->bcqhp", Ch * out_decay[..., None],
+                         h_in)
+
+    y = (y_diag + y_off).reshape(b, S, H, P)
+    y = y + x * D[None, None, :, None]
+    return y, h
+
+
 __all__ = ["attention_ref", "moe_grouped_ref", "miniconv_encoder_ref",
            "miniconv_encoder_stream_ref", "miniconv_layer_grouped_ref",
-           "miniconv_pass_ref"]
+           "miniconv_pass_ref", "ssd_chunked"]

@@ -5,7 +5,11 @@ The full sequence runs the chunked SSD algorithm: a quadratic term
 within each chunk, then a linear recurrence over the chunk states (a
 loop over chunks: one chunk at S <= 256).  Decode is the O(1) recurrent
 update.  The scan computes in f32 whatever the model's dtype; ``A_log``,
-``D`` and ``dt_bias`` stay f32, as in the reference.
+``D`` and ``dt_bias`` stay f32, as in the reference.  Where autograd does
+not need the scan's inputs (every prefill and decision) the scan is K8
+(``kernels.ssd_scan``), which reads x, B and C where the conv left them;
+where it does (training), or on DTensors, it is the plain
+``ssd_chunked`` (``kernels.ref``), which has a backward.
 
 The full-sequence forward marks three spans (``repro_torch.tracing``):
 ``ssm.proj`` (the input projection and the causal conv), ``ssm.scan``
@@ -22,6 +26,9 @@ import torch.nn.functional as F
 
 from repro_torch import tracing
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.ref import ssd_chunked
+from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.nn.constrain import is_dtensor
 from repro_torch.nn.layers import dense, dense_init, rmsnorm, rmsnorm_init
 
 
@@ -88,77 +95,6 @@ def _causal_conv(xBC, kernel, bias):
     return F.silu(out + bias)
 
 
-def _segsum(x):
-    """x: (..., L).  Returns seg[..., i, j] = sum_{k=j+1..i} x_k (lower-tri,
-    -inf above the diagonal).
-
-    Each entry is its own sum, a cumulative sum down the columns of x
-    masked to the strict lower triangle.  The reference takes differences
-    of one cumulative sum, cs_i - cs_j, which cancel: over a 256-step
-    chunk |cs| reaches 10^3, so the short sums near the diagonal, whose
-    exp matters most, carry absolute errors near 1e-4, and their exp as
-    much relative error.
-    """
-    L = x.shape[-1]
-    tril = torch.ones((L, L), dtype=torch.bool, device=x.device).tril
-    terms = x[..., :, None].expand(*x.shape, L).masked_fill(~tril(-1), 0.0)
-    return torch.cumsum(terms, dim=-2).masked_fill(~tril(0), float("-inf"))
-
-
-def ssd_chunked(cfg: SSMConfig, x, dt, A, B, C, D, *, h0=None):
-    """Chunked SSD scan.
-
-    x: (b, S, H, P); dt: (b, S, H) (post softplus); A: (H,) negative;
-    B, C: (b, S, G, N); D: (H,).  Returns (y, h_final) with
-    h_final: (b, H, P, N).
-    """
-    b, S, H, P = x.shape
-    G, N = B.shape[-2], B.shape[-1]
-    Q = min(cfg.chunk, S)
-    assert S % Q == 0, f"seq {S} not divisible by chunk {Q}"
-    c = S // Q
-    rep = H // G
-
-    xc = x.reshape(b, c, Q, H, P)
-    dtc = dt.reshape(b, c, Q, H)
-    Bh = B.reshape(b, c, Q, G, N).repeat_interleave(rep, dim=3)  # (b,c,Q,H,N)
-    Ch = C.reshape(b, c, Q, G, N).repeat_interleave(rep, dim=3)
-
-    dA = dtc * A                                         # (b,c,Q,H)
-    dA_cs = torch.cumsum(dA, dim=2)                      # within-chunk cumsum
-
-    # 1. within-chunk (quadratic) term
-    Lmat = torch.exp(_segsum(dA.permute(0, 1, 3, 2)))    # (b,c,H,Q,Q)
-    scores = torch.einsum("bcqhn,bckhn->bchqk", Ch, Bh)
-    M = scores * Lmat * dtc.permute(0, 1, 3, 2)[:, :, :, None, :]
-    y_diag = torch.einsum("bchqk,bckhp->bcqhp", M, xc)
-
-    # 2. per-chunk input states; the decay from each step to the chunk's
-    # end, exp(sum_{k>q} dA_k), is Lmat's last row
-    decay_states = Lmat[:, :, :, -1, :].permute(0, 1, 3, 2)  # (b,c,Q,H)
-    states = torch.einsum("bcqhn,bcqhp->bchpn",
-                          Bh * (decay_states * dtc)[..., None], xc)
-
-    # 3. inter-chunk recurrence over chunk states
-    chunk_decay = torch.exp(dA_cs[:, :, -1, :])          # (b,c,H)
-    h = (torch.zeros((b, H, P, N), dtype=states.dtype, device=x.device)
-         if h0 is None else h0)
-    h_in = []                                            # entering each chunk
-    for i in range(c):
-        h_in.append(h)
-        h = h * chunk_decay[:, i, :, None, None] + states[:, i]
-    h_in = torch.stack(h_in, 1)                          # (b,c,H,P,N)
-
-    # 4. chunk-output from incoming states
-    out_decay = torch.exp(dA_cs)                         # (b,c,Q,H)
-    y_off = torch.einsum("bcqhn,bchpn->bcqhp", Ch * out_decay[..., None],
-                         h_in)
-
-    y = (y_diag + y_off).reshape(b, S, H, P)
-    y = y + x * D[None, None, :, None]
-    return y, h
-
-
 def ssm_forward(params, cfg: SSMConfig, u, *, h0=None,
                 return_state: bool = False):
     """Full-sequence forward.  u: (B, S, d_model)."""
@@ -175,8 +111,13 @@ def ssm_forward(params, cfg: SSMConfig, u, *, h0=None,
         Cm = xBC[..., cfg.d_inner + G * N:].reshape(B_, S, G, N)
         dt = F.softplus(dt.float() + params["dt_bias"])
         A = -torch.exp(params["A_log"])
-        y, h = ssd_chunked(cfg, x.float(), dt, A, Bm.float(), Cm.float(),
-                           params["D"], h0=h0)
+        args = (x, dt, A, Bm, Cm, params["D"], h0)
+        if is_dtensor(x) or (torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in args)):
+            y, h = ssd_chunked(cfg, x.float(), dt, A, Bm.float(), Cm.float(),
+                               params["D"], h0=h0)
+        else:
+            y, h = ssd_scan(cfg, x, dt, A, Bm, Cm, params["D"], h0=h0)
     with tracing.span("ssm.out"):
         y = y.reshape(B_, S, cfg.d_inner).to(u.dtype)
         y = rmsnorm(params["norm"], y * F.silu(z), eps=cfg.norm_eps)

@@ -267,6 +267,22 @@ def test_run_one_rows_render_in_the_roofline_table(mesh_name, tmp_path,
     assert all(ARCH in line and mesh_name in line for line in lines[1:])
 
 
+def test_ssm_prefill_on_dtensors_takes_the_plain_scan(monkeypatch):
+    """A Mamba-2 prefill over ``meta`` DTensors: ``nn.ssm`` sends DTensors
+    to the plain scan, whose einsums the counter sees chip by chip, and
+    never to K8, which would record the global shapes' work as one
+    chip's."""
+    from repro_torch.nn import ssm
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("K8 was handed DTensors")
+
+    monkeypatch.setattr(ssm, "ssd_scan", refuse)
+    d = dryrun.run_one("mamba2-130m", "prefill_32k", "single",
+                       verbose=False)
+    assert d["flops_per_chip"] > 0 and d["bytes_per_chip"] > 0
+
+
 def test_dryrun_cli_prints_the_header_and_a_row(tmp_path, capsys):
     out = tmp_path / "rows.jsonl"
     argv = ["--arch", ARCH, "--shape", "decode_32k", "--mesh", "single",

@@ -104,7 +104,7 @@ def test_loss_and_gradients_match(arch):
     ``A_log``: the reference's segment sums are differences of one
     cumulative sum, which cancel and leave its own f32 ``A_log`` gradient
     1.7e-5 of the leaf's largest from its float64 evaluation.  The port
-    sums each segment on its own (``nn.ssm._segsum``), so that leaf is
+    sums each segment on its own (``kernels.ref._segsum``), so that leaf is
     held at 1e-5 against the reference's loss differentiated under
     ``jax.enable_x64`` on float64 parameters (the segment sums then run in
     float64), and at ``A_LOG_VS_F32`` against the reference's f32
