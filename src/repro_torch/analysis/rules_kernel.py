@@ -6,10 +6,10 @@ the CUDA kernels that ``kernels/_build.py`` builds and binds with ctypes:
 ``kernel-launch`` (AST; replaces ``kernel-interpret``): a launch site must
 make explicitly the choices the run depends on.  Every function that calls
 a launch function obtained from ``_build.launcher(...)`` (directly, or
-through a helper that returns one, such as ``miniconv_pass._layer_fn``)
-must pass the launch's returned ``cudaError_t`` to ``check_rc(...)`` — a
-dropped code is a launch that fails silently, a hidden fallback — and
-must read the current stream explicitly (``torch._C.
+through a helper that returns one; ``_build.launch`` is the port's one
+such function) must pass the launch's returned ``cudaError_t`` to
+``check_rc(...)`` — a dropped code is a launch that fails silently, a
+hidden fallback — and must read the current stream explicitly (``torch._C.
 _cuda_getCurrentRawStream`` or ``.cuda_stream``), or the kernel is queued
 on a stream other than the one torch queued its inputs on.
 
@@ -78,7 +78,7 @@ def _launch_fn_names(body: List[ast.AST], helpers: Set[str]) -> Set[str]:
 def _launch_helpers(
     fns: List[Tuple[SourceFile, ast.AST, List[ast.AST]]]
 ) -> Set[str]:
-    """Functions that return a launch function (``_layer_fn``), found to a
+    """Functions that return a launch function, found to a
     fixed point so a helper of a helper counts too."""
     helpers: Set[str] = set()
     while True:

@@ -1,18 +1,23 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's CUDA kernels with nvcc, load them with ctypes and
+launch them.
 
 Each source in ``csrc/`` becomes its own shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), compiled for
-Hopper (``sm_90a``) at first use into ``build/repro_torch/`` at the root of
-the checkout, a directory git ignores.  A library's file name carries a
-hash of its source and flags, so an edited source is rebuilt and a stale
-one is never loaded.  :func:`build` starts one nvcc per missing source, all
-at once.
+interface (no PyTorch headers, so a build takes seconds): one entry,
+``int <library>_launch(const long long* a)``, whose argument array
+follows the source's ``enum Arg`` and ends in the device index and the
+raw ``cudaStream_t``.  :func:`launch` is the one way a kernel reaches the
+card.  Each library is compiled for Hopper (``sm_90a``) at first use into
+``build/repro_torch/`` at the root of the checkout, a directory git
+ignores.  A library's file name carries a hash of its source and flags, so
+an edited source is rebuilt and a stale one is never loaded.
+:func:`build` starts one nvcc per missing source, all at once.
 
 Nothing here runs at import: the module imports on a host with no nvcc
 and no GPU, and only a kernel launch needs a library.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
 import hashlib
@@ -111,13 +116,34 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def launcher(lib: str, symbol: str, argtypes: tuple):
-    """The C launch function ``symbol`` of library ``lib``, typed; it
-    returns a ``cudaError_t`` as an int."""
+def launcher(lib: str, symbol: str):
+    """The C launch function ``symbol`` of library ``lib``, typed: it
+    takes the address of an int64 array and returns a ``cudaError_t`` as
+    an int."""
     fn = getattr(load(lib), symbol)
-    fn.argtypes = list(argtypes)
+    fn.argtypes = [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(library: str, what: str, dev: torch.device,
+           args: array.array) -> None:
+    """Launch ``library``'s kernel on ``dev``'s current stream.
+
+    ``args`` is the int64 array of the source's ``enum Arg`` without its
+    last two slots; this appends the device index and the raw stream,
+    calls ``<library>_launch`` and raises, naming ``what``, when it
+    returns a CUDA error.  The call converts one argument, not one per
+    field, and reads the stream with torch's own accessor, as its
+    generated code does: ``.cuda_stream`` of ``torch.cuda.current_stream``
+    builds a Stream object first, about fifty times the raw read's host
+    time (``benchmarks/conv_tiles.py`` times both).
+    """
+    index = dev.index or 0
+    args.append(index)
+    args.append(torch._C._cuda_getCurrentRawStream(index))
+    fn = launcher(library, f"{library}_launch")
+    check_rc(fn(args.buffer_info()[0]), what)
 
 
 def check_rc(rc: int, what: str) -> None:
@@ -147,5 +173,5 @@ def on_one_device(*tensors) -> torch.device:
 
 
 __all__ = ["BUILD_DIR", "SOURCES", "aligned", "build", "check_rc",
-           "cuda_kernels_supported", "launcher", "library_path", "load",
-           "nvcc_path", "on_one_device"]
+           "cuda_kernels_supported", "launch", "launcher", "library_path",
+           "load", "nvcc_path", "on_one_device"]

@@ -47,7 +47,8 @@
 //   the probabilities go through a per-warp buffer in shared memory.
 //
 // Every sum on both routes runs in a fixed order, so a run repeats bit for
-// bit.  C interface, bound with ctypes by kernels/flash_attention.py.
+// bit.  C interface: flash_attention_launch, one array of int64 (enum Arg),
+// called from kernels/flash_attention.py through _build.launch.
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder is
                    // reached through cudaGetDriverEntryPoint, no -lcuda
 #include <cuda_bf16.h>
@@ -55,6 +56,7 @@
 
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include <atomic>
 
@@ -897,24 +899,26 @@ int dispatch(const Problem& p, int sms) {
 }  // namespace tc
 }  // namespace
 
-// The launch's arguments, packed into one array of int64 so that a call
-// from Python converts two arguments, not twenty-seven.
+// The launch's arguments, packed into one array of int64.
 enum Arg {
   kQ, kK, kV, kO,            // device pointers
   kB, kH, kHkv, kS, kD,      // q (B, H, S, D); k, v (B, H_kv, S, D)
   kStrides,                  // 12 element strides: (batch, head, sequence)
                              // of q, k, v, o in turn
-  kCausal = kStrides + 12, kWindow, kDtype, kDevice, kStream,
+  kCausal = kStrides + 12, kWindow, kDtype,
+  kScale,                    // the float32 scale's bit pattern
+  kDevice, kStream,
   kNArgs
 };
 
 // q, k, v, o at 16-byte aligned bases, of one dtype (0: f32, 1: bf16),
 // their strides multiples of 16 bytes, the last dim unit-stride; D a
-// multiple of 8 up to 256; H % H_kv == 0; window <= 0 for none.  bf16 at
-// D <= 128 takes the tensor-core route, the rest the CUDA-core route.
-// Launches on the stream and returns cudaGetLastError(), or 100000 + the
-// CUresult when a TMA descriptor cannot be encoded.
-extern "C" int flash_attention_launch(const long long* a, float scale) {
+// multiple of 8 up to 256; H % H_kv == 0; window <= 0 for none; the
+// scores multiplied by the scale.  bf16 at D <= 128 takes the tensor-core
+// route, the rest the CUDA-core route.  Launches on the stream and returns
+// cudaGetLastError(), or 100000 + the CUresult when a TMA descriptor
+// cannot be encoded.
+extern "C" int flash_attention_launch(const long long* a) {
   const int B = static_cast<int>(a[kB]), H = static_cast<int>(a[kH]),
             H_kv = static_cast<int>(a[kHkv]), S = static_cast<int>(a[kS]),
             D = static_cast<int>(a[kD]), dtype = static_cast<int>(a[kDtype]),
@@ -923,9 +927,14 @@ extern "C" int flash_attention_launch(const long long* a, float scale) {
       H_kv <= 0 || H % H_kv != 0 || B > 65535 || H > 65535 || device < 0 ||
       device >= kMaxDevices || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || H == 0 || S == 0) return 0;
+  const uint32_t scale_bits = static_cast<uint32_t>(a[kScale]);
+  float scale;
+  memcpy(&scale, &scale_bits, sizeof scale);
   const long long* st = a + kStrides;
   auto ptr = [&](int i) { return reinterpret_cast<void*>(a[i]); };
   const Problem p{ptr(kQ), ptr(kK), ptr(kV), ptr(kO),

@@ -76,7 +76,8 @@
 //   (core/passplan.py: tile_cost), which charges each pass the chain of
 //   its busiest thread beside the issue slots of its warps.
 //
-// C interface, bound with ctypes by repro_torch/kernels/miniconv_pass.py.
+// C interface: miniconv_encoder_launch, one array of int64 (enum Arg),
+// called from repro_torch/kernels/miniconv_pass.py through _build.launch.
 #include <cuda_runtime.h>
 
 namespace {
@@ -623,19 +624,50 @@ bool valid_shape(int pix, int co_block) {
          (pix == 2 && (co_block == 4 || co_block == 8));
 }
 
-// Fills the parameter block and launches K1 (blocks == 0: one block per
-// item) or K4 (blocks > 0 persistent blocks).
-int launch(const float* x, float* feats, float* z, float* partial,
-           int* done, const int* desc, int n_layers,
-           const void* const* weights, const void* const* biases,
-           const float* head_w, const float* head_b, int head_dim,
-           int head_act, int head_parts, long long batch, int blocks,
-           int smem_bytes, int device, void* stream) {
+// The launch's arguments, packed by the wrapper into one array of int64.
+enum Arg {
+  kX, kFeats, kZ, kPartial, kDone,  // device pointers (z, partial, done 0
+                                    // for none)
+  kDesc,                            // host address of the int32 descriptor
+  kNLayers,
+  kWeights,                         // kMaxLayers device pointers each,
+  kBiases = kWeights + kMaxLayers,  // the first n_layers used
+  kHeadW = kBiases + kMaxLayers, kHeadB,
+  kHeadDim, kHeadAct, kHeadParts, kBatch,
+  kBlocks,                          // 0: K1; >= 1: K4's persistent blocks
+  kSmemBytes, kDevice, kStream,
+  kNArgs
+};
+
+}  // namespace
+
+// a: the kNArgs launch arguments in the order of `enum Arg`.  desc:
+// kHeaderInts tile ints (tile_h, tile_w, tiles_y, tiles_x, group,
+// in_ext_h, in_ext_w, in_row, in_mul_h, in_add_h, in_mul_w, in_add_w,
+// in_off, smem_floats, frames), then kLayerInts per layer: the geometry
+// (kernel, stride, c_in, c_out, in_h, in_w, out_h, out_w, pad_top,
+// pad_left, act) and the tile (ext_h, ext_w, row, next_stride, mul_h,
+// add_h, mul_w, add_w, pix, co_block, co_pad, w_off, b_off, out_off), all
+// from PassPlan.tile_plan.  z, head_w and head_b may be null (no epilogue;
+// no bias); with z, `partial` holds batch * tiles * head_parts * head_dim
+// floats and `done` batch zeroed ints.  blocks 0 launches K1 (group 1);
+// blocks >= 1 launches K4 with that many persistent blocks (at most one
+// per item), `desc` then carrying up to kMaxGroup frames an item and
+// passes of 1 .. group frames, and `done` holding batch + 1 zeroed ints,
+// with or without z.  Launches on the stream and returns
+// cudaGetLastError().
+extern "C" int miniconv_encoder_launch(const long long* a) {
+  auto ptr = [&](int i) { return reinterpret_cast<void*>(a[i]); };
+  const int n_layers = static_cast<int>(a[kNLayers]),
+            blocks = static_cast<int>(a[kBlocks]),
+            smem_bytes = static_cast<int>(a[kSmemBytes]),
+            device = static_cast<int>(a[kDevice]);
+  const long long batch = a[kBatch];
   if (n_layers < 1 || n_layers > kMaxLayers || blocks < 0 || batch < 0 ||
-      head_parts < 1)
+      a[kHeadParts] < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
-  const int* h = desc;
+  const int* h = static_cast<const int*>(ptr(kDesc));
   p.tile_h = h[0];
   p.tile_w = h[1];
   p.tiles_y = h[2];
@@ -654,7 +686,7 @@ int launch(const float* x, float* feats, float* z, float* partial,
       p.frames < 1 || p.frames > p.group || (blocks == 0 && p.group != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int l = 0; l < n_layers; ++l) {
-    const int* d = desc + kHeaderInts + l * kLayerInts;
+    const int* d = h + kHeaderInts + l * kLayerInts;
     Layer& L = p.layers[l];
     L.kernel = d[0];
     L.stride = d[1];
@@ -680,31 +712,33 @@ int launch(const float* x, float* feats, float* z, float* partial,
     L.w_off = d[22];
     L.b_off = d[23];
     L.out_off = d[24];
-    L.w = static_cast<const float*>(weights[l]);
-    L.b = static_cast<const float*>(biases[l]);
+    L.w = static_cast<const float*>(ptr(kWeights + l));
+    L.b = static_cast<const float*>(ptr(kBiases + l));
     if (!valid_shape(L.pix, L.co_block) || L.co_pad % L.co_block ||
         (L.w_off >= 0 && L.w_off % 4) ||
         (L.next_stride != 0) != (l < n_layers - 1))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   p.n_layers = n_layers;
-  p.x = x;
-  p.feats = feats;
-  p.z = z;
-  p.partial = partial;
-  p.done = done;
-  p.head_w = head_w;
-  p.head_b = head_b;
-  p.head_dim = head_dim;
-  p.head_act = head_act;
-  p.head_parts = head_parts;
+  p.x = static_cast<const float*>(ptr(kX));
+  p.feats = static_cast<float*>(ptr(kFeats));
+  p.z = static_cast<float*>(ptr(kZ));
+  p.partial = static_cast<float*>(ptr(kPartial));
+  p.done = static_cast<int*>(ptr(kDone));
+  p.head_w = static_cast<const float*>(ptr(kHeadW));
+  p.head_b = static_cast<const float*>(ptr(kHeadB));
+  p.head_dim = static_cast<int>(a[kHeadDim]);
+  p.head_act = static_cast<int>(a[kHeadAct]);
+  p.head_parts = static_cast<int>(a[kHeadParts]);
   p.batch = batch;
   p.n_items = (batch + p.group - 1) / p.group * p.tiles_y * p.tiles_x;
-  if ((z != nullptr && (partial == nullptr || done == nullptr)) ||
-      (blocks > 0 && done == nullptr))
+  if ((p.z != nullptr && (p.partial == nullptr || p.done == nullptr)) ||
+      (blocks > 0 && p.done == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
 
-  cudaError_t err = cudaSetDevice(device);
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.n_items == 0) return 0;
   if (blocks == 0 && p.n_items > 0x7fffffffLL)
@@ -718,7 +752,7 @@ int launch(const float* x, float* feats, float* z, float* partial,
                                smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaStream_t s = reinterpret_cast<cudaStream_t>(a[kStream]);
   if (blocks > 0) {
     const long long grid = blocks < p.n_items ? blocks : p.n_items;
     encoder_stream_kernel<<<static_cast<int>(grid), kThreads, smem_bytes,
@@ -728,45 +762,4 @@ int launch(const float* x, float* feats, float* z, float* partial,
         p);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// desc: kHeaderInts tile ints (tile_h, tile_w, tiles_y, tiles_x, group,
-// in_ext_h, in_ext_w, in_row, in_mul_h, in_add_h, in_mul_w, in_add_w,
-// in_off, smem_floats, frames), then kLayerInts per layer: the geometry
-// (kernel, stride, c_in, c_out, in_h, in_w, out_h, out_w, pad_top,
-// pad_left, act) and the tile (ext_h, ext_w, row, next_stride, mul_h,
-// add_h, mul_w, add_w, pix, co_block, co_pad, w_off, b_off, out_off), all
-// from PassPlan.tile_plan.  weights, biases: host arrays of n_layers
-// device pointers.  z, head_w and head_b may be null (no epilogue; no
-// bias); with z, `partial` holds batch * tiles * head_parts * head_dim
-// floats and `done` batch zeroed ints.  Launches K1 (group 1) on `stream`
-// and returns cudaGetLastError().
-extern "C" int miniconv_encoder_launch(
-    const float* x, float* feats, float* z, float* partial, int* done,
-    const int* desc, int n_layers, const void* const* weights,
-    const void* const* biases, const float* head_w, const float* head_b,
-    int head_dim, int head_act, int head_parts, long long batch,
-    int smem_bytes, int device, void* stream) {
-  return launch(x, feats, z, partial, done, desc, n_layers, weights, biases,
-                head_w, head_b, head_dim, head_act, head_parts, batch, 0,
-                smem_bytes, device, stream);
-}
-
-// K4: the arguments of miniconv_encoder_launch plus blocks >= 1, the
-// persistent blocks (at most one per item); `desc` then carries up to
-// kMaxGroup frames an item and passes of 1 .. group frames, and `done`
-// holds batch + 1 zeroed ints, with or without z.  Launches on `stream`
-// and returns cudaGetLastError().
-extern "C" int miniconv_encoder_stream_launch(
-    const float* x, float* feats, float* z, float* partial, int* done,
-    const int* desc, int n_layers, const void* const* weights,
-    const void* const* biases, const float* head_w, const float* head_b,
-    int head_dim, int head_act, int head_parts, long long batch, int blocks,
-    int smem_bytes, int device, void* stream) {
-  if (blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(x, feats, z, partial, done, desc, n_layers, weights, biases,
-                head_w, head_b, head_dim, head_act, head_parts, batch, blocks,
-                smem_bytes, device, stream);
 }

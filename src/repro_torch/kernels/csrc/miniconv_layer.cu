@@ -47,7 +47,8 @@
 //   instantiation, tile and register tile: K3 equals K2 bit for bit (the
 //   `grouped` tier equals `reference`), and a run repeats bit for bit.
 //
-// C interface, bound with ctypes by repro_torch/kernels/miniconv_pass.py.
+// C interface: miniconv_layer_launch, one array of int64 (enum Arg),
+// called from repro_torch/kernels/miniconv_pass.py through _build.launch.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -69,7 +70,9 @@ enum Arg {
   kTileH, kTileW, kCoBlock,    // a block: tile_h x tile_w outputs of
                                // co_block channels
   kPix, kCb, kThreads,         // a thread: pix pixels x cb channels
-  kSmemBytes, kDevice, kStream,
+  kSmemBytes,
+  kLayerGrouped,               // 1: K3, every output group; 0: K2, one
+  kDevice, kStream,
   kNArgs
 };
 
@@ -358,8 +361,20 @@ int dispatch(const Conv& p, const Launch& l, int pix, int cb) {
   return dispatch_task<kGrouped, 0, 0, 0, 0>(p, l, pix, cb);
 }
 
-int launch(const long long* a, bool grouped) {
+}  // namespace
+
+// a: the kNArgs launch arguments in the order of `enum Arg`.  x (batch,
+// h_in, w_in, c_in) contiguous; w (kh, kw, c_in, c_out) read as w[(i * kw
+// + j) * c_in + c) * w_ld + o] (K2: a layer weight's 4-channel group view,
+// w_ld its C_out; K3: c_out % 4 == 0 channels, w_ld >= c_out); b c_out
+// contiguous floats; y (batch, h_out, w_out, c_out) contiguous and 16-byte
+// aligned.  The plan's tile, channel block (K2: 4), register tile (pix,
+// cb) of PassPlan's TASK_SHAPES, threads and shared-memory bytes come from
+// PassPlan's plan_conv_tiles.  Launches K3 (layer_grouped 1) or K2 on the
+// stream and returns cudaGetLastError().
+extern "C" int miniconv_layer_launch(const long long* a) {
   const int batch = static_cast<int>(a[kBatch]);
+  const long long grouped = a[kLayerGrouped];
   Conv p{};
   p.x = reinterpret_cast<const float*>(a[kX]);
   p.w = reinterpret_cast<const float*>(a[kW]);
@@ -389,7 +404,8 @@ int launch(const long long* a, bool grouped) {
       p.tile_h < 1 || p.tile_w < 1 || p.co_block < 4 ||
       p.co_block % 4 != 0 || p.c_out % p.co_block != 0 || cb < 4 ||
       p.co_block % cb != 0 || threads < 32 || threads > kMaxThreads ||
-      threads % 32 != 0 || device < 0 || device >= kMaxDevices)
+      threads % 32 != 0 || device < 0 || device >= kMaxDevices ||
+      (grouped != 0 && grouped != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   p.tiles_y = (p.h_out + p.tile_h - 1) / p.tile_h;
   p.tiles_x = (p.w_out + p.tile_w - 1) / p.tile_w;
@@ -410,37 +426,12 @@ int launch(const long long* a, bool grouped) {
 
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (current != device) {
-    err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   if (blocks == 0) return 0;
   const Launch l{static_cast<unsigned>(blocks), threads,
                  static_cast<int>(smem), device,
                  reinterpret_cast<cudaStream_t>(a[kStream])};
   return grouped ? dispatch<true>(p, l, pix, cb)
                  : dispatch<false>(p, l, pix, cb);
-}
-
-}  // namespace
-
-// a: the kNArgs launch arguments in the order of `enum Arg`.  x (batch,
-// h_in, w_in, c_in) contiguous; w (kh, kw, c_in, 4) read as w[(i * kw +
-// j) * c_in + c) * w_ld + o] (a layer weight's 4-channel group view: w_ld
-// its C_out); b 4 contiguous floats; y (batch, h_out, w_out, 4) contiguous
-// and 16-byte aligned.  The plan's tile, channel block (4), register tile
-// (pix, 4), threads and shared-memory bytes come from PassPlan's
-// plan_conv_tiles.  Launches K2 on the stream and returns
-// cudaGetLastError().
-extern "C" int miniconv_pass_launch(const long long* a) {
-  return launch(a, false);
-}
-
-// a: as miniconv_pass_launch, with c_out % 4 == 0 channels of w (tap
-// stride w_ld >= c_out), b and y, and a channel block and register tile
-// (pix, cb) of PassPlan's TASK_SHAPES.  Launches K3 on the stream and
-// returns cudaGetLastError().
-extern "C" int miniconv_layer_grouped_launch(const long long* a) {
-  return launch(a, true);
 }

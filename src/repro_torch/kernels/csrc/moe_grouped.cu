@@ -34,7 +34,8 @@
 // out-of-bounds fill) and never stored, so each output row is written by
 // exactly one block, in a fixed order of sums: a run repeats bit for bit.
 //
-// C interface, bound with ctypes by kernels/moe_grouped.py.
+// C interface: moe_grouped_launch, one array of int64 (enum Arg), called from
+// kernels/moe_grouped.py through _build.launch.
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder is
                    // reached through cudaGetDriverEntryPoint, no -lcuda
 #include <cuda_bf16.h>
@@ -431,7 +432,9 @@ extern "C" int moe_grouped_launch(const long long* a) {
       E <= 0 || tiles < 0 || tiles > 65535 || device < 0 ||
       device >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (M == 0 || tiles == 0) return 0;
   static std::atomic<unsigned long long> done_gu{0}, done_dn{0};

@@ -55,7 +55,8 @@
 // Q.  x, B and C are float32 or bf16 with unit stride inside a step, read
 // 16 bytes at a time; dt, A, D and h0 float32.
 //
-// C interface, bound with ctypes by kernels/ssd_scan.py.
+// C interface: ssd_scan_launch, one array of int64 (enum Arg), called from
+// kernels/ssd_scan.py through _build.launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -568,7 +569,10 @@ extern "C" int ssd_scan_launch(const long long* a) {
       batch * (S / Q) * G > 65535 || device < 0 || device >= kMaxDevices ||
       (a[kBf16] != 0 && a[kBf16] != 1) || !aligned)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(static_cast<int>(device));
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device)
+    err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch == 0 || S == 0) return 0;
   const cudaStream_t stream = reinterpret_cast<cudaStream_t>(a[kStream]);

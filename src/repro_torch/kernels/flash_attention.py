@@ -19,20 +19,17 @@ the kernel could not address in place and the wrapper copied).
 from __future__ import annotations
 
 import array
-import ctypes
+import struct
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import (aligned, check_rc, launcher,
-                                        on_one_device)
+from repro_torch.kernels._build import aligned, launch, on_one_device
 from repro_torch.kernels.ref import attention_ref
 from repro_torch.costs import attention_flops, record
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# flash_attention_launch(const long long* args, float scale): the args
-# packed in the order of the source's `enum Arg`
-_ARGS = (ctypes.c_void_p, ctypes.c_float)
+_F32 = struct.Struct("<f")
 TC_MAX_D = 128   # the tensor-core route's widest head dim
 
 
@@ -143,15 +140,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
            (2 * q.numel() + k.numel() + v.numel()) * q.element_size())
     if dev.type == "meta":
         return o
-    fn = launcher("flash_attention", "flash_attention_launch", _ARGS)
+    # enum Arg in csrc/flash_attention.cu; the scale as float32 bits
     args = array.array("q", (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         B, H, H_kv, S, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         S * H * D, D, H * D, causal,
         -1 if sliding_window is None else sliding_window, code,
-        dev.index or 0, torch.cuda.current_stream(dev).cuda_stream))
-    rc = fn(args.buffer_info()[0], scale)
-    check_rc(rc, "flash_attention")
+        int.from_bytes(_F32.pack(scale), "little")))
+    launch("flash_attention", "flash_attention", dev, args)
     flash_attention.launches += 1
     flash_attention.tc_launches += tensor_core_route(dt, D)
     return o

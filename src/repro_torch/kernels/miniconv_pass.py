@@ -32,7 +32,6 @@ count the inputs they had to copy (``miniconv_pass.copies``,
 from __future__ import annotations
 
 import array
-import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -40,16 +39,13 @@ import torch.nn.functional as F
 from repro_torch import tracing
 from repro_torch.core.passplan import (ENCODER_THREADS, SMEM_LIMIT,
                                       plan_conv_tiles)
-from repro_torch.kernels._build import (aligned, check_rc, launcher,
-                                        on_one_device)
+from repro_torch.kernels._build import aligned, launch, on_one_device
 from repro_torch.kernels.ref import (miniconv_encoder_ref,
                                      miniconv_encoder_stream_ref,
                                      miniconv_layer_grouped_ref,
                                      miniconv_pass_ref)
 
 _ACT_CODES = {"relu": 0, "sigmoid": 1, "linear": 2}
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 
 
 def _kernel_arg(t: torch.Tensor, what: str) -> torch.Tensor:
@@ -64,23 +60,6 @@ def _kernel_arg(t: torch.Tensor, what: str) -> torch.Tensor:
 # K2 and K3: one tiled layer kernel
 # ---------------------------------------------------------------------------
 
-# miniconv_pass_launch / miniconv_layer_grouped_launch(const long long*
-# args): the args packed in the order of the source's `enum Arg`
-_LAYER_ARGS = (_P,)
-_LAYER_SYMBOLS = {False: "miniconv_pass_launch",
-                  True: "miniconv_layer_grouped_launch"}
-_layer_fns: dict = {}
-
-
-def _layer_fn(grouped: bool):
-    """K3's (``grouped``) or K2's C entry, resolved and typed once."""
-    fn = _layer_fns.get(grouped)
-    if fn is None:
-        fn = _layer_fns[grouped] = launcher(
-            "miniconv_layer", _LAYER_SYMBOLS[grouped], _LAYER_ARGS)
-    return fn
-
-
 def tap_stride(w: torch.Tensor) -> int:
     """Floats between neighbouring (i, j, c) taps of a (kh, kw, C_in,
     C_out) weight when the layer kernels can read it in place: unit-stride
@@ -93,15 +72,14 @@ def tap_stride(w: torch.Tensor) -> int:
     return 0
 
 
-def layer_args(ptrs, dims, w_ld: int, tp, device: int,
-               stream: int) -> array.array:
+def layer_args(ptrs, dims, w_ld: int, tp, grouped: bool) -> array.array:
     """The int64 argument array of one K2 or K3 launch (``enum Arg`` in
-    ``csrc/miniconv_layer.cu``): the pointers of x, w, b and y; ``dims`` =
+    ``csrc/miniconv_layer.cu``, up to the device and stream that
+    ``_build.launch`` appends): the pointers of x, w, b and y; ``dims`` =
     (B, H_in, W_in, C_in, kh, kw, stride, H_out, W_out, C_out); the
     weight's tap stride; the tile plan ``tp``
-    (``core.passplan.plan_conv_tiles``); the device and stream."""
-    return array.array("q", (*ptrs, *dims, w_ld, *tp.launch_ints, device,
-                             stream))
+    (``core.passplan.plan_conv_tiles``); 1 for K3, 0 for K2."""
+    return array.array("q", (*ptrs, *dims, w_ld, *tp.launch_ints, grouped))
 
 
 def _layer_inputs(wrapper, x, w, b):
@@ -142,16 +120,11 @@ def launch_layer(x, w, b, *, stride: int, tp, grouped: bool):
                     device=dev)
     if tp is None:
         return y
-    index = dev.index or 0
-    # torch's own accessor of the current stream, as its generated code
-    # calls it: torch.cuda.current_stream(dev).cuda_stream builds a Stream
-    # object and takes a third of a served call's host time
-    # (benchmarks/conv_tiles.py times both)
     args = layer_args(
         (x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr()),
         (B, h_in, w_in, c_in, kh, kw, stride, h_out, w_out, c_out), ld, tp,
-        index, torch._C._cuda_getCurrentRawStream(index))
-    check_rc(_layer_fn(grouped)(args.buffer_info()[0]), wrapper.__name__)
+        grouped)
+    launch("miniconv_layer", wrapper.__name__, dev, args)
     return y
 
 
@@ -233,11 +206,7 @@ miniconv_layer_grouped.copies = 0
 # K1: the whole encoder, optional projection epilogue
 # ---------------------------------------------------------------------------
 
-_MAX_LAYERS = 8
-_ENCODER_ARGS = ((_P,) * 6 + (_I,) + (_P,) * 4 + (_I,) * 3
-                 + (ctypes.c_longlong, _I, _I, _P))
-_STREAM_ARGS = ((_P,) * 6 + (_I,) + (_P,) * 4 + (_I,) * 3
-                + (ctypes.c_longlong, _I, _I, _I, _P))
+_MAX_LAYERS = 8     # the weight and bias slots of the launch array
 
 
 def encoder_desc(plan, tp) -> list[int]:
@@ -271,16 +240,16 @@ _DESC_CACHE: dict = {}
 
 
 def _desc_array(plan, batch: int, streamed: bool):
-    """(tile plan, ctypes int array of :func:`encoder_desc`) for a launch,
-    kept per plan object so that a served call does not rebuild them."""
+    """(tile plan, int32 array of :func:`encoder_desc`) for a launch, kept
+    per plan object so that a served call does not rebuild them."""
     key = (id(plan), batch, streamed)
     hit = _DESC_CACHE.get(key)
     if hit is None or hit[0] is not plan:
         tp = plan.tile_plan(batch, streamed=streamed)
-        desc = encoder_desc(plan, tp)
         if len(_DESC_CACHE) > 256:
             _DESC_CACHE.clear()
-        hit = _DESC_CACHE[key] = (plan, tp, (ctypes.c_int * len(desc))(*desc))
+        hit = _DESC_CACHE[key] = (plan, tp,
+                                  array.array("i", encoder_desc(plan, tp)))
     return hit[1], hit[2]
 
 
@@ -339,8 +308,7 @@ def _launch_encoder(x, weights, biases, plan, head_w, head_b, head_act,
         if tp is None:
             tp, desc = _desc_array(plan, B, streamed)
         else:
-            desc = encoder_desc(plan, tp)
-            desc = (ctypes.c_int * len(desc))(*desc)
+            desc = array.array("i", encoder_desc(plan, tp))
         x = _kernel_arg(x, "x")
         # a layer whose weights are not staged is read from device memory
         # in the staged layout: (kh, kw, c_in, co_pad), zero past c_out
@@ -367,27 +335,19 @@ def _launch_encoder(x, weights, biases, plan, head_w, head_b, head_act,
                                device=dev)
 
         def ptr(t):
-            return None if t is None else t.data_ptr()
+            return 0 if t is None else t.data_ptr()
 
-        args = [x.data_ptr(), feats.data_ptr(), ptr(z), ptr(partial),
-                ptr(done), desc, L,
-                (ctypes.c_void_p * L)(*[t.data_ptr() for t in ws]),
-                (ctypes.c_void_p * L)(*[t.data_ptr() for t in bs]),
-                ptr(hw), ptr(hb), d_out, _ACT_CODES[head_act],
-                head_parts(max(d_out, 1)), B]
-        if streamed:
-            args.append(tp.stream_blocks(B, chunk_b))
+        unused = (0,) * (_MAX_LAYERS - L)
+        # enum Arg in csrc/miniconv_encoder.cu; blocks 0 launches K1
+        args = array.array("q", (
+            x.data_ptr(), feats.data_ptr(), ptr(z), ptr(partial), ptr(done),
+            desc.buffer_info()[0], L, *[t.data_ptr() for t in ws], *unused,
+            *[t.data_ptr() for t in bs], *unused, ptr(hw), ptr(hb), d_out,
+            _ACT_CODES[head_act], head_parts(max(d_out, 1)), B,
+            tp.stream_blocks(B, chunk_b) if streamed else 0, tp.smem_bytes))
     with tracing.span("encoder.launch"):
-        if streamed:
-            fn = launcher("miniconv_encoder",
-                          "miniconv_encoder_stream_launch", _STREAM_ARGS)
-        else:
-            fn = launcher("miniconv_encoder", "miniconv_encoder_launch",
-                          _ENCODER_ARGS)
-        rc = fn(*args, tp.smem_bytes, dev.index or 0,
-                torch.cuda.current_stream(dev).cuda_stream)
-        check_rc(rc, "miniconv_encoder_stream" if streamed
-                  else "miniconv_encoder")
+        launch("miniconv_encoder", "miniconv_encoder_stream" if streamed
+               else "miniconv_encoder", dev, args)
     if streamed:
         miniconv_encoder_stream.launches += 1
     else:

@@ -17,17 +17,13 @@ pass.  ``moe_grouped.launches`` counts the launches (two kernels each).
 from __future__ import annotations
 
 import array
-import ctypes
 
 import torch
 
 from repro_torch.costs import record
-from repro_torch.kernels._build import check_rc, launcher, on_one_device
+from repro_torch.kernels._build import launch, on_one_device
 from repro_torch.kernels.ref import moe_grouped_ref
 
-# moe_grouped_launch(const long long* args): the args packed in the order
-# of the source's `enum Arg`
-_ARGS = (ctypes.c_void_p,)
 BLOCK_M = 128      # rows a tile: an expert's rows pad up to a multiple
 GATE_N = 128       # hidden columns a tile of the gate|up GEMM
 DOWN_N = 256       # output columns a tile of the down GEMM
@@ -105,14 +101,13 @@ def moe_grouped(x, offsets, w_gate, w_up, w_down, *, row_scale=None):
     if dev.type == "meta" or M == 0:
         return out
     hidden = torch.empty((M, Fd), dtype=torch.bfloat16, device=dev)
-    fn = launcher("moe_grouped", "moe_grouped_launch", _ARGS)
+    # enum Arg in csrc/moe_grouped.cu
     args = array.array("q", (
         x.data_ptr(), offsets.data_ptr(), w_gate.data_ptr(),
         w_up.data_ptr(), w_down.data_ptr(), hidden.data_ptr(),
         out.data_ptr(), 0 if row_scale is None else row_scale.data_ptr(),
-        M, D, Fd, E, tiles_bound(M, E), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream))
-    check_rc(fn(args.buffer_info()[0]), "moe_grouped")
+        M, D, Fd, E, tiles_bound(M, E)))
+    launch("moe_grouped", "moe_grouped", dev, args)
     moe_grouped.launches += 1
     return out
 

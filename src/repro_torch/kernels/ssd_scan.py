@@ -32,18 +32,13 @@ its work (``repro_torch.costs.record``).  It has no backward pass.
 from __future__ import annotations
 
 import array
-import ctypes
 
 import torch
 
 from repro_torch.costs import record
-from repro_torch.kernels._build import (aligned, check_rc, launcher,
-                                        on_one_device)
+from repro_torch.kernels._build import aligned, launch, on_one_device
 from repro_torch.kernels.ref import ssd_chunked
 
-# ssd_scan_launch(const long long* args): the args packed in the order of
-# the source's `enum Arg`
-_ARGS = (ctypes.c_void_p,)
 MAX_HEAD = 64      # P: the rows of a state tile
 MAX_STATE = 128    # N: its columns
 MAX_CHUNK = 256    # Q: a chunk's cumulative sums fit a block
@@ -153,7 +148,7 @@ def ssd_scan(cfg, x, dt, A, B, C, D, *, h0=None):
     decay = torch.empty((b, c, H), **f32)
     cb = torch.empty((b, c, G, Q, -(-Q // 8) * 8), **f32)  # rows padded
     hin = torch.empty((b, c, H, MAX_STATE, MAX_HEAD), **f32)
-    fn = launcher("ssd_scan", "ssd_scan_launch", _ARGS)
+    # enum Arg in csrc/ssd_scan.cu
     args = array.array("q", (
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
         C.data_ptr(), D.data_ptr(), 0 if h0 is None else h0.data_ptr(),
@@ -161,9 +156,8 @@ def ssd_scan(cfg, x, dt, A, B, C, D, *, h0=None):
         wst.data_ptr(), eo.data_ptr(), decay.data_ptr(), cb.data_ptr(),
         hin.data_ptr(), b, S, H, G, P, N, Q, x.stride(0), x.stride(1),
         B.stride(0), B.stride(1), C.stride(0), C.stride(1),
-        int(x.dtype == torch.bfloat16), dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream))
-    check_rc(fn(args.buffer_info()[0]), "ssd_scan")
+        int(x.dtype == torch.bfloat16)))
+    launch("ssd_scan", "ssd_scan", dev, args)
     ssd_scan.launches += 1
     return y, h_final
 

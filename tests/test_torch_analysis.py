@@ -6,6 +6,7 @@ at the port (``timing-warmup``, ``rng-unseeded``, ``registry-roundtrip``,
 ``kernel-launch``, ``kernel-smem``); the baseline machinery and both
 committed baselines; and the port's strict gate."""
 import json
+import re
 from pathlib import Path
 
 import pytest
@@ -21,6 +22,7 @@ import repro_torch.analysis as port  # noqa: E402
 from repro_torch.analysis.core import Suppression  # noqa: E402
 from repro_torch.analysis.rules_kernel import audit_smem_budgets  # noqa: E402
 from repro_torch.analysis.rules_schema import check_registries  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_BASELINE = ROOT / "src" / "repro_torch" / "analysis" / "baseline.json"
@@ -578,7 +580,7 @@ import torch
 from repro_torch.kernels._build import check_rc, launcher
 
 def run(x, dev):
-    fn = launcher("lib", "sym", ())
+    fn = launcher("lib", "sym")
     rc = fn(x.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     check_rc(rc, "sym")
 """
@@ -593,7 +595,7 @@ _fns = {}
 def _fn(k):
     fn = _fns.get(k)
     if fn is None:
-        fn = _fns[k] = launcher("lib", "sym", ())
+        fn = _fns[k] = launcher("lib", "sym")
     return fn
 
 
@@ -630,26 +632,20 @@ def test_kernel_launch_positive(src, what):
 
 
 KERNELS = ROOT / "src" / "repro_torch" / "kernels"
-SITES = {"miniconv_pass.py": ("launch_layer", "_launch_encoder"),
-         "flash_attention.py": ("flash_attention",)}
+# the one launch site: every wrapper reaches the card through it
+SITES = {"_build.py": ("launch",)}
+# the modules that launch, through SITES
+LAUNCHING = ("_build.py", "miniconv_pass.py", "flash_attention.py",
+             "moe_grouped.py", "ssd_scan.py")
 # (file, source edit, the function whose launch it breaks, message part)
 MUTATIONS = [
-    ("miniconv_pass.py", ("check_rc(_layer_fn(grouped)(", "(_layer_fn(grouped)("),
-     "launch_layer", "cudaError_t"),
-    ("miniconv_pass.py", ("torch._C._cuda_getCurrentRawStream(index)", "0"),
-     "launch_layer", "stream"),
-    ("miniconv_pass.py", ("check_rc(rc,", "print(None,"), "_launch_encoder",
-     "cudaError_t"),
-    ("miniconv_pass.py", ("torch.cuda.current_stream(dev).cuda_stream", "0"),
-     "_launch_encoder", "stream"),
-    ("flash_attention.py", ("check_rc(rc,", "print(None,"), "flash_attention",
-     "cudaError_t"),
-    ("flash_attention.py", ("torch.cuda.current_stream(dev).cuda_stream",
-                            "0"), "flash_attention", "stream"),
+    ("_build.py", ("check_rc(fn(", "print(fn("), "launch", "cudaError_t"),
+    ("_build.py", ("torch._C._cuda_getCurrentRawStream(index)", "0"),
+     "launch", "stream"),
 ]
 
 
-@pytest.mark.parametrize("name", sorted(SITES))
+@pytest.mark.parametrize("name", LAUNCHING)
 def test_kernel_launch_real_sites_are_clean(name):
     src = (KERNELS / name).read_text()
     path = f"src/repro_torch/kernels/{name}"
@@ -661,10 +657,26 @@ def test_kernel_launch_sees_each_real_site(case):
     """A real site with its rc dropped or its stream read removed fires:
     the clean result above is the rule seeing the site, not missing it."""
     name, (old, new), fn, what = MUTATIONS[case]
+    assert fn in SITES[name]
     src = (KERNELS / name).read_text()
-    assert old in src
+    assert src.count(old) == 1
     f = port.analyze_source(src.replace(old, new), rules=["kernel-launch"])
     assert len(f) == 1 and f"{fn}()" in f[0].message and what in f[0].message
+
+
+@pytest.mark.parametrize("library", sorted(_build.SOURCES))
+def test_each_library_has_one_launch_entry(library):
+    """The C half of ``_build.launch``: a library exports one entry,
+    ``<library>_launch(const long long* a)``, and its ``enum Arg`` ends in
+    the device and stream slots that ``launch`` appends."""
+    src = (KERNELS / "csrc" / _build.SOURCES[library]).read_text()
+    assert src.count('extern "C"') == 1
+    assert re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src) == [
+        (f"{library}_launch", "const long long* a")]
+    enum = re.search(r"enum Arg \{(.*?)\};", src, re.S).group(1)
+    members = [m.split("=")[0].strip()
+               for m in re.sub(r"//[^\n]*", "", enum).split(",")]
+    assert members[-3:] == ["kDevice", "kStream", "kNArgs"]
 
 
 # ---------------------------------------------------------------------------

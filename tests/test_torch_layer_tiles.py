@@ -225,16 +225,16 @@ def test_tap_stride_reads_group_views_in_place():
 
 
 def test_layer_args_are_what_the_kernel_reads():
-    """The int64 array in ``enum Arg`` order (miniconv_layer.cu): 24
-    slots, the plan's as the kernel's layout check expects them."""
+    """The int64 array in ``enum Arg`` order (miniconv_layer.cu): its 25
+    slots but the device and stream, which ``_build.launch`` appends; the
+    plan's as the kernel's layout check expects them."""
     w = torch.zeros(3, 3, 16, 16)[..., 4:8]
     tp = pp.plan_conv_tiles(2, 11, 11, 3, 3, 2, 16, 4, False)
     args = layer_args((11, 12, 13, 14), (2, 23, 23, 16, 3, 3, 2, 11, 11, 4),
-                      tap_stride(w), tp, 0, 1234)
+                      tap_stride(w), tp, False)
     assert list(args) == [
         11, 12, 13, 14, 2, 23, 23, 16, 3, 3, 2, 11, 11, 4, 16, tp.tile_h,
-        tp.tile_w, tp.co_block, tp.pix, tp.cb, tp.threads, tp.smem_bytes,
-        0, 1234]
+        tp.tile_w, tp.co_block, tp.pix, tp.cb, tp.threads, tp.smem_bytes, 0]
     assert tp.launch_ints == (tp.tile_h, tp.tile_w, tp.co_block, tp.pix,
                               tp.cb, tp.threads, tp.smem_bytes)
 
