@@ -3704,6 +3704,14 @@ K7_MAX = 2.0 ** -3
 # of itself.  The final state, f32, is held at K8_TOL of its largest.
 K8_TOL = 1e-5
 
+# K9 (bf16 output) against the plain float32 sum S of the same rows, element
+# by element: |K9 - S| <= 2^-8 |S| + K9_REORDER * max|S|.  K9 rounds S once
+# to bf16, half a bf16 step at most (2^-8 of |S|), and adds its K + 1 terms
+# in its own fixed order, which moves S by float32 reordering alone (a few
+# 1e-7 of the largest sum at K = 10).  Every token reading a neighbour's
+# rows moves its sum by about its own size.
+K9_REORDER = 1e-6
+
 
 GRANITE = "granite-4.0-h-small"
 GRANITE_LAYERS = 20       # of its 40: the benchmark cell's first two periods
@@ -3716,14 +3724,15 @@ def granite_served(dev):
     full width cut to ``GRANITE_LAYERS`` layers, drawn on the card from
     seed 0, split after the first period (``split_params``), the edge's
     ``edge_forward`` -> the uint8 codec -> ``server_forward(...,
-    last_only=True)``.  One decision warms it; K7's, K5's and the
-    dropless route's counts are set to 0 just before the second.  Every
+    last_only=True)``.  One decision warms it; K7's, K5's, K8's, K9's and
+    the dropless route's counts are set to 0 just before the second.  Every
     tensor it makes is freed when it returns.  Returns the counts."""
     import gc
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.split import make_split_policy
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_combine import moe_combine
     from repro_torch.kernels.moe_grouped import moe_grouped
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch import serve as serve_cli
@@ -3762,30 +3771,31 @@ def granite_served(dev):
     torch.cuda.synchronize()
     routes.clear()
     moe_grouped.launches = flash_attention.launches = ssd_scan.launches = 0
+    moe_combine.launches = 0
     moe.reset_counters()
     t0 = time.perf_counter()
     payload, logits = decide()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    k7, k5, k8 = (moe_grouped.launches, flash_attention.launches,
-                  ssd_scan.launches)
+    k7, k5, k8, k9 = (moe_grouped.launches, flash_attention.launches,
+                      ssd_scan.launches, moe_combine.launches)
     rows = moe.dropless_counters()
     n_attn = sum(k == "attn" for k in cfg.blocks())
     print(f"{GRANITE} ({GRANITE_LAYERS} of {full.n_layers} layers, "
           f"{cfg.param_count():,} parameters), one decision of {B} x {S} "
           f"tokens split after layer {period - 1}: {ms:.1f} ms; K7 "
-          f"{k7} launches, K5 {k5}, K8 {k8}, {rows['routed_rows']} routed "
-          f"rows (the "
-          f"most on one expert {rows['max_expert_rows']}), payload "
+          f"{k7} launches, K5 {k5}, K8 {k8}, K9 {k9}, {rows['routed_rows']} "
+          f"routed rows (the most on one expert "
+          f"{rows['max_expert_rows']}), payload "
           f"{tuple(payload['data'].shape)} {payload['data'].dtype}, logits "
           f"{tuple(logits.shape)}")
-    check(k7 == cfg.n_layers and k5 == n_attn == 2
+    check(k7 == k9 == cfg.n_layers == 20 and k5 == n_attn == 2
           and k8 == cfg.n_layers - n_attn == 18
           and len(routes) == cfg.n_layers
           and rows["routed_rows"] == cfg.n_layers * B * S * cfg.moe.top_k,
-          f"{GRANITE}: a decision launched K7 {k7}, K5 {k5} and K8 {k8} "
-          f"times over "
-          f"{len(routes)} routed layers, {rows['routed_rows']} rows")
+          f"{GRANITE}: a decision launched K7 {k7}, K5 {k5}, K8 {k8} and "
+          f"K9 {k9} times over {len(routes)} routed layers, "
+          f"{rows['routed_rows']} rows")
     check(payload["data"].dtype == torch.uint8
           and tuple(payload["data"].shape) == (B, S, cfg.d_model)
           and tuple(logits.shape) == (B, 1, cfg.vocab)
@@ -3794,7 +3804,8 @@ def granite_served(dev):
           f"{payload['data'].dtype}, logits {logits.shape}")
     out = dict(layers=cfg.n_layers, published_layers=full.n_layers,
                params=cfg.param_count(), tokens=[B, S], ms=ms,
-               k7_launches=k7, k5_launches=k5, k8_launches=k8, **rows)
+               k7_launches=k7, k5_launches=k5, k8_launches=k8,
+               k9_launches=k9, **rows)
     del edge_p, server_p, payload, logits, routes, split, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3877,6 +3888,89 @@ def granite_k8(dev, g):
                 min_bytes=nb, phase_launches=ssd_scan.launches)
 
 
+def granite_k9(dev, g):
+    """K9 (``kernels.moe_combine``) at the cell's combine shape: 8,192
+    tokens routed top-10 over 72 experts and sorted as the layer sorts
+    them, D 4,096, float32 rows (1.34 GB) and a bf16 shared row, against
+    the plain float32 sum (a ``pos`` rolled by one must fail the limit),
+    bit for bit between two runs, and timed beside its memory bound, the
+    plain version and the chain the layer ran before K9 (zeros,
+    ``index_add_``, the shared row's add, the cast), a yardstick the port
+    no longer calls."""
+    import torch
+    from repro_torch.kernels.moe_combine import flops, min_bytes, moe_combine
+    from repro_torch.kernels.ref import moe_combine_ref
+    T, K, D, E = 8192, 10, 4096, 72
+    idx = torch.topk(torch.randn((T, E), generator=g, device=dev), K,
+                     dim=-1).indices
+    _, order = torch.sort(idx.reshape(-1), stable=True)
+    token = order // K
+    pos = torch.empty_like(order, dtype=torch.int32).scatter_(
+        0, order, torch.arange(T * K, dtype=torch.int32, device=dev)
+    ).view(T, K)
+    out = torch.randn((T * K, D), generator=g, device=dev) * 0.3
+    shared = torch.randn((T, D), generator=g, device=dev).to(torch.bfloat16)
+
+    def k9(pos=pos):
+        return moe_combine(out, pos, shared, dtype=torch.bfloat16)
+
+    def plain():
+        return moe_combine_ref(out, pos, shared, dtype=torch.bfloat16)
+
+    def chain():
+        y = torch.zeros((T, D), dtype=torch.float32, device=dev)
+        y.index_add_(0, token, out)
+        y += shared.float()
+        return y.to(torch.bfloat16)
+
+    def excess(got, want):
+        """The largest |got - want| over its limit, 2^-8 |want| +
+        K9_REORDER * max|want|."""
+        limit = 2.0 ** -8 * want.abs() + K9_REORDER * want.abs().max()
+        return ((got.float() - want).abs() / limit).max().item()
+
+    with torch.inference_mode():
+        moe_combine.launches = 0
+        y = k9()
+        torch.cuda.synchronize()
+        check(moe_combine.launches == 1, "K9 did not launch")
+        want = moe_combine_ref(out, pos, shared, dtype=torch.float32)
+        y_x, chain_x = excess(y, want), excess(chain(), want)
+        same = torch.equal(y, k9())
+        wrong = excess(k9(pos.reshape(-1).roll(1).view(T, K)), want)
+        y_max = want.abs().max().item()
+        del want
+        ms = cuda_ms(k9, iters=20, warmup=3)
+        plain_ms = cuda_ms(plain, iters=5, warmup=1)
+        chain_ms = cuda_ms(chain, iters=10, warmup=2)
+        dev_us = kernel_device_us(k9, "moe_combine_kernel", calls=10)
+    fl, nb = flops(T, K, D), min_bytes(T, K, D)
+    b_ms, b_by = bound(nb, fl)
+    dev_ms = None if dev_us is None else dev_us[0] * dev_us[1] / 1e3
+    print(f"K9 at {T} tokens x top-{K}, D {D}, f32 rows and a bf16 shared "
+          f"row: within {y_x:.3g} of its limit (2^-8 |S| + {K9_REORDER:g} "
+          f"of {y_max:.4g}); the replaced chain reads {chain_x:.3g}; bit "
+          f"for bit between runs: {same}; pos rolled by one reads "
+          f"{wrong:.3g} of the limit")
+    check(y_x <= 1, f"K9 off its plain version: {y_x}")
+    check(same, "K9 is not bit for bit between two runs")
+    check(wrong > 100, f"K9 with pos rolled by one reads {wrong}, within "
+          f"100x its limit")
+    print(f"K9: {ms:.4f} ms a call (events, 20 calls; device "
+          f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms in "
+          f"{None if dev_us is None else dev_us[1]} kernels), bound "
+          f"{b_ms:.4f} ms ({b_by}: {nb / 1e9:.4f} GB), "
+          f"{100 * b_ms / ms:.1f}% of it, {nb / ms / 1e6:.1f} GB/s; plain "
+          f"{plain_ms:.4f} ms; the replaced zeros + index_add_ + add + "
+          f"cast chain {chain_ms:.4f} ms")
+    return dict(shape=[T, K, D], limit_share=y_x, chain_limit_share=chain_x,
+                rolled_pos_limit_share=wrong, bitwise=same, ms=ms,
+                device_ms=dev_ms, plain_ms=plain_ms, chain_ms=chain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by, flops=fl,
+                min_bytes=nb, bound_share=b_ms / ms,
+                phase_launches=moe_combine.launches)
+
+
 def granite_phase(dev, card):
     """Phase 22: K7 (``kernels.moe_grouped``) at granite-4.0-h's expert
     shape, 72 experts, 8,192 tokens routed top-10 (about 1,138 rows an
@@ -3885,9 +3979,10 @@ def granite_phase(dev, card):
     calls), bit for bit between two runs, and over uneven, empty and
     one-expert routings; K5 at (4, 32/8, 2,048, 128) bf16 with the scale
     1/128 against its plain version; K8 (``kernels.ssd_scan``) at the
-    cell's Mamba-2 shape (:func:`granite_k8`); and one decision of the
-    benchmark cell through the program (:func:`granite_served`), whose K7
-    and K8 launches are their ``launches``.  Standalone: ``python3
+    cell's Mamba-2 shape (:func:`granite_k8`); K9 (``kernels.moe_combine``)
+    at the cell's combine shape (:func:`granite_k9`); and one decision of
+    the benchmark cell through the program (:func:`granite_served`), whose
+    K7, K8 and K9 launches are their ``launches``.  Standalone: ``python3
     chip_smoke.py --granite``."""
     import torch
     from repro_torch.kernels import _build
@@ -3895,7 +3990,8 @@ def granite_phase(dev, card):
     from repro_torch.kernels.moe_grouped import (flops, min_bytes,
                                                  moe_grouped)
     from repro_torch.kernels.ref import attention_ref, moe_grouped_ref
-    built = _build.build(["moe_grouped", "flash_attention", "ssd_scan"])
+    built = _build.build(["moe_grouped", "flash_attention", "ssd_scan",
+                          "moe_combine"])
     for name, info in built.items():
         for line in info["log"].splitlines():
             if any(w in line.lower() for w in ("registers", "smem", "spill",
@@ -4055,11 +4151,13 @@ def granite_phase(dev, card):
                      library_ms=lib_k5, bound_ms=k5_b, bound_by=k5_by)
     del q, k, v, kr, vr, got, want, default
     out["k8"] = granite_k8(dev, g)
+    out["k9"] = granite_k9(dev, g)
     served = granite_served(dev)
     out["served"] = served
     out["k7"]["launches"] = served["k7_launches"]
     out["k5"]["served_launches"] = served["k5_launches"]
     out["k8"]["launches"] = served["k8_launches"]
+    out["k9"]["launches"] = served["k9_launches"]
     return out
 
 
@@ -5305,6 +5403,9 @@ def main() -> int:
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/kernels/csrc/ssd_scan.cu",
              replaces=None, **granite["k8"]),
+        dict(name="moe_combine", route="cuda",
+             source="src/repro_torch/kernels/csrc/moe_combine.cu",
+             replaces=None, **granite["k9"]),
     ]
     kernels[4]["lm_decode_oracle_launches"] = lm["decode"][
         "oracle_k5_launches"]

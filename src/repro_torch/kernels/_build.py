@@ -38,6 +38,7 @@ SOURCES = {
     "flash_attention": "flash_attention.cu",
     "moe_grouped": "moe_grouped.cu",
     "ssd_scan": "ssd_scan.cu",
+    "moe_combine": "moe_combine.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

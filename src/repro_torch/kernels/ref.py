@@ -103,6 +103,17 @@ def moe_grouped_ref(x, offsets, w_gate, w_up, w_down, row_scale=None):
     return out
 
 
+def moe_combine_ref(out, pos, shared=None, *, dtype):
+    """K9's plain version: row t is ``sum_k out[pos[t, k]]`` in float32,
+    plus ``shared[t]`` as float32 where given, rounded once to ``dtype``.
+    out (M, D) float32, pos (T, K) of row numbers, shared (T, D) or None.
+    Differentiable in ``out`` and ``shared``."""
+    y = out[pos.long()].sum(1)
+    if shared is not None:
+        y = y + shared.float()
+    return y.to(dtype)
+
+
 def _segsum(x):
     """x: (..., L).  Returns seg[..., i, j] = sum_{k=j+1..i} x_k (lower-tri,
     -inf above the diagonal).
@@ -175,6 +186,6 @@ def ssd_chunked(cfg, x, dt, A, B, C, D, *, h0=None):
     return y, h
 
 
-__all__ = ["attention_ref", "moe_grouped_ref", "miniconv_encoder_ref",
-           "miniconv_encoder_stream_ref", "miniconv_layer_grouped_ref",
-           "miniconv_pass_ref", "ssd_chunked"]
+__all__ = ["attention_ref", "moe_combine_ref", "moe_grouped_ref",
+           "miniconv_encoder_ref", "miniconv_encoder_stream_ref",
+           "miniconv_layer_grouped_ref", "miniconv_pass_ref", "ssd_chunked"]

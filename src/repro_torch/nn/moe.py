@@ -21,10 +21,11 @@ and, with ``dropless``, granite-4.0-h's layer (:func:`_moe_dropless`): 72
 experts, top-10 by a softmax over the top-10 router logits, every (token,
 k) pair computed.  The pairs are sorted by expert and K7
 (``kernels.moe_grouped``) runs each expert's SwiGLU over its contiguous
-rows; a weighted ``index_add`` combines them.  Nothing drops and no
-expert computes a row it was not given.  Its spans (``repro_torch.
-tracing``): ``moe.route``, ``moe.permute``, ``moe.experts`` (K7),
-``moe.combine`` and ``moe.shared``; its counters: ``routed_rows`` and
+rows; K9 (``kernels.moe_combine``) gathers each token's rows back and
+sums them with the shared expert's.  Nothing drops and no expert computes
+a row it was not given.  Its spans (``repro_torch.tracing``):
+``moe.route``, ``moe.permute``, ``moe.experts`` (K7), ``moe.shared`` and
+``moe.combine`` (K9); its counters: ``routed_rows`` and
 ``max_expert_rows`` (:func:`dropless_counters`).
 """
 from __future__ import annotations
@@ -39,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch import tracing
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.moe_combine import moe_combine
 from repro_torch.kernels.moe_grouped import moe_grouped
 from repro_torch.nn.constrain import (axis_sizes, constrain, data_axes,
                                       gathered, is_dtensor, on_local_tensors,
@@ -301,12 +303,13 @@ def _moe_dropless(params, cfg: MoEConfig, x):
     An f32 router; each token's top-k logits through a softmax give its
     gates.  The (token, k) pairs are sorted by expert (a stable sort, so
     an expert's rows keep token order) and each expert's contiguous rows
-    go through K7, which scales row r's output by its gate; an
-    ``index_add`` in f32 sums each token's k outputs.  No pair is
-    dropped.  The routing's sort and offsets stay on the device: nothing
-    here waits for the card.  With gradients off ``stats`` is None and
-    ``routing`` (expert_idx, keep): the load-balance statistics feed a
-    training loss alone."""
+    go through K7, which scales row r's output by its gate.  K9 sums each
+    token's k outputs in f32, in the order k = 0..K-1, from their sorted
+    rows (``pos``, the sort's inverse), adds the shared expert's output and
+    rounds once to x's type.  No pair is dropped.  The routing's sort and
+    offsets stay on the device: nothing here waits for the card.  With
+    gradients off ``stats`` is None and ``routing`` (expert_idx, keep):
+    the load-balance statistics feed a training loss alone."""
     B, S, D = x.shape
     T, E, K = B * S, cfg.n_experts, cfg.top_k
     xt = x.reshape(T, D)
@@ -323,17 +326,20 @@ def _moe_dropless(params, cfg: MoEConfig, x):
             sorted_e, torch.arange(E + 1, device=x.device)).to(torch.int32)
         rows = xt.index_select(0, token)
         weight = gates.reshape(-1).index_select(0, order)
+        pos = torch.empty_like(order, dtype=torch.int32).scatter_(
+            0, order, torch.arange(T * K, dtype=torch.int32,
+                                   device=x.device))
     with tracing.span("moe.experts"):
         ex = params["experts"]
         out = moe_grouped(rows, offsets, ex["gate"]["kernel"],
                           ex["up"]["kernel"], ex["down"]["kernel"],
                           row_scale=weight)                       # f32
-    with tracing.span("moe.combine"):
-        y = torch.zeros((T, D), dtype=torch.float32, device=x.device)
-        y.index_add_(0, token, out)
+    shared = None
     if "shared" in params:
         with tracing.span("moe.shared"):
-            y += swiglu(params["shared"], xt).float()
+            shared = swiglu(params["shared"], xt)
+    with tracing.span("moe.combine"):
+        y = moe_combine(out, pos.view(T, K), shared, dtype=x.dtype)
     counts = offsets[1:] - offsets[:-1]
     m = counts.max()
     _Counts.routed_rows += T * K
@@ -341,14 +347,13 @@ def _moe_dropless(params, cfg: MoEConfig, x):
         _Counts.max_rows, m)
     keep = torch.ones((1, T, K), dtype=torch.bool, device=x.device)
     if not torch.is_grad_enabled():     # serving: no loss reads them
-        return y.to(x.dtype).reshape(B, S, D), None, (expert_idx[None], keep)
+        return y.reshape(B, S, D), None, (expert_idx[None], keep)
     # the Switch-style statistics of ``_moe``, over the one group
     probs = torch.softmax(logits, dim=-1)
     frac_tokens = counts.float() / T
     frac_probs = probs.mean(0)
     entropy = -torch.mean(torch.sum(probs * torch.log(probs + 1e-9), -1))
-    return (y.to(x.dtype).reshape(B, S, D),
-            (frac_tokens, frac_probs, entropy),
+    return (y.reshape(B, S, D), (frac_tokens, frac_probs, entropy),
             (expert_idx[None], keep, probs[None]))
 
 

@@ -636,7 +636,7 @@ KERNELS = ROOT / "src" / "repro_torch" / "kernels"
 SITES = {"_build.py": ("launch",)}
 # the modules that launch, through SITES
 LAUNCHING = ("_build.py", "miniconv_pass.py", "flash_attention.py",
-             "moe_grouped.py", "ssd_scan.py")
+             "moe_grouped.py", "ssd_scan.py", "moe_combine.py")
 # (file, source edit, the function whose launch it breaks, message part)
 MUTATIONS = [
     ("_build.py", ("check_rc(fn(", "print(fn("), "launch", "cudaError_t"),

@@ -73,12 +73,13 @@ def test_port_files_exist():
                 "analysis/baseline.py", "analysis/rules_concurrency.py",
                 "analysis/rules_rng.py", "analysis/rules_timing.py",
                 "analysis/rules_schema.py", "analysis/rules_kernel.py",
-                "tracing.py", "kernels/ssd_scan.py"):
+                "tracing.py", "kernels/ssd_scan.py",
+                "kernels/moe_combine.py"):
         assert mod in names, mod
     assert len([n for n in names if n.startswith("configs/")]) == 12
     assert {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")} == \
         {"miniconv_encoder.cu", "miniconv_layer.cu", "flash_attention.cu",
-         "moe_grouped.cu", "ssd_scan.cu"}
+         "moe_grouped.cu", "ssd_scan.cu", "moe_combine.cu"}
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)
