@@ -103,7 +103,13 @@ last position), whose K7 and K5 launches are K7's row in the
 ``kernels`` line, and holds K8, the chunked SSD scan of its Mamba-2
 mixers, against its plain version at the cell's (4, 2,048, 128 x 64, N
 128) bf16 views, its 18 launches in that decision K8's row (``python3
-chip_smoke.py --granite`` runs this phase alone).
+chip_smoke.py --granite`` runs this phase alone).  Phase 23 runs
+Moonlight-16B-A3B uncut: K5's route for values narrower than the keys at
+(2, 16/16, 8,192, 192 -> 128), one decision of ``moonlight.pf2x8192``
+through the program (27 K5 launches, all on the tensor cores with narrow
+values, 0 copies; 26 K7 and 26 K9), and a decode over the latent cache
+against the float32 reference (``python3 chip_smoke.py --moonlight`` runs
+it alone).
 Each path runs with every launch count set to 0 just before it and read
 just after; the actions are checked against the eager ``xla`` build of
 the same manifest, and the LM's logits against its monolith and against
@@ -115,7 +121,8 @@ a ``{"population": ...}`` line, phase 16 as a ``{"lm": ...}`` line,
 phase 17 as a ``{"families": ...}`` line, phase 18 as a ``{"whisper":
 ...}`` line, phase 19 as a ``{"sharded": ...}`` line, phase 20 as an
 ``{"analysis": ...}`` line, phase 21 as a ``{"dense": ...}`` line, phase
-22 as a ``{"granite": ...}`` line.
+22 as a ``{"granite": ...}`` line, phase 23 as a ``{"moonlight": ...}``
+line.
 On success the line before the last is ``{"kernels": [...]}`` (one entry
 per kernel: launches on the served path, error, times and bound), and the
 last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -3888,21 +3895,18 @@ def granite_k8(dev, g):
                 min_bytes=nb, phase_launches=ssd_scan.launches)
 
 
-def granite_k9(dev, g):
-    """K9 (``kernels.moe_combine``) at the cell's combine shape: 8,192
-    tokens routed top-10 over 72 experts and sorted as the layer sorts
-    them, D 4,096, float32 rows (1.34 GB) and a bf16 shared row, against
-    the plain float32 sum (a ``pos`` rolled by one must fail the limit),
-    bit for bit between two runs, and timed beside its memory bound, the
-    plain version and the chain the layer ran before K9 (zeros,
-    ``index_add_``, the shared row's add, the cast), a yardstick the port
-    no longer calls."""
+def moe_combine_check(dev, g, idx, D):
+    """K9 (``kernels.moe_combine``) at a combine shape: the (token, k)
+    pairs of ``idx`` (T, K) sorted as the layer sorts them, D wide float32
+    rows and a bf16 shared row, against the plain float32 sum (a ``pos``
+    rolled by one must fail the limit), bit for bit between two runs, and
+    timed beside its memory bound, the plain version and the chain the
+    layer ran before K9 (zeros, ``index_add_``, the shared row's add, the
+    cast), a yardstick the port no longer calls."""
     import torch
     from repro_torch.kernels.moe_combine import flops, min_bytes, moe_combine
     from repro_torch.kernels.ref import moe_combine_ref
-    T, K, D, E = 8192, 10, 4096, 72
-    idx = torch.topk(torch.randn((T, E), generator=g, device=dev), K,
-                     dim=-1).indices
+    T, K = idx.shape
     _, order = torch.sort(idx.reshape(-1), stable=True)
     token = order // K
     pos = torch.empty_like(order, dtype=torch.int32).scatter_(
@@ -3971,56 +3975,51 @@ def granite_k9(dev, g):
                 phase_launches=moe_combine.launches)
 
 
-def granite_phase(dev, card):
-    """Phase 22: K7 (``kernels.moe_grouped``) at granite-4.0-h's expert
-    shape, 72 experts, 8,192 tokens routed top-10 (about 1,138 rows an
-    expert), D 4,096, F 768, against its plain version and
-    ``torch._grouped_mm`` (the library row, a yardstick the port never
-    calls), bit for bit between two runs, and over uneven, empty and
-    one-expert routings; K5 at (4, 32/8, 2,048, 128) bf16 with the scale
-    1/128 against its plain version; K8 (``kernels.ssd_scan``) at the
-    cell's Mamba-2 shape (:func:`granite_k8`); K9 (``kernels.moe_combine``)
-    at the cell's combine shape (:func:`granite_k9`); and one decision of
-    the benchmark cell through the program (:func:`granite_served`), whose
-    K7, K8 and K9 launches are their ``launches``.  Standalone: ``python3
-    chip_smoke.py --granite``."""
+def expert_rows(dev, g, D, counts):
+    """Random bf16 rows (M, D) sorted by expert for the given per-expert
+    counts, the experts' offsets (E + 1,) and a random row scale (M,)."""
     import torch
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import flash_attention
+    M = int(sum(counts))
+    x = torch.randn((M, D), generator=g, device=dev).to(torch.bfloat16)
+    off = torch.zeros(len(counts) + 1, dtype=torch.int32, device=dev)
+    off[1:] = torch.tensor(counts, device=dev).cumsum(0)
+    scale = torch.rand(M, generator=g, device=dev)
+    return x, off, scale
+
+
+def expert_gap(got, want):
+    """(||got - want|| / ||want||, max |got - want|, RMS of want)."""
+    d = got - want
+    return ((d.norm() / want.norm()).item(), d.abs().max().item(),
+            want.square().mean().sqrt().item())
+
+
+def moe_grouped_check(dev, g, E, D, Fd, T, route):
+    """K7 (``kernels.moe_grouped``) at an expert shape: E experts' bf16
+    SwiGLU weights (D -> Fd -> D) drawn from ``g``, T tokens' random router
+    logits (T, E) routed by ``route`` (logits -> (expert ids (T, K), gates
+    (T, K) or None)), one random bf16 row a (token, k) pair sorted by
+    expert, each row's output scaled by its gate (a random scale where
+    ``route`` gives none).  Against its plain version and
+    ``torch._grouped_mm`` (the library row, a yardstick the port never
+    calls), bit for bit between two runs, with each expert's weights moved
+    to the next expert as a planted fault, and timed beside its bound.
+    Returns (the readings, the weights (wg, wu, wd))."""
+    import torch
     from repro_torch.kernels.moe_grouped import (flops, min_bytes,
                                                  moe_grouped)
-    from repro_torch.kernels.ref import attention_ref, moe_grouped_ref
-    built = _build.build(["moe_grouped", "flash_attention", "ssd_scan",
-                          "moe_combine"])
-    for name, info in built.items():
-        for line in info["log"].splitlines():
-            if any(w in line.lower() for w in ("registers", "smem", "spill",
-                                                "warning", "error")):
-                print(f"  ptxas {name}: {line.strip()}")
-    out = {"card": card}
-    g = torch.Generator(device=dev).manual_seed(22)
-    E, K, T, D, Fd = 72, 10, 8192, 4096, 768
-
-    def weights():
-        w = [torch.empty(shape, dtype=torch.bfloat16, device=dev).normal_(
-            0.0, shape[1] ** -0.5, generator=g)
-            for shape in ((E, D, Fd), (E, D, Fd), (E, Fd, D))]
-        return w
-
-    def routed(counts):
-        """Rows sorted by expert for the given per-expert counts."""
-        M = int(sum(counts))
-        x = torch.randn((M, D), generator=g, device=dev).to(torch.bfloat16)
-        off = torch.zeros(E + 1, dtype=torch.int32, device=dev)
-        off[1:] = torch.tensor(counts, device=dev).cumsum(0)
-        scale = torch.rand(M, generator=g, device=dev)
-        return x, off, scale
-
-    wg, wu, wd = weights()
-    logits = torch.randn((T, E), generator=g, device=dev)
-    idx = torch.topk(logits, K, dim=-1).indices.reshape(-1)
-    counts = torch.bincount(idx, minlength=E).tolist()
-    x, off, scale = routed(counts)
+    from repro_torch.kernels.ref import moe_grouped_ref
+    wg, wu, wd = (torch.empty(shape, dtype=torch.bfloat16,
+                              device=dev).normal_(0.0, shape[1] ** -0.5,
+                                                  generator=g)
+                  for shape in ((E, D, Fd), (E, D, Fd), (E, Fd, D)))
+    idx, gates = route(torch.randn((T, E), generator=g, device=dev))
+    K = idx.shape[1]
+    counts = torch.bincount(idx.reshape(-1), minlength=E).tolist()
+    x, off, scale = expert_rows(dev, g, D, counts)
+    if gates is not None:
+        order = torch.sort(idx.reshape(-1), stable=True).indices
+        scale = gates.reshape(-1)[order].float().contiguous()
     M = x.shape[0]
 
     def k7():
@@ -4029,33 +4028,32 @@ def granite_phase(dev, card):
     def plain():
         return moe_grouped_ref(x, off, wg, wu, wd, scale)
 
-    moe_grouped.launches = 0
+    launches0 = moe_grouped.launches
     got = k7()
     torch.cuda.synchronize()
-    check(moe_grouped.launches == 1, "K7 did not launch")
+    check(moe_grouped.launches == launches0 + 1, "K7 did not launch")
     want = plain()
-    def gap(got, want):
-        """(||got - want|| / ||want||, max |got - want|, RMS of want)."""
-        d = got - want
-        return ((d.norm() / want.norm()).item(), d.abs().max().item(),
-                want.square().mean().sqrt().item())
-
-    rel, err, rms = gap(got, want)
+    rel, err, rms = expert_gap(got, want)
     q = torch.quantile((got - want).abs().flatten()[::97].float(),
                        torch.tensor([0.5, 0.999], device=dev)).tolist()
-    print(f"K7 at {M} rows over {E} experts (rows an expert "
-          f"{min(counts)}-{max(counts)}), D {D}, F {Fd}: ||K7 - plain|| / "
-          f"||plain|| {rel:.4g} (limit {K7_REL:.4g}), max |K7 - plain| "
-          f"{err:.4g}, output RMS {rms:.4g} (limit {K7_MAX * rms:.4g}); "
-          f"|K7 - plain| median {q[0]:.3g}, 99.9th percentile {q[1]:.3g}")
+    print(f"K7 at {M} rows ({T} tokens top-{K}) over {E} experts (rows an "
+          f"expert {min(counts)}-{max(counts)}), D {D}, F {Fd}: ||K7 - "
+          f"plain|| / ||plain|| {rel:.4g} (limit {K7_REL:.4g}), max |K7 - "
+          f"plain| {err:.4g}, output RMS {rms:.4g} (limit "
+          f"{K7_MAX * rms:.4g}); |K7 - plain| median {q[0]:.3g}, 99.9th "
+          f"percentile {q[1]:.3g}")
     check(rel <= K7_REL and err <= K7_MAX * rms,
           f"K7 off its plain version: {rel}, {err} over {K7_MAX} x {rms}")
-    check(torch.equal(got, k7()), "K7 is not bit for bit between two runs")
+    same = torch.equal(got, k7())
+    check(same, "K7 is not bit for bit between two runs")
     rolled = moe_grouped(x, off, wg.roll(1, 0), wu.roll(1, 0),
                          wd.roll(1, 0), row_scale=scale)
-    wrong = gap(rolled, want)[0]
+    wrong = expert_gap(rolled, want)[0]
+    print(f"K7 with each expert's weights moved to the next expert: "
+          f"{wrong:.4g} of the plain version's norm")
     check(wrong > 100 * K7_REL, f"K7 with each expert's weights moved to "
           f"the next expert reads {wrong}, within the limit")
+    del rolled, got
     lib = None
     try:
         offs = off[1:].contiguous()
@@ -4065,13 +4063,14 @@ def granite_phase(dev, card):
             h = (torch.nn.functional.silu(gm(x, wg, offs=offs).float())
                  * gm(x, wu, offs=offs).float()).to(torch.bfloat16)
             return gm(h, wd, offs=offs).float() * scale[:, None]
-        lib_rel, lib_err, _ = gap(library(), want)
+        lib_rel, lib_err, _ = expert_gap(library(), want)
         lib = cuda_ms(library, iters=10, warmup=2)
         print(f"torch._grouped_mm: {lib:.4f} ms, ||lib - plain|| / ||plain|| "
               f"{lib_rel:.4g}, max |lib - plain| {lib_err:.4g}")
     except (AttributeError, RuntimeError, TypeError) as e:
         print(f"torch._grouped_mm: not available here ({type(e).__name__}: "
               f"{str(e).splitlines()[0][:160]})")
+    del want
     ms = cuda_ms(k7, iters=20, warmup=3)
     plain_ms = cuda_ms(plain, iters=3, warmup=1)
     dev_us = kernel_device_us(k7, "moe_grouped_kernel", calls=10)
@@ -4083,27 +4082,59 @@ def granite_phase(dev, card):
           f"in {None if dev_us is None else dev_us[1]} kernels), bound "
           f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it; plain "
           f"{plain_ms:.4f} ms; {flops(M, D, Fd) / ms / 1e9:.1f} TFLOP/s")
-    out["k7"] = dict(rows=M, experts=E, d_model=D, d_ff=Fd,
-                     rows_per_expert=[min(counts), max(counts)],
-                     rel_err=rel, max_abs_err=err, out_rms=rms,
-                     wrong_expert_rel_err=wrong,
-                     ms=ms, device_ms=k7_dev_ms, plain_ms=plain_ms,
-                     library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                     phase_launches=moe_grouped.launches)
+    return dict(rows=M, experts=E, d_model=D, d_ff=Fd, top_k=K,
+                rows_per_expert=[min(counts), max(counts)],
+                rel_err=rel, max_abs_err=err, out_rms=rms, bitwise=same,
+                wrong_expert_rel_err=wrong,
+                ms=ms, device_ms=k7_dev_ms, plain_ms=plain_ms,
+                library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                phase_launches=moe_grouped.launches - launches0), (wg, wu, wd)
+
+
+def granite_phase(dev, card):
+    """Phase 22: K7 (``kernels.moe_grouped``) at granite-4.0-h's expert
+    shape, 72 experts, 8,192 tokens routed top-10 (about 1,138 rows an
+    expert), D 4,096, F 768 (:func:`moe_grouped_check`), and over uneven,
+    empty and one-expert routings; K5 at (4, 32/8, 2,048, 128) bf16 with the scale
+    1/128 against its plain version; K8 (``kernels.ssd_scan``) at the
+    cell's Mamba-2 shape (:func:`granite_k8`); K9 (``kernels.moe_combine``)
+    at the cell's combine shape (:func:`moe_combine_check`); and one
+    decision of the benchmark cell through the program
+    (:func:`granite_served`), whose
+    K7, K8 and K9 launches are their ``launches``.  Standalone: ``python3
+    chip_smoke.py --granite``."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_grouped import moe_grouped
+    from repro_torch.kernels.ref import attention_ref, moe_grouped_ref
+    built = _build.build(["moe_grouped", "flash_attention", "ssd_scan",
+                          "moe_combine"])
+    for name, info in built.items():
+        for line in info["log"].splitlines():
+            if any(w in line.lower() for w in ("registers", "smem", "spill",
+                                                "warning", "error")):
+                print(f"  ptxas {name}: {line.strip()}")
+    out = {"card": card}
+    g = torch.Generator(device=dev).manual_seed(22)
+    E, K, T, D, Fd = 72, 10, 8192, 4096, 768
+    out["k7"], (wg, wu, wd) = moe_grouped_check(
+        dev, g, E, D, Fd, T, lambda logits: (torch.topk(
+            logits, K, dim=-1).indices, None))
     # uneven routings: empty experts, partial tiles, one expert taking all
     for label, cnt in (("uneven", [0, 1, 127, 128, 129, 300, 0, 5]
                         + [17] * (E - 8)),
                        ("one expert", [0] * 5 + [3000] + [0] * (E - 6))):
-        x, off, scale = routed(cnt)
+        x, off, scale = expert_rows(dev, g, D, cnt)
         got = moe_grouped(x, off, wg, wu, wd, row_scale=scale)
         want = moe_grouped_ref(x, off, wg, wu, wd, scale)
-        rel_, e_, r_ = gap(got, want)
+        rel_, e_, r_ = expert_gap(got, want)
         print(f"K7 {label} ({x.shape[0]} rows): ||K7 - plain|| / ||plain|| "
               f"{rel_:.4g}, max |K7 - plain| {e_:.4g}, RMS {r_:.4g}")
         check(rel_ <= K7_REL and e_ <= K7_MAX * r_,
               f"K7 {label}: {rel_}, {e_} over {K7_MAX} x {r_}")
         out[f"k7_{label.replace(' ', '_')}_rel_err"] = rel_
-    del x, wg, wu, wd, got, want, rolled
+    del x, wg, wu, wd, got, want
 
     # K5 at granite-4.0-h's attention shape and scale
     B, H, Hkv, S, hd = 4, 32, 8, 2048, 128
@@ -4151,7 +4182,9 @@ def granite_phase(dev, card):
                      library_ms=lib_k5, bound_ms=k5_b, bound_by=k5_by)
     del q, k, v, kr, vr, got, want, default
     out["k8"] = granite_k8(dev, g)
-    out["k9"] = granite_k9(dev, g)
+    idx = torch.topk(torch.randn((8192, E), generator=g, device=dev), K,
+                     dim=-1).indices
+    out["k9"] = moe_combine_check(dev, g, idx, D)
     served = granite_served(dev)
     out["served"] = served
     out["k7"]["launches"] = served["k7_launches"]
@@ -4159,6 +4192,374 @@ def granite_phase(dev, card):
     out["k8"]["launches"] = served["k8_launches"]
     out["k9"]["launches"] = served["k9_launches"]
     return out
+
+
+MOONLIGHT = "moonlight-16b-a3b"
+MOONLIGHT_CELL = "moonlight.pf2x8192"
+MOONLIGHT_DECODE = (1024, 16)   # prompt tokens written into the cache, steps
+# The bf16 forward's widest logit gap from the float32 reference (on the
+# program's routes, over the largest logit) at the decode check's 16
+# positions of its 1,024-token prompt: 0.0388 on an H100 (the draw is
+# fixed, seed 35).  The benchmark's fp8-operand control reads 0.077 at one
+# position, a wrong expert or a dropped K9 term O(1); 0.06 lies between.
+MOONLIGHT_FWD_GAP = 0.06
+
+
+def moonlight_router(dev, g):
+    """The program's router (``nn.moe._route``) as Moonlight configures it
+    (sigmoid scores, top-6 of 64 by scores plus a correction bias, the
+    chosen scores over their sum times 2.446), the bias drawn as the
+    benchmark draws it: (the MoE config, logits (T, 64) -> (expert ids,
+    gates))."""
+    import torch
+    from bench.reference.mla_lm import BIAS_STD
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import moe_config
+    from repro_torch.nn.moe import _route
+    cfg = moe_config(get_config(MOONLIGHT))
+    bias = BIAS_STD * torch.randn(cfg.n_experts, generator=g, device=dev)
+    return cfg, lambda logits: _route({"e_score_correction_bias": bias}, cfg,
+                                      logits)
+
+
+def moonlight_experts(dev, g):
+    """K7 and K9 at the MLA cell's expert shape: the cell's 2 x 8,192
+    tokens routed by Moonlight's sigmoid router over 64 experts, top-6
+    (98,304 rows), D 2,048, F 1,408 (11 column tiles), K7's rows scaled by
+    the router's gates (:func:`moe_grouped_check`), and K9 summing those
+    pairs back at D 2,048 (:func:`moe_combine_check`), each against its
+    plain version with its planted fault."""
+    import torch
+    cfg, route = moonlight_router(dev, g)
+    T = 2 * 8192
+    k7, weights = moe_grouped_check(dev, g, cfg.n_experts, cfg.d_model,
+                                    cfg.d_ff_expert, T, route)
+    del weights
+    idx, _ = route(torch.randn((T, cfg.n_experts), generator=g, device=dev))
+    return k7, moe_combine_check(dev, g, idx, cfg.d_model)
+
+
+def moonlight_k5(dev, g):
+    """K5's route for values narrower than the keys at the MLA cell's
+    shape: (2, 16/16, 8,192, 192 -> 128) causal, q and k (B, S, H, 192)
+    views and v the strided value half of a (B, S, H, 256) tensor, as
+    ``nn.mla`` reads them; against the plain f32 version, bit for bit
+    between two runs, timed beside ``scaled_dot_product_attention`` and the
+    CUDA-core route on v padded to 192 (yardsticks the port never calls),
+    with its share of its bound."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    B, H, S, D, Dv = 2, 16, 8192, 192, 128
+    q = torch.randn((B, S, H, D), generator=g, device=dev).to(
+        torch.bfloat16).transpose(1, 2)
+    k = torch.randn((B, S, H, D), generator=g, device=dev).to(
+        torch.bfloat16).transpose(1, 2)
+    kv = torch.randn((B, S, H, 2 * Dv), generator=g, device=dev).to(
+        torch.bfloat16)
+    v = kv[..., Dv:].transpose(1, 2)
+
+    def k5():
+        return flash_attention(q, k, v, causal=True)
+
+    counts0 = (flash_attention.launches, flash_attention.tc_launches,
+               flash_attention.dv_launches, flash_attention.copies)
+    got = k5()
+    torch.cuda.synchronize()
+    counts = [a - b for a, b in zip((flash_attention.launches,
+                                     flash_attention.tc_launches,
+                                     flash_attention.dv_launches,
+                                     flash_attention.copies), counts0)]
+    check(counts == [1, 1, 1, 0], f"K5 at the MLA shape counted {counts}")
+    want = attention_ref(q.float(), k.float(), v.float(), causal=True)
+    rel = ((got.float() - want).norm() / want.norm()).item()
+    err = (got.float() - want).abs().max().item()
+    del want
+    same = torch.equal(got, k5())
+    print(f"K5 at ({B}, {H}/{H}, {S}, {D} -> {Dv}) bf16 causal: ||K5 - "
+          f"plain|| / ||plain|| {rel:.4g} (limit {K5_WINDOW_RTOL:.4g}), max "
+          f"|K5 - plain| {err:.4g}; bit for bit between runs: {same}")
+    check(rel <= K5_WINDOW_RTOL, f"K5 at the MLA shape: {rel}")
+    check(same, "K5's narrow-value route is not bit for bit between runs")
+    ms = cuda_ms(k5, iters=20)
+    vpad = torch.nn.functional.pad(v, (0, D - Dv))
+    padded_ms = cuda_ms(lambda: flash_attention(q, k, vpad, causal=True),
+                        iters=3, warmup=1)
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True), iters=20)
+    dev_us = kernel_device_us(k5, "flash_kernel", calls=10)
+    flops = 2 * B * H * (D + Dv) * attention_pairs(S, None)
+    b_ms, b_by = bound(nbytes(q, k, v, got), flops, PEAK_BF16_FLOP_S)
+    dev_ms = None if dev_us is None else dev_us[0] * dev_us[1] / 1e3
+    print(f"K5 MLA shape: {ms:.4f} ms a call (device "
+          f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms), bound "
+          f"{b_ms:.4f} ms ({b_by}: {flops / 1e9:.1f} GFLOP), "
+          f"{100 * b_ms / ms:.1f}% of it, {flops / ms / 1e9:.1f} TFLOP/s; "
+          f"scaled_dot_product_attention {lib_ms:.4f} ms; the CUDA-core "
+          f"route on v padded to {D} {padded_ms:.4f} ms")
+    return dict(shape=[B, H, H, S, D, Dv], rel_err=rel, max_abs_err=err,
+                bitwise=same, ms=ms, device_ms=dev_ms, library_ms=lib_ms,
+                padded_cuda_core_ms=padded_ms, bound_ms=b_ms, bound_by=b_by,
+                bound_share=b_ms / ms, flops=flops)
+
+
+def moonlight_served(dev):
+    """One decision of ``moonlight.pf2x8192`` through the program's own
+    path, as ``bench/systems/mla_lm.py`` serves it: Moonlight-16B-A3B
+    uncut, the benchmark's weights drawn on the card from seed 35 (the
+    correction bias non-zero), split after layer 12, the edge's
+    ``edge_forward`` -> the uint8 codec -> ``server_forward(...,
+    last_only=True)``.  One decision warms it; K5's, K7's, K9's and the
+    dropless route's counts are set to 0 just before the second, which is
+    then judged against the float32 reference on its routes as the cell
+    judges a tick (``hidden_gap``, ``header_gap``, ``logit_gap`` and
+    ``route_flips`` within the cell's limits).  Returns (the readings, the
+    configuration, the inputs, the model, the parameters) for the decode
+    check."""
+    import torch
+    from bench import harness
+    from bench.reference import mla_lm as ref
+    from bench.systems.mla_lm import arch_config, program_params
+    from repro_torch.core.split import make_split_policy
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_combine import moe_combine
+    from repro_torch.kernels.moe_grouped import moe_grouped
+    from repro_torch.models.transformer import DecoderModel
+    from repro_torch.nn import moe
+    _, cell, config = harness.load_cell(MOONLIGHT_CELL)
+    p = cell["params"]
+    inputs = ref.make_inputs(config, dict(p, pool_batches=1), 35, dev)
+    cfg = arch_config(config)
+    model = DecoderModel(cfg)
+    params = program_params(inputs)
+    lead = config["first_k_dense_replace"]
+    edge_p, server_p = model.split_params(params,
+                                          config["edge_layers"] - lead)
+    split = make_split_policy(
+        model.edge_forward,
+        lambda prm, h: model.server_forward(prm, h, last_only=True),
+        codec="uint8")
+    tokens = inputs["tokens"][0]
+    B, S = tokens.shape
+    routes: list = []
+
+    def decide():
+        with torch.inference_mode(), moe.recorded_routes(routes):
+            payload = split.edge_step_batch(edge_p, tokens)
+            return payload, split.server_step_batch(server_p, payload)
+
+    decide()
+    torch.cuda.synchronize()
+    routes.clear()
+    for f in (moe_grouped, moe_combine):
+        f.launches = 0
+    for name in ("launches", "tc_launches", "dv_launches", "copies"):
+        setattr(flash_attention, name, 0)
+    moe.reset_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    payload, logits = decide()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    k5 = (flash_attention.launches, flash_attention.tc_launches,
+          flash_attention.dv_launches, flash_attention.copies)
+    k7, k9 = moe_grouped.launches, moe_combine.launches
+    rows = moe.dropless_counters()
+    n_moe = cfg.n_layers - lead
+    print(f"{cfg.arch_id} ({cfg.n_layers} layers, {cfg.param_count():,} "
+          f"parameters, uncut), one decision of {B} x {S} tokens split after "
+          f"layer {config['edge_layers'] - 1}: {ms:.1f} ms; K5 {k5[0]} "
+          f"launches ({k5[1]} on the tensor cores, {k5[2]} with values "
+          f"narrower than the keys, {k5[3]} copies), K7 {k7}, K9 {k9}, "
+          f"{rows['routed_rows']} routed rows (the most on one expert "
+          f"{rows['max_expert_rows']}), payload "
+          f"{tuple(payload['data'].shape)} {payload['data'].dtype}, logits "
+          f"{tuple(logits.shape)}, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev):,} B")
+    check(k5 == (cfg.n_layers,) * 3 + (0,) and k7 == k9 == n_moe
+          and len(routes) == n_moe
+          and rows["routed_rows"] == n_moe * B * S * cfg.moe.top_k,
+          f"{cfg.arch_id}: a decision launched K5 {k5}, K7 {k7} and K9 {k9} "
+          f"times over {len(routes)} routed layers, {rows['routed_rows']} "
+          f"rows")
+    check(payload["data"].dtype == torch.uint8
+          and tuple(payload["data"].shape) == (B, S, cfg.d_model)
+          and tuple(logits.shape) == (B, 1, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{cfg.arch_id}: payload {payload['data'].shape} "
+          f"{payload['data'].dtype}, logits {logits.shape}")
+    # the decision against the float32 reference on the program's routes,
+    # as the cell's check judges a tick, at the cell's limits (codec_gap
+    # needs the edge's own hidden, which the split does not return)
+    sample = {"codes": payload["data"], "scale": payload["scale"],
+              "zero": payload["zero"], "logits": logits[:, 0].float(),
+              "routes": routes}
+    read = ref.gaps(config, inputs, 0, sample, p["reference_block"])
+    held = {k: read[k] for k in ("hidden_gap", "header_gap", "logit_gap",
+                                 "route_flips")}
+    print(f"{cfg.arch_id} decision against the float32 reference: "
+          + ", ".join(f"{k} {v:.4g} (limit {cell['limits'][k]:g})"
+                      for k, v in held.items())
+          + f"; route_gap {read['route_gap']:.3g}")
+    check(all(v <= cell["limits"][k] for k, v in held.items()),
+          f"{cfg.arch_id}: the decision is off its reference: {held}")
+    out = dict(layers=cfg.n_layers, params=cfg.param_count(),
+               tokens=[B, S], ms=ms, k5_launches=k5[0], k5_tc_launches=k5[1],
+               k5_dv_launches=k5[2], k5_copies=k5[3], k7_launches=k7,
+               k9_launches=k9,
+               peak_bytes=torch.cuda.max_memory_allocated(dev), **rows,
+               **held)
+    del edge_p, server_p, payload, logits, routes, split
+    return out, config, inputs, model, params
+
+
+def moonlight_decode(dev, config, inputs, model, params):
+    """The latent cache at published widths: a ``MOONLIGHT_DECODE[0]``-token
+    prompt written into the bf16 latent cache one decode step a token, then
+    ``MOONLIGHT_DECODE[1]`` more steps, the steps' logits against the
+    float32 reference's full forward at those positions.  The reference
+    computes the experts the program chose (its routes recorded through
+    every step), with its own gates, so that a near tie that bf16 rounding
+    decided the other way is not read as an error of the cache; a step
+    whose chosen set trails the reference's own order by more than
+    ``ROUTE_MARGIN`` is counted.  A bf16 program of 27 layers parts from
+    float32 by more than a float32 tolerance, so the gate is phase 16's:
+    the decode's gap from its reference within 1.5x the program's own bf16
+    forward's (K5's prefill) gap from its reference, plus 1e-3 of the
+    largest logit; the forward's own gap is held to
+    ``MOONLIGHT_FWD_GAP``."""
+    import torch
+    from bench.reference import mla_lm as ref
+    from repro_torch.nn import mla, moe
+    n0, n1 = MOONLIGHT_DECODE
+    n = n0 + n1
+    tok = inputs["tokens"][0, :1, :n]
+    with torch.inference_mode():
+        f_routes: list = []
+        with moe.recorded_routes(f_routes):
+            fwd, _ = model.forward(params, tok)
+        fwd = fwd[0, n0:].float()
+        cache = model.init_cache(1, n, torch.bfloat16, dev)
+        mla.reset_counters()
+        steps, d_routes = [], []
+        index = torch.zeros((), dtype=torch.int64, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with moe.recorded_routes(d_routes):
+            for t in range(n):
+                logits, cache = model.decode_step(params, tok[:, t:t + 1],
+                                                  cache, index)
+                index += 1
+                if t >= n0:
+                    steps.append(logits[0, 0].float())
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n
+        # the last step again (the same row written anew), traced: its
+        # device time beside the host's
+        last = torch.full((), n - 1, dtype=torch.int64, device=dev)
+        with moe.recorded_routes([]):
+            traced = kernel_device_us(
+                lambda: model.decode_step(params, tok[:, n - 1:], cache,
+                                          last), None, calls=3)
+    step_dev_ms = None if traced is None else traced[0] * traced[1] / 1e3
+    layers = len(f_routes)
+    d_routes = torch.cat(d_routes).view(n, layers, -1).transpose(0, 1)
+    want_f, _ = ref.forward_logits(config, inputs, tok,
+                                   routes=torch.stack(f_routes))
+    want_d, route = ref.forward_logits(config, inputs, tok, routes=d_routes)
+    want_f, want_d = want_f[0, n0:], want_d[0, n0:]
+    dec = torch.stack(steps)
+    scale = want_d.abs().max().item()
+    dec_gap = (dec - want_d).abs().max().item() / scale
+    fwd_gap = (fwd - want_f).abs().max().item() / want_f.abs().max().item()
+    self_gap = (dec - fwd).abs().max().item() / scale
+    top1 = (dec.argmax(-1) == want_d.argmax(-1)).float().mean().item()
+    cache_bytes = sum(t.numel() * t.element_size() for t in (
+        cache["lead0_mla"]["c_kv"], cache["lead0_mla"]["k_pe"],
+        cache["scan"]["b0_mla"]["c_kv"], cache["scan"]["b0_mla"]["k_pe"]))
+    read = mla.mla_counters()["cache_bytes"]
+    print(f"Moonlight decode: {n0} prompt tokens written into the latent "
+          f"cache by decode steps, then {n1} steps ({step_ms:.2f} ms a step "
+          f"over the {n}; a traced step {step_dev_ms} ms of device time in "
+          f"{None if traced is None else traced[1]} kernels); against the "
+          f"f32 reference on the program's "
+          f"routes, over its largest logit {scale:.4g}: decode {dec_gap:.4g}, "
+          f"the bf16 forward (K5) {fwd_gap:.4g}, decode against that forward "
+          f"{self_gap:.4g}; top-1 agreement {top1:.3f}; routes: "
+          f"{route[0]} of {layers * n} (token, layer) sets differ from the "
+          f"reference's own, {route[1]} by more than ROUTE_MARGIN (widest "
+          f"trail {route[2]:.3f}); latent cache {cache_bytes:,} B (576 values "
+          f"a token a layer), {read:,} B read by the steps")
+    check(fwd_gap <= MOONLIGHT_FWD_GAP,
+          f"Moonlight's bf16 forward off the reference: {fwd_gap} over "
+          f"{MOONLIGHT_FWD_GAP}")
+    check(dec_gap <= 1.5 * fwd_gap + 1e-3,
+          f"Moonlight decode off the reference: {dec_gap} against the "
+          f"forward's {fwd_gap}")
+    check(route[1] == 0, f"Moonlight decode: {route[1]} routes trail the "
+          f"reference's order by more than ROUTE_MARGIN")
+    check(cache_bytes == config["num_hidden_layers"] * n * 576 * 2,
+          f"latent cache of {cache_bytes} B")
+    return dict(prompt=n0, steps=n1, step_ms=step_ms,
+                step_device_ms=step_dev_ms,
+                step_kernels=None if traced is None else traced[1],
+                decode_gap=dec_gap,
+                forward_gap=fwd_gap, decode_forward_gap=self_gap, top1=top1,
+                route_sets_differ=route[0], route_flips=route[1],
+                route_gap=route[2], cache_bytes=cache_bytes,
+                cache_bytes_read=read)
+
+
+def moonlight_phase(dev, card):
+    """Phase 23: Moonlight-16B-A3B on the MLA path.  K5's route for values
+    narrower than the keys at the cell's shape (:func:`moonlight_k5`), K7
+    and K9 at its expert shape (:func:`moonlight_experts`), one decision of
+    ``moonlight.pf2x8192`` through the program with its launches counted
+    and its answers judged against the float32 reference
+    (:func:`moonlight_served`: K5 27 on the tensor cores, all with narrow
+    values, 0 copies; K7 and K9 26 each), and a decode over the latent
+    cache against the float32 reference (:func:`moonlight_decode`).  Standalone: ``python3 chip_smoke.py
+    --moonlight``."""
+    import gc
+    import torch
+    from repro_torch.kernels import _build
+    built = _build.build(["flash_attention", "moe_grouped", "moe_combine"])
+    for name, info in built.items():
+        for line in info["log"].splitlines():
+            if any(w in line.lower() for w in ("registers", "spill",
+                                                "warning", "error")):
+                print(f"  ptxas {name}: {line.strip()}")
+    g = torch.Generator(device=dev).manual_seed(23)
+    out = {"card": card, "k5": moonlight_k5(dev, g)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["k7"], out["k9"] = moonlight_experts(dev, g)
+    gc.collect()
+    torch.cuda.empty_cache()
+    served, config, inputs, model, params = moonlight_served(dev)
+    out["served"] = served
+    out["k7"]["launches"] = served["k7_launches"]
+    out["k9"]["launches"] = served["k9_launches"]
+    out["decode"] = moonlight_decode(dev, config, inputs, model, params)
+    del inputs, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moonlight_main() -> int:
+    """``python3 chip_smoke.py --moonlight``: phase 23 alone."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_name()
+    print(card)
+    out = moonlight_phase(torch.device("cuda"), card)
+    print(json.dumps({"moonlight": out}, default=float))
+    return 0
 
 
 def granite_main() -> int:
@@ -5347,7 +5748,11 @@ def main() -> int:
     granite = granite_phase(dev, card)
     print(json.dumps({"granite": granite}, default=float))
 
-    # ---- 23. results -------------------------------------------------------
+    # ---- 23. Moonlight-16B-A3B: MLA through K5's narrow-value route --------
+    moonlight = moonlight_phase(dev, card)
+    print(json.dumps({"moonlight": moonlight}, default=float))
+
+    # ---- 24. results -------------------------------------------------------
     k1 = k1_rows["served edge"]
     def layer_row(rows, dev_us):
         """The served frame's row, with the 400x400 and batch-8 times."""
@@ -5473,6 +5878,8 @@ if __name__ == "__main__":
         sys.exit(population_gates())
     if sys.argv[1:] == ["--granite"]:
         sys.exit(granite_main())
+    if sys.argv[1:] == ["--moonlight"]:
+        sys.exit(moonlight_main())
     if sys.argv[1:2] == ["--sharded-dryrun"] and len(sys.argv) == 3:
         sys.exit(sharded_dryrun(sys.argv[2]))
     sys.exit(main())

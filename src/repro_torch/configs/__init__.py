@@ -18,13 +18,14 @@ from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as _qwen2_moe
 from repro_torch.configs.llava_next_mistral_7b import CONFIG as _llava_next
 from repro_torch.configs.llama3_8b import CONFIG as _llama3_8b
 from repro_torch.configs.granite_4_0_h_small import CONFIG as _granite_4h
+from repro_torch.configs.moonlight_16b_a3b import CONFIG as _moonlight
 
 ARCHS: dict[str, ArchConfig] = {
     c.arch_id: c
     for c in [
         _qwen3_0_6b, _recurrentgemma_9b, _qwen2_5_14b, _llama4_scout,
         _mamba2_130m, _whisper_medium, _minitron_8b, _qwen2_moe,
-        _llava_next, _llama3_8b, _granite_4h,
+        _llava_next, _llama3_8b, _granite_4h, _moonlight,
     ]
 }
 

@@ -213,17 +213,18 @@ def record(flops: int, n_bytes: int) -> None:
 
 
 def attention_flops(B: int, H: int, Sq: int, Sk: int, D: int, *,
-                    causal: bool, window=None) -> int:
-    """4·B·H·D per (query, key) pair an attention core scores (QKᵀ and
-    PV): Sq·Sk pairs, the causal triangle's S(S+1)/2 when causal, fewer
-    under a sliding window."""
+                    causal: bool, window=None, v_dim=None) -> int:
+    """2·B·H·(D + D_v) per (query, key) pair an attention core scores (QKᵀ
+    at the query and key width D, PV at the value width D_v, which is D
+    when ``v_dim`` is None): Sq·Sk pairs, the causal triangle's S(S+1)/2
+    when causal, fewer under a sliding window."""
     if not causal:
         pairs = Sq * Sk
     else:
         w = Sq if window is None else min(window, Sq)
         # row q sees min(q + 1, w) keys
         pairs = w * (w + 1) // 2 + (Sq - w) * w
-    return 4 * B * H * D * pairs
+    return 2 * B * H * (D + (D if v_dim is None else v_dim)) * pairs
 
 
 __all__ = ["COLLECTIVES", "CostCounter", "attention_flops", "record"]

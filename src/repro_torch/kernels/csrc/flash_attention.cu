@@ -1,5 +1,7 @@
 // K5: causal online-softmax (flash) attention over (B, H, S, D), with an
-// optional sliding window and grouped KV heads, for f32 or bf16 inputs.
+// optional sliding window and grouped KV heads, for f32 or bf16 inputs, and
+// values of their own width D_v <= D (multi-head latent attention: query
+// and key heads of 192, values of 128) on the tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:
 // flash_attention -> _flash_kernel (Pallas; grid (batch, head, q_block,
@@ -18,7 +20,8 @@
 // KV heads builds.  The wrapper (kernels/flash_attention.py) picks the
 // route from the dtype and D alone:
 //
-// * The tensor-core route (bf16, D <= 128), flash_kernel_tc.  What bounds
+// * The tensor-core route (bf16, D <= 128; or D_v != D, D <= 192 and
+//   D_v <= 128), flash_kernel_tc<NWG, DQ, DV>.  What bounds
 //   it on an H100: at prefill lengths, operations (the causal pairs of
 //   (1, 16, 4096, 128) are 68.7 GFLOP, 0.07 ms at the 989 TFLOP/s of bf16
 //   wgmma); at the served length (S = 128) bytes, under a microsecond, so
@@ -27,9 +30,12 @@
 //   of 128-row blocks fills the SMs, else one) and one producer warp.
 //   The producer loads the Q tile once and K/V tiles of 128 keys by TMA
 //   (cp.async.bulk.tensor, 4-d tensor maps over the strided views, 128-byte
-//   swizzle, D zero-padded to 64 or 128 and a ragged last tile zero-filled
-//   by TMA's out-of-bounds fill) into a two-stage ring completed on
-//   mbarriers, so the next tile is in flight while the consumers compute.
+//   swizzle, D zero-padded to DQ = 64, 128 or 192 and D_v to DV = 64 or
+//   128, a ragged last tile zero-filled by TMA's out-of-bounds fill) into a
+//   two-stage ring completed on mbarriers, so the next tile is in flight
+//   while the consumers compute.  With D_v != D a V tile is narrower than
+//   a K tile: Q.K^T runs DQ / 16 wgmma steps deep, P.V and the output DV
+//   wide (DQ 192, DV 128: 209 KB of shared memory at two warpgroups).
 //   Each consumer warpgroup computes S = Q.K^T with wgmma from shared
 //   memory into fp32 registers, scales the fp32 scores by
 //   D**-0.5 * log2(e) and runs the online softmax on the fragments (a
@@ -38,8 +44,8 @@
 //   register operand and V transposed from shared memory.  P never
 //   touches shared memory.  Tiles wholly above the diagonal or outside the
 //   window are never loaded; masked pairs give p = 0 exactly.
-// * The CUDA-core route (f32 at any D, and bf16 at 128 < D <= 256),
-//   flash_kernel: fp32 FMAs, as ported first.  wgmma has no fp32 mode, and
+// * The CUDA-core route (f32 at any D, and bf16 at 128 < D <= 256, both
+//   with D_v = D alone), flash_kernel: fp32 FMAs, as ported first.  wgmma has no fp32 mode, and
 //   TF32 would break the 2e-4 agreement the f32 checks rest on.  One block
 //   of 8 warps takes 64 query rows, 8 a warp, and walks 64-row K/V tiles
 //   staged in shared memory as fp32 (Q pre-scaled); each lane owns two
@@ -288,7 +294,7 @@ struct Problem {
   const void *q, *k, *v;
   void* o;
   Strides qst, kst, vst, ost;
-  int B, H, H_kv, S, D, causal, window;
+  int B, H, H_kv, S, D, Dv, causal, window;
   float scale;
   cudaStream_t stream;
   int device;
@@ -357,16 +363,18 @@ constexpr int kStages = 2;    // K/V tiles in the ring
 constexpr int kChunk = 64;    // bf16 columns of one 128-byte swizzled row
 
 // Shared memory of one block: the Q tile, then kStages (K, V) tile pairs,
-// then the mbarriers.  A tile of R rows is stored as Dp / 64 chunks of
-// (R, 64) bf16, each a run of 128-byte rows in TMA's 128-byte swizzle, so
-// every chunk starts on a 1024-byte boundary and wgmma reads it through a
-// descriptor.
-template <int NWG, int DP>
+// then the mbarriers.  A tile of R rows and padded width W is stored as
+// W / 64 chunks of (R, 64) bf16, each a run of 128-byte rows in TMA's
+// 128-byte swizzle, so every chunk starts on a 1024-byte boundary and
+// wgmma reads it through a descriptor.  Q and K are DQ wide, V DV wide.
+template <int NWG, int DQ, int DV>
 struct Layout {
   static constexpr int kBlockM = 64 * NWG;
-  static constexpr int kQBytes = kBlockM * DP * 2;
-  static constexpr int kTileBytes = kBlockN * DP * 2;  // one K or V tile
-  static constexpr int kBars = kQBytes + 2 * kStages * kTileBytes;
+  static constexpr int kQBytes = kBlockM * DQ * 2;
+  static constexpr int kKBytes = kBlockN * DQ * 2;  // one K tile
+  static constexpr int kVBytes = kBlockN * DV * 2;  // one V tile
+  static constexpr int kStageBytes = kKBytes + kVBytes;
+  static constexpr int kBars = kQBytes + kStages * kStageBytes;
   // q_full, k_full[kStages], v_full[kStages], empty[kStages]; plus the
   // slack that aligns the base to 1024 bytes
   static constexpr int kBytes = kBars + 8 * (1 + 3 * kStages) + 1024;
@@ -561,8 +569,8 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int DP>
-__device__ __forceinline__ void wgmma_pv(float (&o)[DP / 2],
+template <int DV>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2],
                                          const uint32_t (&a)[4], uint64_t db);
 template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
@@ -578,22 +586,23 @@ __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
 }
 
 // NWG consumer warpgroups of 64 query rows each (warps 0 .. 4 NWG - 1) and
-// one producer warp (warp 4 NWG).  DP: D zero-padded to 64 or 128.
-template <int NWG, int DP>
+// one producer warp (warp 4 NWG).  DQ: D zero-padded to 64, 128 or 192;
+// DV: D_v zero-padded to 64 or 128 (DV = DQ where D_v = D).
+template <int NWG, int DQ, int DV>
 __global__ void __launch_bounds__(128 * NWG + 32, 1)
     flash_kernel_tc(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, MapDims mq,
                     MapDims mk, MapDims mv, __nv_bfloat16* __restrict__ o,
-                    Strides ost, int n_rep, int S, int D, int causal,
+                    Strides ost, int n_rep, int S, int Dv, int causal,
                     int window, float scale_log2) {
-  using L = Layout<NWG, DP>;
+  using L = Layout<NWG, DQ, DV>;
   constexpr int kBlockM = L::kBlockM;
-  constexpr int kChunks = DP / kChunk;
+  constexpr int kChunksQ = DQ / kChunk, kChunksV = DV / kChunk;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_full = base + L::kBars;
-  auto k_tile = [&](int st) { return base + L::kQBytes + st * 2 * L::kTileBytes; };
+  auto k_tile = [&](int st) { return base + L::kQBytes + st * L::kStageBytes; };
   auto k_full = [&](int st) { return q_full + 8 * (1 + st); };
   auto v_full = [&](int st) { return q_full + 8 * (1 + kStages + st); };
   auto empty = [&](int st) { return q_full + 8 * (1 + 2 * kStages + st); };
@@ -613,13 +622,13 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
   // K and V of the i-th tile of this block into its stage of the ring
   auto load_kv = [&](int i) {
     const int st = i % kStages, row = (t_lo + i) * kBlockN;
-    const uint32_t kt = k_tile(st), vt = kt + L::kTileBytes;
-    mbar_expect_tx(k_full(st), L::kTileBytes);
-    for (int c = 0; c < kChunks; ++c)
+    const uint32_t kt = k_tile(st), vt = kt + L::kKBytes;
+    mbar_expect_tx(k_full(st), L::kKBytes);
+    for (int c = 0; c < kChunksQ; ++c)
       tma_load(&tk, mk, kt + c * kBlockN * 128, k_full(st), c * kChunk, row,
                hk, b);
-    mbar_expect_tx(v_full(st), L::kTileBytes);
-    for (int c = 0; c < kChunks; ++c)
+    mbar_expect_tx(v_full(st), L::kVBytes);
+    for (int c = 0; c < kChunksV; ++c)
       tma_load(&tv, mv, vt + c * kBlockN * 128, v_full(st), c * kChunk, row,
                hk, b);
   };
@@ -637,7 +646,7 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     mbar_expect_tx(q_full, L::kQBytes);
-    for (int c = 0; c < kChunks; ++c)
+    for (int c = 0; c < kChunksQ; ++c)
       tma_load(&tq, mq, base + c * kBlockM * 128, q_full, c * kChunk, q0, h,
                b);
     for (int i = 0; i < kStages && t_lo + i < t_hi; ++i) load_kv(i);
@@ -660,9 +669,9 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
     const int row_b = row_a + 8;  // each thread holds two rows
     const int q_first = q0 + 64 * wg, q_lastw = q_first + 63;
     const int col_t = 2 * (lane % 4);  // this thread's columns of an 8-block
-    float acc[DP / 2];
+    float acc[DV / 2];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
     const uint32_t q_wg = base + 64 * wg * 128;
 
@@ -671,7 +680,7 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
       const int st = i % kStages;
       const uint32_t phase = (i / kStages) & 1;
       const int k0 = t * kBlockN;
-      const uint32_t kt = k_tile(st), vt = kt + L::kTileBytes;
+      const uint32_t kt = k_tile(st), vt = kt + L::kKBytes;
 
       // S = Q K^T: fp32 accumulators, 64 a thread
       float s[kBlockN / 2];
@@ -680,7 +689,7 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
       wg_fence();
       reg_fence(s);
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
+      for (int kk = 0; kk < DQ / 16; ++kk) {
         const int c = kk / 4, off = (kk % 4) * 32;
         wgmma_ss_n128(s, gmma_desc(q_wg + c * kBlockM * 128 + off, 1, 64),
                       gmma_desc(kt + c * kBlockN * 128 + off, 1, 64), kk > 0);
@@ -736,7 +745,7 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
       m_a = mx_a;
       m_b = mx_b;
 #pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         acc[4 * j] *= alpha_a;
         acc[4 * j + 1] *= alpha_a;
         acc[4 * j + 2] *= alpha_b;
@@ -759,7 +768,7 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
       reg_fence(acc);
 #pragma unroll
       for (int kk = 0; kk < kBlockN / 16; ++kk)
-        wgmma_pv<DP>(acc, pa[kk],
+        wgmma_pv<DV>(acc, pa[kk],
                      gmma_desc(vt + kk * 16 * 128, kBlockN * 128 / 16, 64));
       wg_commit();
       wg_wait0();
@@ -778,9 +787,9 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
     l_b = fmaxf(l_b, 1e-30f);
     __nv_bfloat16* oh = o + b * ost.b + h * ost.h;
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const int d = 8 * j + col_t;
-      if (d >= D) continue;
+      if (d >= Dv) continue;
       if (row_a < S)
         *reinterpret_cast<uint32_t*>(oh + row_a * ost.s + d) =
             pack_bf16(acc[4 * j] / l_a, acc[4 * j + 1] / l_a);
@@ -866,34 +875,34 @@ int make_map(CUtensorMap* map, MapDims* dims, const void* ptr, int S,
   return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
 }
 
-template <int NWG, int DP>
+template <int NWG, int DQ, int DV>
 int launch(const Problem& p) {
-  using L = Layout<NWG, DP>;
+  using L = Layout<NWG, DQ, DV>;
   static std::atomic<unsigned long long> done{0};
   const cudaError_t err =
-      allow_smem(flash_kernel_tc<NWG, DP>, L::kBytes, p.device, done);
+      allow_smem(flash_kernel_tc<NWG, DQ, DV>, L::kBytes, p.device, done);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap tq, tk, tv;
   MapDims mq, mk, mv;
   int rc = make_map(&tq, &mq, p.q, p.S, p.H, p.B, p.D, p.qst, L::kBlockM);
   if (rc == 0) rc = make_map(&tk, &mk, p.k, p.S, p.H_kv, p.B, p.D, p.kst, kBlockN);
-  if (rc == 0) rc = make_map(&tv, &mv, p.v, p.S, p.H_kv, p.B, p.D, p.vst, kBlockN);
+  if (rc == 0) rc = make_map(&tv, &mv, p.v, p.S, p.H_kv, p.B, p.Dv, p.vst, kBlockN);
   if (rc != 0) return rc;
   const dim3 grid((p.S + L::kBlockM - 1) / L::kBlockM, p.H, p.B);
-  flash_kernel_tc<NWG, DP><<<grid, 128 * NWG + 32, L::kBytes, p.stream>>>(
+  flash_kernel_tc<NWG, DQ, DV><<<grid, 128 * NWG + 32, L::kBytes, p.stream>>>(
       tq, tk, tv, mq, mk, mv, static_cast<__nv_bfloat16*>(p.o), p.ost,
-      p.H / p.H_kv, p.S, p.D, p.causal, p.window,
+      p.H / p.H_kv, p.S, p.Dv, p.causal, p.window,
       p.scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Two consumer warpgroups (128 query rows a block) when blocks of 128 rows
 // fill every SM at least once, else one (64 rows), for twice the blocks.
-template <int DP>
+template <int DQ, int DV>
 int dispatch(const Problem& p, int sms) {
   const long long blocks128 =
       static_cast<long long>(p.B) * p.H * ((p.S + 127) / 128);
-  return blocks128 >= sms ? launch<2, DP>(p) : launch<1, DP>(p);
+  return blocks128 >= sms ? launch<2, DQ, DV>(p) : launch<1, DQ, DV>(p);
 }
 
 }  // namespace tc
@@ -902,7 +911,8 @@ int dispatch(const Problem& p, int sms) {
 // The launch's arguments, packed into one array of int64.
 enum Arg {
   kQ, kK, kV, kO,            // device pointers
-  kB, kH, kHkv, kS, kD,      // q (B, H, S, D); k, v (B, H_kv, S, D)
+  kB, kH, kHkv, kS, kD, kDv, // q (B, H, S, D); k (B, H_kv, S, D);
+                             // v (B, H_kv, S, Dv); o (B, H, S, Dv)
   kStrides,                  // 12 element strides: (batch, head, sequence)
                              // of q, k, v, o in turn
   kCausal = kStrides + 12, kWindow, kDtype,
@@ -913,17 +923,23 @@ enum Arg {
 
 // q, k, v, o at 16-byte aligned bases, of one dtype (0: f32, 1: bf16),
 // their strides multiples of 16 bytes, the last dim unit-stride; D a
-// multiple of 8 up to 256; H % H_kv == 0; window <= 0 for none; the
-// scores multiplied by the scale.  bf16 at D <= 128 takes the tensor-core
-// route, the rest the CUDA-core route.  Launches on the stream and returns
+// multiple of 8 up to 256; D_v = D, or in bf16 a multiple of 8 below D
+// with D <= 192 and D_v <= 128; H % H_kv == 0; window <= 0 for none; the
+// scores multiplied by the scale.  bf16 at D <= 128 and every D_v != D
+// take the tensor-core route, the rest the CUDA-core route.  Launches on
+// the stream and returns
 // cudaGetLastError(), or 100000 + the CUresult when a TMA descriptor
 // cannot be encoded.
 extern "C" int flash_attention_launch(const long long* a) {
   const int B = static_cast<int>(a[kB]), H = static_cast<int>(a[kH]),
             H_kv = static_cast<int>(a[kHkv]), S = static_cast<int>(a[kS]),
-            D = static_cast<int>(a[kD]), dtype = static_cast<int>(a[kDtype]),
+            D = static_cast<int>(a[kD]), Dv = static_cast<int>(a[kDv]),
+            dtype = static_cast<int>(a[kDtype]),
             device = static_cast<int>(a[kDevice]);
-  if (D <= 0 || D % 8 != 0 || D > 256 || B < 0 || H < 0 || S < 0 ||
+  const bool narrow_v = Dv != D;
+  if (D <= 0 || D % 8 != 0 || D > 256 || Dv <= 0 || Dv % 8 != 0 ||
+      (narrow_v && (dtype != 1 || Dv > D || D > 192 || Dv > 128)) ||
+      B < 0 || H < 0 || S < 0 ||
       H_kv <= 0 || H % H_kv != 0 || B > 65535 || H > 65535 || device < 0 ||
       device >= kMaxDevices || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -940,13 +956,22 @@ extern "C" int flash_attention_launch(const long long* a) {
   const Problem p{ptr(kQ), ptr(kK), ptr(kV), ptr(kO),
                   {st[0], st[1], st[2]}, {st[3], st[4], st[5]},
                   {st[6], st[7], st[8]}, {st[9], st[10], st[11]},
-                  B, H, H_kv, S, D, static_cast<int>(a[kCausal]),
+                  B, H, H_kv, S, D, Dv, static_cast<int>(a[kCausal]),
                   static_cast<int>(a[kWindow]), scale,
                   reinterpret_cast<cudaStream_t>(a[kStream]), device};
-  if (dtype == 1 && D <= 128) {   // the tensor-core route
+  if (dtype == 1 && (D <= 128 || narrow_v)) {   // the tensor-core route
     const int sms = sm_count(device);
     if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
-    return D <= 64 ? tc::dispatch<64>(p, sms) : tc::dispatch<128>(p, sms);
+    if (!narrow_v)
+      return D <= 64 ? tc::dispatch<64, 64>(p, sms)
+                     : tc::dispatch<128, 128>(p, sms);
+    // D_v < D: Q and K padded to 64, 128 or 192 columns, V to 64 or 128
+    if (D <= 64) return tc::dispatch<64, 64>(p, sms);
+    if (D <= 128)
+      return Dv <= 64 ? tc::dispatch<128, 64>(p, sms)
+                      : tc::dispatch<128, 128>(p, sms);
+    return Dv <= 64 ? tc::dispatch<192, 64>(p, sms)
+                    : tc::dispatch<192, 128>(p, sms);
   }
   if (dtype == 0) return dispatch<float>(p);
   return dispatch<__nv_bfloat16>(p);

@@ -63,7 +63,8 @@ def miniconv_encoder_stream_ref(x, weights, biases, plan, *, head_w=None,
 def attention_ref(q, k, v, *, causal: bool = True,
                   sliding_window: Optional[int] = None, scale=None):
     """Matches ``flash_attention`` (a copy of the reference's oracle).
-    q, k, v: (B, H, S, D) -> (B, H, S, D) in v's dtype."""
+    q, k (B, H, S, D) and v (B, H, S, D_v) -> (B, H, S, D_v) in v's dtype;
+    ``scale`` is ``D ** -0.5`` when None."""
     B, H, S, D = q.shape
     scale = scale if scale is not None else D ** -0.5
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale

@@ -1,18 +1,21 @@
 """Transformer blocks composed by ``repro_torch.models.transformer``
 according to ``ArchConfig.pattern``, as in ``repro.models.blocks``: the
 ``attn`` and ``swa`` blocks (with every MLP kind or an MoE), the RG-LRU
-``rec`` block and the Mamba-2 ``ssm`` block, each with its full-sequence
-forward, its cache and its one-token decode.
+``rec`` block, the Mamba-2 ``ssm`` block and, the port's own, the ``mla``
+block (multi-head latent attention, ``nn.mla``, with the MoE, or with the
+dense MLP of width ``cfg.d_ff_dense`` as a ``cfg.lead`` block), each with
+its full-sequence forward, its cache and its one-token decode.
 
 With ``cfg.ssm_ffn`` an ``ssm`` block carries the MLP (or MoE) after its
 mixer, as granite-4.0-h's layers do, and every block scales each residual
-branch by ``cfg.residual_multiplier``.  The mixers and the MoE mark their
+branch by ``cfg.residual_multiplier``.  The mixers and the FFNs mark their
 spans (``repro_torch.tracing``): ``attn``, ``ssm`` (with ``ssm.proj``,
-``ssm.scan``, ``ssm.out``) and ``moe`` (``nn.moe``).
+``ssm.scan``, ``ssm.out``), ``mla`` (``nn.mla``'s inside it), ``moe``
+(``nn.moe``) and ``mlp``.
 
 Decode writes each cache in place, the KV row
-(``nn.attention.decode_attention``) and the ``rec``/``ssm`` states
-alike, where the reference returns new caches:
+(``nn.attention.decode_attention``), the latent row (``nn.mla``) and the
+``rec``/``ssm`` states alike, where the reference returns new caches:
 ``DecoderModel.decode_step`` keeps the caches it was given.
 """
 from __future__ import annotations
@@ -21,13 +24,15 @@ import torch
 
 from repro_torch import tracing
 from repro_torch.device import DeviceLike
-from repro_torch.models.config import ArchConfig, SSMArch
+from repro_torch.models.config import ArchConfig, MLAArch, SSMArch
 from repro_torch.nn.attention import (AttentionConfig, attention,
                                      attention_init, decode_attention,
                                      init_kv_cache)
 from repro_torch.nn.layers import (dense, gelu, gelu_mlp, gelu_mlp_init,
                                    layernorm, layernorm_init, rmsnorm,
                                    rmsnorm_init, swiglu, swiglu_init)
+from repro_torch.nn.mla import (MLAConfig, init_latent_cache,
+                                mla_attention, mla_decode, mla_init)
 from repro_torch.nn.moe import MoEConfig, moe_apply, moe_init
 from repro_torch.nn.rglru import (RGLRUConfig, rglru_decode_step,
                                   rglru_forward, rglru_init,
@@ -71,7 +76,19 @@ def moe_config(cfg: ArchConfig) -> MoEConfig:
                      pad_experts_to=pad,
                      expert_parallel=cfg.moe_expert_parallel,
                      dispatch_bf16=cfg.moe_dispatch_bf16,
-                     d_ff_shared=e.d_ff_shared, dropless=e.dropless)
+                     d_ff_shared=e.d_ff_shared, dropless=e.dropless,
+                     router=e.router, routed_scaling=e.routed_scaling)
+
+
+def mla_config(cfg: ArchConfig) -> MLAConfig:
+    m = cfg.mla or MLAArch()
+    eps = {} if cfg.norm_eps is None else {"norm_eps": cfg.norm_eps}
+    return MLAConfig(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                     kv_lora_rank=m.kv_lora_rank,
+                     qk_nope_head_dim=m.qk_nope_head_dim,
+                     qk_rope_head_dim=m.qk_rope_head_dim,
+                     v_head_dim=m.v_head_dim, rope_theta=cfg.rope_theta,
+                     **eps)
 
 
 def ssm_config(cfg: ArchConfig) -> SSMConfig:
@@ -109,33 +126,37 @@ def _branch(cfg: ArchConfig, h):
 
 
 def ffn_init(gen: torch.Generator, cfg: ArchConfig, dtype,
-             device: DeviceLike = None):
-    """The norm before a block's MLP (or MoE) and its weights."""
+             device: DeviceLike = None, *, dense: bool = False):
+    """The norm before a block's MLP (or MoE) and its weights; with
+    ``dense`` (a ``cfg.lead`` block) the MLP of width ``cfg.d_ff_dense``."""
     p = {"norm2": norm_init(cfg, dtype, device)}
-    if cfg.moe is not None:
+    if cfg.moe is not None and not dense:
         p["moe"] = moe_init(gen, moe_config(cfg), dtype=dtype, device=device)
     else:
-        p["mlp"] = mlp_init(gen, cfg, dtype, device)
+        p["mlp"] = mlp_init(gen, cfg, dtype, device,
+                            d_ff=cfg.d_ff_dense if dense else None)
     return p
 
 
 def ffn_apply(params, cfg: ArchConfig, x):
-    """x plus the block's MLP (or MoE) branch on ``norm2(x)``.  Returns
-    (x, aux), aux the MoE's (empty for an MLP)."""
+    """x plus the block's MLP (or MoE, as its parameters hold) branch on
+    ``norm2(x)``.  Returns (x, aux), aux the MoE's (empty for an MLP)."""
     h = norm_apply(cfg, params["norm2"], x)
-    if cfg.moe is not None:
+    if "moe" in params:
         y, aux = moe_apply(params["moe"], moe_config(cfg), h)
     else:
-        y, aux = mlp_apply(cfg, params["mlp"], h), {}
+        with tracing.span("mlp"):
+            y, aux = mlp_apply(cfg, params["mlp"], h), {}
     return x + _branch(cfg, y), aux
 
 
 def mlp_init(gen: torch.Generator, cfg: ArchConfig, dtype,
-             device: DeviceLike = None):
+             device: DeviceLike = None, d_ff=None):
+    d_ff = d_ff or cfg.d_ff
     if cfg.mlp in ("swiglu", "geglu"):
-        return swiglu_init(gen, cfg.d_model, cfg.d_ff, dtype=dtype,
+        return swiglu_init(gen, cfg.d_model, d_ff, dtype=dtype,
                            device=device)
-    return gelu_mlp_init(gen, cfg.d_model, cfg.d_ff,
+    return gelu_mlp_init(gen, cfg.d_model, d_ff,
                          use_bias=cfg.mlp == "gelu", dtype=dtype,
                          device=device)
 
@@ -157,7 +178,16 @@ def mlp_apply(cfg: ArchConfig, p, x):
 # ---------------------------------------------------------------------------
 
 def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str, dtype,
-               device: DeviceLike = None):
+               device: DeviceLike = None, *, dense: bool = False):
+    """A block's parameters; ``dense``: a ``cfg.lead`` block, whose FFN is
+    the dense MLP of width ``cfg.d_ff_dense``."""
+    if kind == "mla":
+        return {
+            "norm1": norm_init(cfg, dtype, device),
+            "mla": mla_init(gen, mla_config(cfg), dtype=dtype,
+                            device=device),
+            **ffn_init(gen, cfg, dtype, device, dense=dense),
+        }
     if kind in ("attn", "swa"):
         return {
             "norm1": norm_init(cfg, dtype, device),
@@ -189,6 +219,11 @@ def block_apply(params, cfg: ArchConfig, kind: str, x, *,
     """Full-sequence forward.  Returns (x, aux); aux holds the MoE's
     ``moe_aux_loss``, ``router_entropy`` and routing, else nothing."""
     aux = {}
+    if kind == "mla":
+        with tracing.span("mla"):
+            h = mla_attention(params["mla"], mla_config(cfg),
+                              norm_apply(cfg, params["norm1"], x))
+        return ffn_apply(params, cfg, x + _branch(cfg, h))
     if kind in ("attn", "swa"):
         acfg = attn_config(cfg, kind, long_ctx=long_ctx)
         with tracing.span("attn"):
@@ -211,8 +246,12 @@ def block_apply(params, cfg: ArchConfig, kind: str, x, *,
 
 def block_init_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                      dtype, device: DeviceLike = None):
-    """A zero cache: the KV cache in ``dtype`` for attention, the f32
-    recurrent state and conv buffer for ``rec`` and ``ssm``."""
+    """A zero cache: the KV cache in ``dtype`` for attention, the latent
+    cache in ``dtype`` for ``mla``, the f32 recurrent state and conv buffer
+    for ``rec`` and ``ssm``."""
+    if kind == "mla":
+        return init_latent_cache(mla_config(cfg), batch, max_len, dtype,
+                                 device)
     if kind in ("attn", "swa"):
         return init_kv_cache(attn_config(cfg, kind), batch, max_len, dtype,
                              device)
@@ -234,8 +273,14 @@ def _write_state(cache, new):
 def block_decode(params, cfg: ArchConfig, kind: str, x, cache, index, *,
                  long_ctx: bool = False):
     """One-token decode.  Returns (x, cache), the cache written in place:
-    the KV row (``nn.attention.decode_attention``), or the ``rec``/``ssm``
-    state and its shifted conv buffer."""
+    the KV row (``nn.attention.decode_attention``), the latent row
+    (``nn.mla.mla_decode``), or the ``rec``/``ssm`` state and its shifted
+    conv buffer."""
+    if kind == "mla":
+        h, cache = mla_decode(params["mla"], mla_config(cfg),
+                              norm_apply(cfg, params["norm1"], x), cache,
+                              index)
+        return ffn_apply(params, cfg, x + _branch(cfg, h))[0], cache
     if kind in ("attn", "swa"):
         acfg = attn_config(cfg, kind, long_ctx=long_ctx)
         h, cache = decode_attention(params["attn"], acfg,
@@ -260,5 +305,5 @@ def block_decode(params, cfg: ArchConfig, kind: str, x, cache, index, *,
 
 __all__ = ["attn_config", "block_apply", "block_decode", "block_init",
            "block_init_cache", "ffn_apply", "ffn_init", "mlp_apply",
-           "mlp_init", "moe_config",
+           "mla_config", "mlp_init", "moe_config",
            "norm_apply", "norm_init", "rglru_config", "ssm_config"]

@@ -47,12 +47,19 @@ class MoEArch:
     # the shared experts' width where it is not n_shared_experts x d_ff
     # (granite-4.0-h: one shared expert of 1,536 beside experts of 768)
     d_ff_shared: int = 0
-    # every (token, k) pair computed, none dropped: the router's top-k
-    # logits through a softmax, the pairs sorted by expert (nn.moe)
+    # every (token, k) pair computed, none dropped, the pairs sorted by
+    # expert (nn.moe); its router is ``router``'s
     dropless: bool = False
+    # the dropless route's router: "softmax" (a softmax over each token's
+    # top-k logits) or "sigmoid_bias" (DeepSeek-V3: sigmoid scores, the
+    # top-k chosen by score + a per-expert correction bias, the chosen
+    # unbiased scores as gates, over their sum, times ``routed_scaling``)
+    router: str = "softmax"
+    routed_scaling: float = 1.0
 
     # fields the JAX package's dataclass lacks (``port_only_dict``)
-    PORT_ONLY: ClassVar[tuple] = ("d_ff_shared", "dropless")
+    PORT_ONLY: ClassVar[tuple] = ("d_ff_shared", "dropless", "router",
+                                  "routed_scaling")
 
     def shared_width(self, d_ff: int) -> int:
         """Width of the one fused shared-expert SwiGLU (0: none)."""
@@ -72,6 +79,20 @@ class SSMArch:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAArch:
+    """Multi-head latent attention's widths (DeepSeek-V3; no query LoRA,
+    RoPE on interleaved pairs): ``nn.mla``."""
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     arch_id: str
     family: str                  # dense | moe | ssm | hybrid | audio | vlm
@@ -85,12 +106,18 @@ class ArchConfig:
     d_ff: int
     vocab: int
 
-    # block composition: ``pattern`` repeats ``n_pattern`` times, then
-    # ``remainder``.  Block ids: attn | swa (sliding-window attn) | rec
-    # (RG-LRU) | ssm (Mamba-2).  attn/swa blocks carry the MLP (or MoE).
+    # block composition: ``lead``, then ``pattern`` repeated ``n_pattern``
+    # times, then ``remainder``.  Block ids: attn | swa (sliding-window
+    # attn) | rec (RG-LRU) | ssm (Mamba-2) | mla (multi-head latent
+    # attention).  attn/swa/mla blocks carry the MLP (or MoE); a ``lead``
+    # block carries the dense MLP of width ``d_ff_dense`` instead
+    # (DeepSeek-V3's first_k_dense_replace layers), and lies on the edge of
+    # any split.
     pattern: tuple = ("attn",)
     n_pattern: int = 0
     remainder: tuple = ()
+    lead: tuple = ()
+    d_ff_dense: int = 0
 
     # attention details
     qkv_bias: bool = False
@@ -119,6 +146,7 @@ class ArchConfig:
 
     moe: Optional[MoEArch] = None
     ssm: Optional[SSMArch] = None
+    mla: Optional[MLAArch] = None
     # ssm blocks carry the MLP (or MoE) after the mixer, as attn blocks do
     ssm_ffn: bool = False
     rnn_width: int = 0           # RG-LRU width (hybrid)
@@ -152,11 +180,12 @@ class ArchConfig:
     PORT_ONLY: ClassVar[tuple] = (
         "use_rope", "attention_multiplier", "norm_eps",
         "embedding_multiplier", "residual_multiplier", "logits_scaling",
-        "ssm_ffn")
+        "ssm_ffn", "lead", "d_ff_dense", "mla")
 
     # ---------------- derived -------------------------------------------
     def blocks(self) -> list[str]:
-        seq = list(self.pattern) * self.n_pattern + list(self.remainder)
+        seq = (list(self.lead) + list(self.pattern) * self.n_pattern
+               + list(self.remainder))
         if len(seq) != self.n_layers:
             raise ValueError(f"{self.arch_id}: pattern gives {len(seq)} "
                              f"blocks, n_layers is {self.n_layers}")
@@ -174,8 +203,8 @@ class ArchConfig:
 
     def has_ffn(self, kind: str) -> bool:
         """Whether a block of ``kind`` carries the MLP (or MoE)."""
-        return kind in ("attn", "swa", "rec") or (kind == "ssm"
-                                                  and self.ssm_ffn)
+        return kind in ("attn", "swa", "rec", "mla") or (kind == "ssm"
+                                                         and self.ssm_ffn)
 
     def param_count(self) -> int:
         """Analytic parameter count (total, incl. all experts)."""
@@ -185,6 +214,12 @@ class ArchConfig:
         attn = D * qk + 2 * D * kv + qk * D
         mlp_mult = 3 if self.mlp in ("swiglu", "geglu") else 2
         mlp = mlp_mult * D * F
+        if self.mla is not None:
+            m, H = self.mla, self.n_heads
+            mla = (D * H * m.qk_head_dim
+                   + D * (m.kv_lora_rank + m.qk_rope_head_dim)
+                   + m.kv_lora_rank * H * (m.qk_nope_head_dim + m.v_head_dim)
+                   + H * m.v_head_dim * D)
         ffn = mlp
         if self.moe is not None:
             e = self.moe
@@ -193,9 +228,11 @@ class ArchConfig:
         total = V * D  # embedding (tied)
         if not self.tie_embeddings:
             total += V * D
-        for b in self.blocks():
+        for i, b in enumerate(self.blocks()):
             if b in ("attn", "swa"):
                 total += attn
+            elif b == "mla":
+                total += mla
             elif b == "rec":
                 W = self.rnn_width or D
                 total += 2 * D * W + 2 * W * W + W * D
@@ -204,7 +241,9 @@ class ArchConfig:
                 d_in = s.expand * D
                 total += D * (2 * d_in + 2 * s.n_groups * s.d_state
                               + d_in // s.head_dim) + d_in * D
-            if self.has_ffn(b):
+            if i < len(self.lead):
+                total += mlp_mult * D * self.d_ff_dense
+            elif self.has_ffn(b):
                 total += mlp if b == "rec" else ffn
         if self.n_encoder_layers:  # whisper encoder (attn + mlp, layernorm)
             total += self.n_encoder_layers * (attn + mlp)
@@ -218,7 +257,7 @@ class ArchConfig:
         D, F = self.d_model, self.d_ff
         mlp_mult = 3 if self.mlp in ("swiglu", "geglu") else 2
         inactive = (e.n_experts - e.top_k) * mlp_mult * D * F
-        n_moe_layers = sum(1 for b in self.blocks()
+        n_moe_layers = sum(1 for b in self.blocks()[len(self.lead):]
                            if self.has_ffn(b) and b != "rec")
         return self.param_count() - n_moe_layers * inactive
 
@@ -234,7 +273,7 @@ class ArchConfig:
         else:  # keep one block of each distinct kind (e.g. rec + swa)
             kinds = list(dict.fromkeys(pat))
             reps, rem = 0, tuple(kinds[:2])
-        n_layers = reps * len(pat) + len(rem)
+        n_layers = len(self.lead) + reps * len(pat) + len(rem)
         moe = None
         if self.moe:
             moe = dataclasses.replace(self.moe, n_experts=4,
@@ -245,11 +284,17 @@ class ArchConfig:
                                                       512))
         ssm = dataclasses.replace(self.ssm, d_state=32, head_dim=16,
                                   chunk=8) if self.ssm else None
+        mla = dataclasses.replace(
+            self.mla, kv_lora_rank=min(self.mla.kv_lora_rank, 64),
+            qk_nope_head_dim=min(self.mla.qk_nope_head_dim, 32),
+            qk_rope_head_dim=min(self.mla.qk_rope_head_dim, 16),
+            v_head_dim=min(self.mla.v_head_dim, 16)) if self.mla else None
         return dataclasses.replace(
             self, n_layers=n_layers, d_model=d, n_heads=heads,
             n_kv_heads=kv, head_dim=hd, d_ff=min(self.d_ff, 512),
             vocab=min(self.vocab, 1024), pattern=pat, n_pattern=reps,
-            remainder=rem, moe=moe, ssm=ssm,
+            remainder=rem, moe=moe, ssm=ssm, mla=mla,
+            d_ff_dense=min(self.d_ff_dense, 512),
             rnn_width=min(self.rnn_width, d) if self.rnn_width else 0,
             sliding_window=min(self.sliding_window, 8)
             if self.sliding_window else None,
@@ -269,7 +314,7 @@ def as_port_config(cfg) -> ArchConfig:
     if isinstance(cfg, ArchConfig):
         return cfg
     d = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
-    for key, cls in (("moe", MoEArch), ("ssm", SSMArch)):
+    for key, cls in (("moe", MoEArch), ("ssm", SSMArch), ("mla", MLAArch)):
         if d.get(key) is not None:
             d[key] = cls(**dataclasses.asdict(d[key]))
     return ArchConfig(**d)

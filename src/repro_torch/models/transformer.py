@@ -10,7 +10,10 @@ over that axis takes the place of ``lax.scan``.  Each leaf is unbound
 once into its super-blocks (``torch.unbind``), so a backward pass stacks
 each leaf's gradient once instead of summing one zero-padded full-size
 tensor a super-block.  Caches stack the same way under ``"scan"``.  The
-remainder blocks are unrolled.
+lead blocks (``cfg.lead``, before the super-blocks, each with the dense MLP
+of width ``cfg.d_ff_dense``: DeepSeek-V3's first dense layers) and the
+remainder blocks are unrolled, under ``lead{i}_{kind}`` and
+``rem{i}_{kind}``; a split puts the lead blocks on the edge.
 
 A config's muP multipliers act here: the token embeddings times
 ``embedding_multiplier`` and the logits over ``logits_scaling``.  The split
@@ -81,6 +84,7 @@ class DecoderModel:
         self.pattern = tuple(cfg.pattern)
         self.n_pattern = cfg.n_pattern
         self.remainder = tuple(cfg.remainder)
+        self.lead = tuple(cfg.lead)
 
     # ------------------------------------------------------------------ init
     def init(self, gen: torch.Generator, device: DeviceLike = None) -> Any:
@@ -105,6 +109,9 @@ class DecoderModel:
 
         params = {"embed": embedding_init(gen, cfg.vocab, cfg.d_model,
                                           dtype=dtype, device=dev)}
+        for i, kind in enumerate(self.lead):
+            params[f"lead{i}_{kind}"] = block_init(gen, cfg, kind, dtype, dev,
+                                                   dense=True)
         if self.n_pattern > 0:
             params["scan"] = _draw_stacked(seg_init, self.n_pattern)
         for i, kind in enumerate(self.remainder):
@@ -157,6 +164,13 @@ class DecoderModel:
             aux = _add(aux, a)
         return x, aux
 
+    def _lead(self, params, x, long_ctx: bool):
+        """The lead blocks on x (they hold no MoE, so no auxiliary loss)."""
+        for i, kind in enumerate(self.lead):
+            x, _ = block_apply(params[f"lead{i}_{kind}"], self.cfg, kind, x,
+                               long_ctx=long_ctx)
+        return x
+
     def _head(self, params, x):
         x = norm_apply(self.cfg, params["final_norm"], x)
         if self.cfg.tie_embeddings:
@@ -179,6 +193,7 @@ class DecoderModel:
         ``last_only`` the logits of the last position alone, (B, 1, V) (the
         head runs on that position only: a prefill's next-token logits)."""
         x = constrain_act(self._embed_inputs(params, tokens, frontend_embeds))
+        x = self._lead(params, x, long_ctx)
         aux = None
         if self.n_pattern > 0:
             x, aux = self._segments(x, params["scan"], long_ctx, remat)
@@ -221,12 +236,14 @@ class DecoderModel:
     # params slice cleanly (views, no copies).
 
     def split_params(self, params, n_edge_segments: int):
-        """-> (edge_params, server_params) at a super-block boundary."""
+        """-> (edge_params, server_params) at a super-block boundary; the
+        lead blocks go to the edge."""
         k = n_edge_segments
-        edge = {"embed": params["embed"],
+        lead = {kk: v for kk, v in params.items() if kk.startswith("lead")}
+        edge = {"embed": params["embed"], **lead,
                 "scan": tree_map(lambda t: t[:k], params["scan"])}
         server = {kk: v for kk, v in params.items()
-                  if kk not in ("embed", "scan")}
+                  if kk not in ("embed", "scan") and kk not in lead}
         server["scan"] = tree_map(lambda t: t[k:], params["scan"])
         if self.cfg.tie_embeddings:
             server["embed"] = params["embed"]
@@ -234,9 +251,11 @@ class DecoderModel:
 
     def edge_forward(self, params, tokens=None, *, frontend_embeds=None,
                      long_ctx: bool = False):
-        """Embed + the first n_edge super-blocks -> boundary hidden."""
+        """Embed + the lead blocks + the first n_edge super-blocks ->
+        boundary hidden."""
         with tracing.span("lm.edge"):
             x = self._embed_inputs(params, tokens, frontend_embeds)
+            x = self._lead(params, x, long_ctx)
             return self._segments(x, params["scan"], long_ctx)[0]
 
     def server_forward(self, params, hidden, *, long_ctx: bool = False,
@@ -260,10 +279,12 @@ class DecoderModel:
                    device: DeviceLike = None):
         """Zero caches on ``device`` (CUDA by default): the super-blocks'
         stacked under ``"scan"`` with a leading ``n_pattern`` axis, as the
-        reference stacks them, the remainder's by name."""
+        reference stacks them, the lead and remainder blocks' by name."""
         cfg = self.cfg
         dev = resolve_device(device)
-        caches = {}
+        caches = {f"lead{i}_{kind}": block_init_cache(cfg, kind, batch,
+                                                      max_len, dtype, dev)
+                  for i, kind in enumerate(self.lead)}
         if self.n_pattern > 0:
             proto = {_seg_key(i, kind): block_init_cache(
                 cfg, kind, batch, max_len, dtype, dev)
@@ -288,6 +309,10 @@ class DecoderModel:
         cfg = self.cfg
         x = constrain_act(self._embed_tokens(params, token))
         index = torch.as_tensor(index, device=x.device)
+        for i, kind in enumerate(self.lead):
+            k = f"lead{i}_{kind}"
+            x, _ = block_decode(params[k], cfg, kind, x, caches[k], index,
+                                long_ctx=long_ctx)
         if self.n_pattern > 0:
             for seg, seg_cache in zip(_unstack(params["scan"]),
                                       _unstack(caches["scan"])):

@@ -19,7 +19,10 @@ Supports the two assigned MoE archs:
 
 and, with ``dropless``, granite-4.0-h's layer (:func:`_moe_dropless`): 72
 experts, top-10 by a softmax over the top-10 router logits, every (token,
-k) pair computed.  The pairs are sorted by expert and K7
+k) pair computed; and, with ``router="sigmoid_bias"``, DeepSeek-V3's
+(Moonlight-16B-A3B: 64 experts, top-6): sigmoid scores, the top-k chosen by
+score plus a per-expert correction bias, the chosen unbiased scores
+renormalised and scaled as gates.  The pairs are sorted by expert and K7
 (``kernels.moe_grouped``) runs each expert's SwiGLU over its contiguous
 rows; K9 (``kernels.moe_combine``) gathers each token's rows back and
 sums them with the shared expert's.  Nothing drops and no expert computes
@@ -77,10 +80,15 @@ class MoEConfig:
     # route every (token, k) pair (no capacity, no groups):
     # :func:`_moe_dropless`
     dropless: bool = False
+    # the dropless route's router (:func:`_route`): "softmax" or
+    # "sigmoid_bias", whose gates sum to ``routed_scaling``
+    router: str = "softmax"
+    routed_scaling: float = 1.0
 
     # fields the JAX package's dataclass lacks
     # (``models.config.port_only_dict``)
-    PORT_ONLY: ClassVar[tuple] = ("d_ff_shared", "dropless")
+    PORT_ONLY: ClassVar[tuple] = ("d_ff_shared", "dropless", "router",
+                                  "routed_scaling")
 
     @property
     def n_experts_padded(self) -> int:
@@ -90,7 +98,9 @@ class MoEConfig:
 def moe_init(gen: torch.Generator, cfg: MoEConfig, *, dtype=torch.float32,
              device: DeviceLike = None):
     """The router (f32), the experts' SwiGLU weights stacked on a leading
-    ``(E,)`` axis, and the shared expert with its gate when configured."""
+    ``(E,)`` axis, the shared expert with its gate when configured, and
+    the sigmoid router's f32 ``e_score_correction_bias`` (zeros, as
+    transformers initialises it)."""
     dev = resolve_device(device)
     E, D, Fd = cfg.n_experts_padded, cfg.d_model, cfg.d_ff_expert
     stacked = fan_in_init(fan_axis=1)   # each expert's own fan-in
@@ -110,6 +120,9 @@ def moe_init(gen: torch.Generator, cfg: MoEConfig, *, dtype=torch.float32,
                                   dtype=dtype, device=dev)
         if cfg.shared_expert_gate:
             p["shared_gate"] = dense_init(gen, D, 1, dtype=dtype, device=dev)
+    if cfg.router == "sigmoid_bias":
+        p["e_score_correction_bias"] = torch.zeros((E,), dtype=torch.float32,
+                                                   device=dev)
     return p
 
 
@@ -149,8 +162,15 @@ def moe_apply(params, cfg: MoEConfig, x, *, deterministic: bool = True,
     routes its own groups (:func:`_moe_sharded`).  With ``cfg.dropless``
     the layer routes by :func:`_moe_dropless` instead (one group, nothing
     dropped, ``keep`` all true), inside the span ``moe``; with gradients
-    off (serving) its aux holds the routing alone.
+    off (serving) its aux holds the routing alone.  Only the dropless route
+    takes the sigmoid router (``cfg.router``); the capacity route refuses
+    it.
     """
+    if cfg.router not in ROUTERS:
+        raise ValueError(f"unknown router {cfg.router!r}; known: {ROUTERS}")
+    if cfg.router != "softmax" and not cfg.dropless:
+        raise ValueError(f"the {cfg.router!r} router runs on the dropless "
+                         f"route alone (MoEConfig.dropless)")
     if cfg.dropless:
         with tracing.span("moe"):
             y, stats, routing = _moe_dropless(params, cfg, x)
@@ -296,17 +316,42 @@ def reset_counters() -> None:
     _Counts.routed_rows, _Counts.max_rows = 0, None
 
 
+ROUTERS = ("softmax", "sigmoid_bias")
+
+
+def _route(params, cfg: MoEConfig, logits):
+    """(expert ids (T, K), gates (T, K)) from the f32 router logits (T, E).
+
+    ``softmax``: the top-k logits, in descending order, through a softmax.
+    ``sigmoid_bias`` (DeepSeek-V3's ``noaux_tc`` with one group): scores
+    ``sigmoid(logits)``; the top-k of ``scores + e_score_correction_bias``
+    (the bias moves the choice alone), in descending order of that sum;
+    gates the chosen unbiased scores, over their sum (+ 1e-20:
+    ``norm_topk_prob``), times ``routed_scaling``."""
+    K = cfg.top_k
+    if cfg.router == "softmax":
+        top, expert_idx = torch.topk(logits, K, dim=-1)
+        return expert_idx, torch.softmax(top, dim=-1)
+    scores = torch.sigmoid(logits)
+    expert_idx = torch.topk(scores + params["e_score_correction_bias"], K,
+                            dim=-1).indices
+    gates = scores.gather(1, expert_idx)
+    gates = gates / (gates.sum(-1, keepdim=True) + 1e-20)
+    return expert_idx, gates * cfg.routed_scaling
+
+
 def _moe_dropless(params, cfg: MoEConfig, x):
     """The dropless layer on plain tensors: x (B, S, D) -> (y, stats,
     routing) as :func:`_moe` returns them (one group of B S tokens).
 
-    An f32 router; each token's top-k logits through a softmax give its
-    gates.  The (token, k) pairs are sorted by expert (a stable sort, so
-    an expert's rows keep token order) and each expert's contiguous rows
-    go through K7, which scales row r's output by its gate.  K9 sums each
-    token's k outputs in f32, in the order k = 0..K-1, from their sorted
-    rows (``pos``, the sort's inverse), adds the shared expert's output and
-    rounds once to x's type.  No pair is dropped.  The routing's sort and
+    An f32 router gives each token its k experts and gates
+    (:func:`_route`: a softmax over the top-k logits, or DeepSeek-V3's
+    bias-corrected sigmoid).  The (token, k) pairs are sorted by expert
+    (a stable sort, so an expert's rows keep token order) and each
+    expert's contiguous rows go through K7, which scales row r's output by
+    its gate.  K9 sums each token's k outputs in f32, in the order k =
+    0..K-1, from their sorted rows (``pos``, the sort's inverse), adds the
+    shared expert's output and rounds once to x's type.  No pair is dropped.  The routing's sort and
     offsets stay on the device: nothing here waits for the card.  With
     gradients off ``stats`` is None and ``routing`` (expert_idx, keep):
     the load-balance statistics feed a training loss alone."""
@@ -315,8 +360,7 @@ def _moe_dropless(params, cfg: MoEConfig, x):
     xt = x.reshape(T, D)
     with tracing.span("moe.route"):
         logits = dense(params["router"], xt.float())              # (T, E)
-        top, expert_idx = torch.topk(logits, K, dim=-1)           # (T, K)
-        gates = torch.softmax(top, dim=-1)
+        expert_idx, gates = _route(params, cfg, logits)           # (T, K)
     if _routes is not None:
         _routes.append(expert_idx)
     with tracing.span("moe.permute"):
@@ -466,5 +510,5 @@ def _moe_sharded(params, cfg: MoEConfig, x, deterministic, gen):
     return y, _aux(cfg, *map(reduced, stats), (expert_idx, keep, probs))
 
 
-__all__ = ["MoEConfig", "dropless_counters", "moe_apply", "moe_init",
-           "recorded_routes", "reset_counters"]
+__all__ = ["MoEConfig", "ROUTERS", "dropless_counters", "moe_apply",
+           "moe_init", "recorded_routes", "reset_counters"]

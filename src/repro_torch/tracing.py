@@ -32,8 +32,11 @@ The LM split path's (``models.transformer``): ``lm.edge``
 hold, a layer each, ``attn`` (an attention mixer) or ``ssm`` (a Mamba-2
 mixer, ``nn.ssm``: ``ssm.proj``, ``ssm.scan``, ``ssm.out``), and ``moe``
 (a dropless MoE, ``nn.moe``: ``moe.route``, ``moe.permute``,
-``moe.experts`` (K7), ``moe.combine``, ``moe.shared``).  Under
-``SplitModel`` they sit inside ``split.edge`` and ``split.server``.
+``moe.experts`` (K7), ``moe.combine``, ``moe.shared``), or ``mla`` (a
+multi-head latent attention mixer, ``nn.mla``: ``mla.q``, ``mla.kv``,
+``mla.rope``, ``mla.core`` (K5), ``mla.out``) and ``mlp`` (a dense
+layer's FFN).  Under ``SplitModel`` they sit inside ``split.edge`` and
+``split.server``.
 """
 from __future__ import annotations
 

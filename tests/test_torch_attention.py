@@ -40,7 +40,7 @@ from repro_torch.kernels.flash_attention import (_addressable,
                                                  tensor_core_route)
 from repro_torch.kernels.ops import causal_attention
 from repro_torch.kernels.ref import attention_ref
-from repro_torch.models.blocks import attn_config
+from repro_torch.models.blocks import attn_config, mla_config
 from repro_torch.nn import attention as t_attn
 from repro_torch.nn import layers as t_layers
 from repro_torch.nn.rotary import apply_rope
@@ -355,7 +355,22 @@ K5_ARCHS = {
     "recurrentgemma-9b": False,      # logit softcap on its swa blocks
     "mamba2-130m": None,             # attention-free
     "granite-4.0-h-small": True,     # NoPE, its 1/128 scale passed to K5
+    "moonlight-16b-a3b": True,       # MLA: values narrower than keys, bf16
 }
+
+
+def mla_takes_k5(m) -> bool:
+    """Whether K5 (its checks on ``meta``, which launch nothing) takes an
+    MLA core of these widths in bf16."""
+    q = torch.empty((1, m.n_heads, 128, m.qk_head_dim), dtype=torch.bfloat16,
+                    device="meta")
+    v = torch.empty((1, m.n_heads, 128, m.v_head_dim), dtype=torch.bfloat16,
+                    device="meta")
+    try:
+        flash_attention(q, q, v, scale=m.softmax_scale)
+    except ValueError:
+        return False
+    return True
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -369,8 +384,12 @@ def test_which_configs_take_k5(reduced):
         else:
             cores = [attn_config(cfg, kd) for kd in cfg.blocks()
                      if kd in ("attn", "swa")]
-        got[arch] = (None if not cores else
-                     all(t_attn.flash_eligible(c, None) for c in cores))
+        eligible = [t_attn.flash_eligible(c, None) for c in cores]
+        # an MLA core takes K5 in bf16, the dtype its configs serve in:
+        # the kernel's checks (on meta) accept its widths
+        eligible += [mla_takes_k5(mla_config(cfg))
+                     for kd in cfg.blocks() if kd == "mla"]
+        got[arch] = None if not eligible else all(eligible)
     assert got == K5_ARCHS
 
 

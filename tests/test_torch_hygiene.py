@@ -74,9 +74,10 @@ def test_port_files_exist():
                 "analysis/rules_rng.py", "analysis/rules_timing.py",
                 "analysis/rules_schema.py", "analysis/rules_kernel.py",
                 "tracing.py", "kernels/ssd_scan.py",
-                "kernels/moe_combine.py"):
+                "kernels/moe_combine.py", "nn/mla.py",
+                "configs/moonlight_16b_a3b.py"):
         assert mod in names, mod
-    assert len([n for n in names if n.startswith("configs/")]) == 12
+    assert len([n for n in names if n.startswith("configs/")]) == 13
     assert {p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")} == \
         {"miniconv_encoder.cu", "miniconv_layer.cu", "flash_attention.cu",
          "moe_grouped.cu", "ssd_scan.cu", "moe_combine.cu"}
